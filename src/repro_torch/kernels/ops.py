@@ -1,0 +1,89 @@
+"""Public entry points for the kernels: device dispatch, tile lookup for the
+plain versions, and launch counts.
+
+Dispatch follows the tensor's device and nothing else: a CPU tensor runs
+the kernel's plain PyTorch version, a CUDA tensor launches the hand-written
+CUDA kernel (``csrc/``), which raises if it cannot take the input.  There
+is no fallback from the kernel to the plain version and no switch that
+sends CUDA tensors to it.
+
+Each CUDA wrapper counts its own launches in a plain integer attribute
+(``launch_counts()`` reads them, ``reset_launch_counts()`` zeroes them), so
+a run can show that it went through the kernels.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from . import autotune
+from .int4_matmul import int4_matmul_fused_cuda, int4_matmul_fused_plain
+from .paged_attention import (
+    flash_prefill_cuda,
+    flash_prefill_plain,
+    paged_decode_attention_cuda,
+    paged_decode_attention_plain,
+)
+
+#: kernel name -> its CUDA wrapper (the holder of the launch count)
+CUDA_WRAPPERS = {
+    "int4_matmul_fused": int4_matmul_fused_cuda,
+    "flash_prefill": flash_prefill_cuda,
+    "paged_decode_attention": paged_decode_attention_cuda,
+}
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in CUDA_WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in CUDA_WRAPPERS.values():
+        fn.launches = 0
+
+
+def _on_cuda(t: torch.Tensor, op: str) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{op}: no kernel for device {t.device}")
+
+
+def int4_matmul_fused_kmajor(x, w_kmajor, w_scale):
+    """Fused activation-quantize W4A4 on planar K-major weights
+    ([ceil(K/2), N] uint8): float x [M, K] in, f32 [M, N] out."""
+    if _on_cuda(x, "int4_matmul_fused"):
+        return int4_matmul_fused_cuda(x.to(torch.float32).contiguous(),
+                                      w_kmajor, w_scale)
+    return int4_matmul_fused_plain(x, w_kmajor, w_scale)
+
+
+def paged_decode_attention(q, k_pool, v_pool, tbl, last_pos, *,
+                           window: int = 0):
+    """Decode attention over the KV page pool: q [B, H, hd]; pools
+    [P, ps, KV, hd]; tbl [B, pages_per_seq]; last_pos [B] (-1 = inactive
+    row, zero output)."""
+    if _on_cuda(q, "paged_decode_attention"):
+        return paged_decode_attention_cuda(q, k_pool, v_pool, tbl, last_pos,
+                                           window=window)
+    B, H, hd = q.shape
+    ps = k_pool.shape[1]
+    b = autotune.attn_default_blocks("attn.paged_decode", B,
+                                     tbl.shape[1] * ps, H * hd, group_size=ps)
+    return paged_decode_attention_plain(q, k_pool, v_pool, tbl, last_pos,
+                                        window=window, pp=max(1, b["bk"] // ps))
+
+
+def flash_prefill(q, k, v, q_positions, k_positions, *, window: int = 0):
+    """Tiled flash prefill with position masks: q [B, Sq, H, hd]; k/v
+    [B, Skv, KV, hd]; positions [B, S] (-1 = padding)."""
+    if _on_cuda(q, "flash_prefill"):
+        return flash_prefill_cuda(q, k, v, q_positions, k_positions,
+                                  window=window)
+    B, Sq, H, hd = q.shape
+    b = autotune.attn_default_blocks("attn.prefill", Sq, k.shape[1], H * hd)
+    return flash_prefill_plain(q, k, v, q_positions, k_positions,
+                               window=window, bk=b["bk"])

@@ -1,0 +1,254 @@
+"""Paged decode attention and flash prefill: the CUDA kernels
+(``csrc/paged_decode.cu``, ``csrc/flash_prefill.cu``) and their plain
+PyTorch versions.
+
+Ports ``repro/kernels/paged_attention.py``:
+
+``paged_decode_attention``
+    One-token attention per batch row read straight out of the page pool
+    ``[P, ps, KV, hd]`` through the block table ``[B, pages_per_seq]``.
+    Sentinel table entries (== P) are clamped and their positions masked;
+    positions past ``last_pos`` (and rows with ``last_pos == -1``) are
+    masked, inactive rows output zeros.  The plain version copies the JAX
+    package's two-pass XLA twin (blocked QK into a score buffer, the exact
+    softmax with the probabilities cast to the pool dtype, blocked PV with
+    f32 partial sums); the CUDA kernel runs a single-pass online softmax and
+    agrees with it to bf16 tolerance.  bf16 (and, in the plain version, f32)
+    pools only: the int8/int4 pools wait.
+
+``flash_prefill``
+    Tiled causal GQA attention over the in-flight prompt, masks from the
+    explicit position vectors (-1 = padding), online softmax in f32.  The
+    plain version copies ``flash_prefill_xla`` with its kv tile.
+
+With bf16 activations the QK scores are rounded to bf16 before the scale,
+as the dense path's bf16 einsum rounds them.  ``kernels.ops`` picks the
+plain version for CPU tensors and the kernel for CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import _build
+
+NEG_INF = -1e30
+
+
+def _round_scores(s: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    """f32-accumulated QK -> the dense path's score values: bf16
+    activations round the product to bf16 before the f32 softmax."""
+    if compute_dtype == torch.bfloat16:
+        s = s.to(torch.bfloat16)
+    return s.to(torch.float32)
+
+
+# ------------------------------------------------------- decode (paged) ----
+def paged_decode_attention_plain(q, k_pool, v_pool, tbl, last_pos,
+                                 window: int = 0, pp: int = 4) -> torch.Tensor:
+    """Two-pass plain version (``paged_decode_attention_xla``):
+
+      1. blocked QK into a [B, KV, G, S] f32 score buffer, pp pages a block,
+      2. the exact softmax, probabilities cast to the pool dtype,
+      3. blocked PV with f32 partial sums.
+
+    Both loops stop at the block holding the batch's last active position.
+    Reading that position costs one device->host sync on a CUDA tensor;
+    this version is the CPU path and the kernel's yardstick, not a hot
+    path on the card."""
+    B, H, hd = q.shape
+    P, ps, KV = k_pool.shape[:3]
+    pps = tbl.shape[1]
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    cd = q.dtype
+
+    pp = max(1, min(pp, pps))
+    nj = -(-pps // pp)
+    tokens = pp * ps
+    S = nj * tokens
+    tbl_p = torch.full((B, nj * pp), P, dtype=torch.int32, device=tbl.device)
+    tbl_p[:, :pps] = tbl.to(torch.int32)
+    # out-of-bounds sentinel entries gather the last page (jnp indexing
+    # clamps); their positions lie past last_pos and mask away
+    tbl_p = tbl_p.clamp(max=P - 1).long()
+    last_pos = last_pos.to(torch.int32)
+    q4 = q.reshape(B, KV, G, hd)
+    steps = min(max((int(last_pos.max()) + tokens) // tokens, 1), nj)
+
+    sbuf = torch.full((B, KV, G, S), NEG_INF, dtype=torch.float32,
+                      device=q.device)
+    for j in range(steps):
+        cols = tbl_p[:, j * pp:(j + 1) * pp]                 # [B, pp]
+        kb = k_pool[cols].reshape(B, tokens, KV, hd)
+        s = torch.einsum("bkgh,btkh->bkgt", q4, kb.to(cd))
+        sbuf[..., j * tokens:(j + 1) * tokens] = _round_scores(s, cd) * scale
+
+    pos = torch.arange(S, dtype=torch.int32, device=q.device)
+    mask = (pos[None, :] <= last_pos[:, None]) & (last_pos >= 0)[:, None]
+    if window:
+        mask &= (last_pos[:, None] - pos[None, :]) < window
+    sbuf = torch.where(mask[:, None, None, :], sbuf, NEG_INF)
+    probs = torch.softmax(sbuf, dim=-1).to(v_pool.dtype)
+
+    acc = torch.zeros((B, KV, G, hd), dtype=torch.float32, device=q.device)
+    for j in range(steps):
+        cols = tbl_p[:, j * pp:(j + 1) * pp]
+        vb = v_pool[cols].reshape(B, tokens, KV, hd)
+        p = probs[..., j * tokens:(j + 1) * tokens]
+        acc = acc + torch.einsum("bkgt,btkh->bkgh", p.to(torch.float32),
+                                 vb.to(torch.float32))
+    acc = acc * (last_pos >= 0)[:, None, None, None]
+    return acc.reshape(B, H, hd).to(q.dtype)
+
+
+def _bind_decode(lib: ctypes.CDLL) -> None:
+    lib.paged_decode_launch.argtypes = [ctypes.c_void_p] * 6 \
+        + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+    lib.paged_decode_launch.restype = ctypes.c_int
+
+
+def _check_cuda(name: str, tensors, dtypes) -> None:
+    dev = tensors[0].device
+    if not dev.type == "cuda":
+        raise ValueError(f"{name}: operands must be CUDA tensors")
+    for t, dt in zip(tensors, dtypes):
+        if t.device != dev:
+            raise ValueError(f"{name}: operands on different devices")
+        if t.dtype != dt:
+            raise TypeError(f"{name}: got {t.dtype}, want {dt}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+
+
+def paged_decode_attention_cuda(q, k_pool, v_pool, tbl, last_pos,
+                                window: int = 0) -> torch.Tensor:
+    """Launch the paged decode kernel: q [B, H, hd] bf16, pools
+    [P, ps, KV, hd] bf16, tbl [B, pps] int32, last_pos [B] int32."""
+    bf, i32 = torch.bfloat16, torch.int32
+    _check_cuda("paged_decode_attention_cuda",
+                (q, k_pool, v_pool, tbl, last_pos), (bf, bf, bf, i32, i32))
+    B, H, hd = q.shape
+    P, ps, KV = k_pool.shape[:3]
+    pps = tbl.shape[1]
+    if (v_pool.shape != k_pool.shape or k_pool.shape[3] != hd
+            or H % KV or tbl.shape[0] != B or last_pos.shape != (B,)):
+        raise ValueError(
+            f"paged_decode_attention_cuda: q {tuple(q.shape)}, pool "
+            f"{tuple(k_pool.shape)}, tbl {tuple(tbl.shape)}, last_pos "
+            f"{tuple(last_pos.shape)}")
+    G = H // KV
+    if hd != 64 or G > 8:
+        raise ValueError(f"paged_decode_attention_cuda: head dim {hd} with "
+                         f"{G} query heads per KV head is not supported")
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    lib = _build.load("paged_decode", _bind_decode)
+    code = lib.paged_decode_launch(
+        _build.ptr(q), _build.ptr(k_pool), _build.ptr(v_pool),
+        _build.ptr(tbl), _build.ptr(last_pos), _build.ptr(out),
+        B, H, KV, hd, P, ps, pps, int(window), 1.0 / math.sqrt(hd),
+        _build.stream_of(q))
+    _build.check(lib, code, "paged_decode_attention")
+    paged_decode_attention_cuda.launches += 1
+    return out
+
+
+paged_decode_attention_cuda.launches = 0
+
+
+# ------------------------------------------------------- prefill (flash) ----
+def flash_prefill_plain(q, k, v, q_positions, k_positions, window: int = 0,
+                        bk: int = 128) -> torch.Tensor:
+    """Plain version (``flash_prefill_xla``): a loop over kv tiles with the
+    online-softmax carry; scores exist as [B, KV, G, Sq, bk] tiles."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    cd = q.dtype
+    bk = min(bk, max(8, k.shape[1]))
+
+    pad = (-k.shape[1]) % bk
+    k_positions = k_positions.to(torch.int32)
+    if pad:
+        zeros = torch.zeros((B, pad) + tuple(k.shape[2:]), dtype=k.dtype,
+                            device=k.device)
+        k = torch.cat([k, zeros], dim=1)
+        v = torch.cat([v, zeros.to(v.dtype)], dim=1)
+        k_positions = torch.cat(
+            [k_positions, torch.full((B, pad), -1, dtype=torch.int32,
+                                     device=k.device)], dim=1)
+    nk = k.shape[1] // bk
+    qg = q.reshape(B, Sq, KV, G, hd)
+    qpos = q_positions.to(torch.int32)
+
+    m = torch.full((B, KV, G, Sq, 1), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, KV, G, Sq, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, KV, G, Sq, hd), dtype=torch.float32, device=q.device)
+    for j in range(nk):
+        kb = k[:, j * bk:(j + 1) * bk]
+        vb = v[:, j * bk:(j + 1) * bk]
+        kposb = k_positions[:, j * bk:(j + 1) * bk]
+        s = torch.einsum("bqkgh,btkh->bkgqt", qg, kb.to(cd))
+        s = _round_scores(s, cd) * scale
+        mask = (qpos[:, :, None] >= kposb[:, None, :]) \
+            & (kposb[:, None, :] >= 0)
+        if window:
+            mask &= (qpos[:, :, None] - kposb[:, None, :]) < window
+        mask = mask[:, None, None]                     # [B, 1, 1, Sq, bk]
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(mask, torch.exp(s - m_new), 0.0)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        pv = torch.einsum("bkgqt,btkh->bkgqh", p, vb.to(torch.float32))
+        acc = alpha * acc + pv
+        m = m_new
+    out = acc / torch.where(l > 0, l, 1.0)             # [B, KV, G, Sq, hd]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def _bind_flash(lib: ctypes.CDLL) -> None:
+    lib.flash_prefill_launch.argtypes = [ctypes.c_void_p] * 6 \
+        + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    lib.flash_prefill_launch.restype = ctypes.c_int
+
+
+def flash_prefill_cuda(q, k, v, q_positions, k_positions,
+                       window: int = 0) -> torch.Tensor:
+    """Launch the flash prefill kernel: q [B, Sq, H, hd] bf16, k/v
+    [B, Skv, KV, hd] bf16, positions [B, S] int32 (-1 = padding)."""
+    bf, i32 = torch.bfloat16, torch.int32
+    _check_cuda("flash_prefill_cuda", (q, k, v, q_positions, k_positions),
+                (bf, bf, bf, i32, i32))
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    if (v.shape != k.shape or k.shape[0] != B or k.shape[3] != hd or H % KV
+            or q_positions.shape != (B, Sq) or k_positions.shape != (B, Skv)):
+        raise ValueError(
+            f"flash_prefill_cuda: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+            f"positions {tuple(q_positions.shape)} / "
+            f"{tuple(k_positions.shape)}")
+    if hd != 64 or H // KV > 128:
+        raise ValueError(f"flash_prefill_cuda: head dim {hd} with "
+                         f"{H // KV} query heads per KV head is not supported")
+    out = torch.empty_like(q)
+    if B == 0 or Sq == 0:
+        return out
+    lib = _build.load("flash_prefill", _bind_flash)
+    code = lib.flash_prefill_launch(
+        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(q_positions),
+        _build.ptr(k_positions), _build.ptr(out), B, Sq, Skv, H, KV, hd,
+        int(window), 1.0 / math.sqrt(hd), _build.stream_of(q))
+    _build.check(lib, code, "flash_prefill")
+    flash_prefill_cuda.launches += 1
+    return out
+
+
+flash_prefill_cuda.launches = 0

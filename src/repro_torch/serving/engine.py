@@ -1,0 +1,386 @@
+"""Inference engine: runs the prefill/decode steps over the scheduled batch
+with per-request state tracking and latency/throughput stats (PyTorch port
+of ``repro/serving/engine.py``, bucketed paged path).
+
+One `step()` is a decode-step boundary: admit (+ prefill) newly arrived
+requests, preempt if the page pool is dry, run one decode step for the
+running set, retire finished requests.  Greedy decoding.
+
+The pool and the block-table pool ``[max_batch, pages_per_seq]`` live on
+the device.  Table rows move host->device only when a request is admitted
+or its page allocation grows, never per step; the steps gather the batch's
+rows on the device.  Decode batches pad to the nearest bucket with inactive
+rows (position -1: attention masks them, their KV writes go to the pool's
+spill page), prompts left-pad to a power-of-two bucket.
+
+Device policy: the engine runs on ``cuda`` unless the caller passes
+``device="cpu"``, and raises when no GPU is present and the CPU was not
+asked for.  On CUDA every kernel-backed op launches its CUDA kernel; on the
+CPU the kernels' plain versions run.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..core.quant_plan import pack_for_serving
+from ..launch.steps import make_serving_steps
+from ..models.transformer import init_model, with_layer_views
+from ..observability.metrics import COUNT_BUCKETS, MetricsRegistry
+from .kv_pages import PagedKVCacheManager, init_paged_caches
+from .scheduler import ERROR, OK, SHED, Request, Scheduler, ShedError
+
+
+class EngineStuckError(RuntimeError):
+    """run_until_idle() exhausted its step budget with work still queued
+    or running."""
+
+
+def resolve_device(device) -> torch.device:
+    """The serving device: ``cuda`` unless the caller asks for the CPU;
+    raises when CUDA is asked for and no GPU is present."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch versions on the CPU")
+    return dev
+
+
+def build_params(cfg, rt, seed: int = 0, device="cuda"):
+    """Init random serving weights from a seeded ``torch.Generator`` on
+    `device` and, for the pre-packing sites of the active plan, pack them
+    (int4 nibbles + scales + the kernel's planar K-major twin)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return pack_for_serving(init_model(gen, cfg), cfg, rt)
+
+
+class InferenceEngine:
+    """submit() requests, step() the world, collect() finished requests."""
+
+    def __init__(self, cfg, rt, sv, params=None, seed: int = 0,
+                 clock=time.time, metrics: Optional[MetricsRegistry] = None,
+                 device="cuda"):
+        if sv.layout != "paged" or sv.step != "bucketed":
+            raise NotImplementedError(
+                "only the bucketed paged layout is ported "
+                f"(got layout={sv.layout!r}, step={sv.step!r})")
+        self.cfg, self.rt, self.sv = cfg, rt, sv
+        self.device = resolve_device(device)
+        self.clock = clock
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        if params is None:
+            params = build_params(cfg, rt, seed, self.device)
+        self.params = with_layer_views(params, cfg)
+
+        self.kv = PagedKVCacheManager(sv, metrics=self.metrics)
+        self.caches = init_paged_caches(cfg, rt, sv, device=self.device)
+        # rows start at the sentinel (== num_pages): writes through an
+        # unassigned slot go to the spill page, reads are zeros
+        self._tbl = torch.full((sv.max_batch, sv.pages_per_seq),
+                               sv.num_pages, dtype=torch.int32,
+                               device=self.device)
+        # rid -> (slot, uploaded page ids): a row re-uploads only when the
+        # allocation changed
+        self._tbl_ver: Dict[int, tuple] = {}
+        self.scheduler = Scheduler(self.kv, sv.max_batch,
+                                   metrics=self.metrics,
+                                   max_queue=sv.max_queue)
+        self._prefill, self._prefill_tail, self._decode = make_serving_steps(
+            cfg, rt)
+
+        self._next_rid = 0
+        self._finished: List[Request] = []
+        self._all: Dict[int, Request] = {}
+        self.n_steps = 0
+        self.n_decode_tokens = 0
+        self.n_prefill_tokens = 0
+        self.n_prefix_hit_tokens = 0
+        self.n_tokens_packed = 0
+        self.n_tokens_wasted = 0
+        self.t_start = None
+
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
+
+    # -------------------------------------------------------------- api --
+    def submit(self, prompt, max_new: int, arrival: Optional[float] = None,
+               eos_id: Optional[int] = None) -> int:
+        """Queue a request.  Raises ShedError when the bounded admission
+        queue is full and ValueError when the request can never fit; both
+        retire it (outcome shed / error), collectable via collect()."""
+        rid = self._next_rid
+        self._next_rid += 1
+        now = self.clock()
+        req = Request(rid=rid, prompt=np.asarray(prompt, np.int32),
+                      max_new=max_new,
+                      arrival=now if arrival is None else arrival,
+                      eos_id=eos_id)
+        req.t_visible = now
+        self._all[rid] = req
+        try:
+            self.scheduler.submit(req)
+        except (ShedError, ValueError) as exc:
+            req.state = "finished"
+            req.outcome = SHED if isinstance(exc, ShedError) else ERROR
+            req.t_finish = now
+            self._finished.append(req)
+            self._observe_retire(req)
+            raise
+        self.metrics.counter("requests_submitted_total",
+                             "requests accepted into the queue").inc()
+        return rid
+
+    def collect(self) -> List[Request]:
+        out, self._finished = self._finished, []
+        return out
+
+    def warmup(self, prompt_lens=()) -> None:
+        """Run every expected step shape once (one prefill per prompt
+        bucket, one decode per batch bucket) before the measured window,
+        so first-call costs (kernel loading, allocator growth) stay out of
+        the stats.  Every position is -1: all writes go to the spill page
+        and the pool is untouched."""
+        slot0 = torch.zeros((1,), dtype=torch.int32, device=self.device)
+        for L in sorted({self.sv.prompt_bucket(n) for n in prompt_lens}):
+            tokens = torch.zeros((1, L), dtype=torch.int32, device=self.device)
+            positions = torch.full((1, L), -1, dtype=torch.int32,
+                                   device=self.device)
+            _, self.caches = self._prefill(self.params, tokens, self.caches,
+                                           positions, self._tbl, slot0)
+            if self.sv.prefix_cache:
+                _, self.caches = self._prefill_tail(
+                    self.params, tokens, self.caches, positions, self._tbl,
+                    slot0)
+        for nb in self.sv.buckets:
+            tok = torch.zeros((nb, 1), dtype=torch.int32, device=self.device)
+            pos = torch.full((nb, 1), -1, dtype=torch.int32,
+                             device=self.device)
+            _, self.caches = self._decode(
+                self.params, tok, self.caches, pos, self._tbl,
+                torch.zeros((nb,), dtype=torch.int32, device=self.device))
+
+    def step(self) -> int:
+        """One decode-step boundary; returns the number of running requests
+        after the step (0 = idle)."""
+        return self._step_bucketed()
+
+    def _step_bucketed(self) -> int:
+        t0 = time.perf_counter()
+        now = self.clock()
+        if self.t_start is None:
+            self.t_start = now
+        admitted = self.scheduler.admit(now)
+        for req in admitted:
+            self._prefill_request(req)
+        self._retire()                 # a 1-token request is done at prefill
+        self.scheduler.ensure_decode()
+        batch = self.scheduler.batch()
+        if batch:
+            self._decode_batch(batch)
+        self.n_steps += 1
+        self._retire()
+        self._observe_step(t0, batch)
+        return len(self.scheduler.running)
+
+    def _observe_step(self, t0: float, batch: List[Request]) -> None:
+        m = self.metrics
+        m.counter("steps_total", "engine decode-step boundaries").inc()
+        m.histogram("step_wall_us", "wall time per engine step").observe(
+            (time.perf_counter() - t0) * 1e6)
+        if batch:
+            m.histogram("decode_batch_size", "running rows per decode step",
+                        buckets=COUNT_BUCKETS).observe(len(batch))
+        m.gauge("queue_depth", "requests waiting for admission").set(
+            len(self.scheduler.waiting))
+        m.gauge("running_requests", "requests in the decode batch").set(
+            len(self.scheduler.running))
+        m.gauge("kv_pool_in_use_pages", "pages held by running requests").set(
+            self.kv.in_use)
+        m.gauge("kv_pool_high_water_pages",
+                "peak concurrent in-use pages").set(self.kv.high_water)
+
+    def _retire(self) -> None:
+        now = self.clock()
+        for req in list(self.scheduler.running.values()):
+            if req.done:
+                self.scheduler.finish(req, now)
+                self._finished.append(req)
+                self._observe_retire(req)
+
+    def _observe_retire(self, req: Request) -> None:
+        m = self.metrics
+        out = req.outcome or ERROR
+        m.counter("requests_retired_total", "requests retired, any outcome",
+                  outcome=out).inc()
+        if out == OK:
+            m.counter("requests_finished_total",
+                      "requests fully decoded").inc()
+        m.histogram("request_latency_us", "submit-to-retire wall time",
+                    outcome=out).observe((req.t_finish - req.t_visible) * 1e6)
+        if req.t_first is not None:
+            m.histogram("ttft_us", "time to first token",
+                        outcome=out).observe(
+                            (req.t_first - req.t_visible) * 1e6)
+
+    def run_until_idle(self, max_steps: int = 100_000) -> None:
+        for _ in range(max_steps):
+            if self.step() == 0 and self.scheduler.idle:
+                return
+        raise EngineStuckError(
+            f"engine not idle after {max_steps} steps: queued rids "
+            f"{[r.rid for r in self.scheduler.waiting]}, running rids "
+            f"{list(self.scheduler.running)}")
+
+    # -------------------------------------------------------- internals --
+    def _observe_packing(self, used: int, capacity: int) -> None:
+        wasted = max(capacity - used, 0)
+        self.n_tokens_packed += used
+        self.n_tokens_wasted += wasted
+        self.metrics.counter(
+            "padding_tokens_wasted_total",
+            "padding token rows computed and discarded").inc(wasted)
+
+    def _sync_tables(self, batch: List[Request]) -> None:
+        """Upload block-table rows whose page allocation changed since the
+        last upload (admission, page growth): the only host->device table
+        traffic."""
+        for req in batch:
+            ver = (req.slot, tuple(self.kv.pages.get(req.rid, ())))
+            if self._tbl_ver.get(req.rid) != ver:
+                self._tbl[req.slot] = self._dev(self.kv.table_row(req.rid))
+                self._tbl_ver[req.rid] = ver
+                self.metrics.counter(
+                    "block_table_uploads_total",
+                    "host->device block-table row uploads").inc()
+        running = self.scheduler.running
+        for rid in [r for r in self._tbl_ver if r not in running]:
+            del self._tbl_ver[rid]
+
+    def _prefill_request(self, req: Request) -> None:
+        """Prefill a (re-)admitted request's uncached prefix tail (batch of
+        one, left-padded to a power-of-two bucket) and emit its first token.
+        After a prefix-cache hit (``req.n_cached`` > 0) only the tail runs,
+        through the tail-prefill step that attends over the cached pages."""
+        prefix = req.prefix
+        L = len(prefix)
+        hit = req.n_cached                     # page-aligned, < L by design
+        tail = prefix[hit:]
+        n = len(tail)
+        Lb = self.sv.prompt_bucket(n)
+        tokens = np.zeros((1, Lb), np.int32)
+        tokens[0, Lb - n:] = tail
+        base = np.arange(Lb, dtype=np.int32) - (Lb - n)
+        # pad rows stay negative (spilled writes, masked queries) after the
+        # hit offset shifts the real tail to hit..L-1
+        positions = np.where(base >= 0, base + hit, -1).astype(np.int32)[None]
+        self._sync_tables([req])
+        step = self._prefill_tail if hit else self._prefill
+        tok, self.caches = step(
+            self.params, self._dev(tokens), self.caches,
+            self._dev(positions), self._tbl,
+            self._dev(np.asarray([req.slot], np.int32)))
+
+        req.n_cached = L
+        self.n_prefill_tokens += n
+        self.n_prefix_hit_tokens += hit
+        m = self.metrics
+        m.counter("prefill_tokens_total",
+                  "tokens pushed through prefill").inc(n)
+        m.counter("prefix_hit_tokens_total",
+                  "prompt/resume tokens served from cached pages").inc(hit)
+        self._observe_packing(n, Lb)
+        self.kv.register_upto(req.rid, prefix, L)   # index newly-full pages
+        # the prefill's one device->host sync: its first token
+        req.tokens.append(int(tok[0]))  # repro: ignore[host-sync-in-hot-path]
+        if req.t_first is None:
+            req.t_first = self.clock()
+
+    def _decode_batch(self, batch: List[Request]) -> None:
+        """One decode step over the running set, padded to a bucket."""
+        n = len(batch)
+        nb = self.sv.decode_bucket(n)
+        tok = np.zeros((nb, 1), np.int32)
+        pos = np.full((nb, 1), -1, np.int32)
+        slots = np.zeros((nb,), np.int32)
+        for i, req in enumerate(batch):
+            tok[i, 0] = req.tokens[-1]      # feed the newest generated token
+            pos[i, 0] = req.n_cached        # ... at the next cache position
+            slots[i] = req.slot
+        # pad rows point at slot 0: their positions are -1, so their writes
+        # spill and their (masked) attention output is discarded
+        self._sync_tables(batch)
+        nxt, self.caches = self._decode(
+            self.params, self._dev(tok), self.caches, self._dev(pos),
+            self._tbl, self._dev(slots))
+        self._observe_packing(n, nb)
+        self.metrics.counter("decode_tokens_total",
+                             "tokens emitted by decode steps").inc(n)
+        # the step's one sanctioned device->host sync: token readback
+        nxt = np.asarray(nxt.cpu())  # repro: ignore[host-sync-in-hot-path]
+        ps = self.sv.page_size
+        for i, req in enumerate(batch):
+            req.n_cached += 1
+            req.tokens.append(int(nxt[i]))
+            if req.n_cached % ps == 0:
+                # a generated-token page just filled: index it
+                self.kv.register_upto(req.rid, req.prefix, req.n_cached)
+        self.n_decode_tokens += n
+
+    # ------------------------------------------------------------- stats --
+    def stats(self) -> Dict:
+        retired = [r for r in self._all.values() if r.t_finish is not None]
+        done = [r for r in retired if r.outcome == OK]
+        outcomes: Dict[str, int] = {}
+        for r in retired:
+            out = r.outcome or ERROR
+            outcomes[out] = outcomes.get(out, 0) + 1
+        lat = [r.t_finish - r.t_visible for r in done]
+        ttft = [r.t_first - r.t_visible for r in done
+                if r.t_first is not None]
+        wall = (self.clock() - self.t_start) \
+            if self.t_start is not None else 0.0
+        pct = (lambda xs, q: float(np.percentile(xs, q)) if xs else None)
+        mean = (lambda xs: float(np.mean(xs)) if xs else None)
+        demand = self.n_prefill_tokens + self.n_prefix_hit_tokens
+        capacity = self.n_tokens_packed + self.n_tokens_wasted
+        return {
+            "layout": self.sv.layout,
+            "step_mode": self.sv.step,
+            "device": str(self.device),
+            "padding_tokens_wasted": self.n_tokens_wasted,
+            "token_utilization": (self.n_tokens_packed / capacity
+                                  if capacity else None),
+            "requests_finished": len(done),
+            "requests_retired": len(retired),
+            "outcomes": outcomes,
+            "requests_preempted": self.scheduler.n_preemptions,
+            "steps": self.n_steps,
+            "prefill_tokens": self.n_prefill_tokens,
+            "tokens_prefilled_saved": self.n_prefix_hit_tokens,
+            "prefix_hit_rate": (self.n_prefix_hit_tokens / demand
+                                if demand else 0.0),
+            "prefix_cache": {
+                "enabled": self.sv.prefix_cache,
+                "lookups": self.kv.n_lookups,
+                "hit_tokens": self.kv.n_hit_tokens,
+                "evictions": self.kv.n_evictions,
+            },
+            "decode_tokens": self.n_decode_tokens,
+            "wall_s": wall,
+            "decode_tok_per_s": self.n_decode_tokens / wall if wall else None,
+            "latency_p50_s": pct(lat, 50),
+            "latency_p95_s": pct(lat, 95),
+            "latency_mean_s": mean(lat),
+            "ttft_p50_s": pct(ttft, 50),
+            "ttft_p95_s": pct(ttft, 95),
+            "ttft_mean_s": mean(ttft),
+            "kv_pages_high_water": self.kv.high_water,
+            "paged_attn": self.rt.paged_attn,
+            "metrics": self.metrics.snapshot(),
+        }

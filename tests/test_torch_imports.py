@@ -1,0 +1,42 @@
+"""The PyTorch port stands alone: importing every module of repro_torch
+pulls in neither JAX nor any module of the JAX package."""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+SRC = Path(__file__).resolve().parent.parent / "src"
+
+PROBE = """
+import importlib, json, pkgutil, sys
+import repro_torch
+names = sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                     "repro_torch."))
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules
+                if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                or m == "repro" or m.startswith("repro."))
+print(json.dumps({"modules": names, "leaked": leaked}))
+"""
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", PROBE], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert report["leaked"] == []
+    # the slice's modules, mirroring the reference's paths
+    for name in ("repro_torch.kernels.paged_attention",
+                 "repro_torch.kernels.int4_matmul",
+                 "repro_torch.serving.engine",
+                 "repro_torch.launch.serve"):
+        assert name in report["modules"]
