@@ -9,28 +9,39 @@ Phases, each of which raises on failure (the script then exits non-zero):
   2. build    -- compiles every CUDA kernel under src/repro_torch/csrc, one
                  nvcc per source, all started together.
   3. kernels  -- each kernel against its plain PyTorch version on the same
-                 inputs at the serving path's shapes: the W4A4 GEMM bit for
-                 bit, the attention kernels within atol 2e-2 (bf16).  Times
-                 (CUDA events, L2 flushed before each call) for the kernel,
-                 the plain version and a PyTorch yardstick, beside the
-                 least time the card could take (bytes over 3.35 TB/s or
-                 operations over the int8/bf16 peak, whichever is larger).
+                 inputs at the serving paths' shapes: the W4A4 GEMM bit for
+                 bit (M = 1, 8, 64 and 256 rows), the attention kernels
+                 within atol 2e-2 (bf16) on bf16, int8 and int4 pools with
+                 padding rows exactly 0, and a decode-only pack through the
+                 ragged kernel bit for bit equal to the paged decode
+                 kernel.  Times (CUDA events, L2 flushed before each call)
+                 for the kernel, the plain version and a PyTorch yardstick,
+                 beside the least time the card could take (bytes over
+                 3.35 TB/s or operations over the int8/bf16 peak, whichever
+                 is larger).
   4. serve    -- full-width qwen2-0.5b (24 layers, random weights from a
-                 seed, W4A4-packed projections, bf16 paged KV pool, flash
-                 prefill, fused paged decode) serves a Poisson trace through
-                 InferenceEngine on cuda.  Every request must finish ok with
-                 tokens in [0, vocab), every parameter and cache tensor must
-                 live on the card, and each kernel's launch count over the
-                 run must be above zero.  Then a few decode steps at full
-                 batch run under torch.profiler: step time, launches per
-                 step, the card's busy share and the largest kernels.
-  5. cpu      -- full width cut to 2 layers: one prefill and three decode
-                 steps on cuda and on cpu with the same weights: float
-                 weights in bf16 (logits within CPU_ATOL), the serving
-                 path's W4A4 weights in float32 through the CUDA GEMM
-                 (logits within CPU_W4A4_F32_ATOL), and the serving path
-                 itself, W4A4 in bf16 (correlation reported, see
-                 phase_cpu).
+                 seed, W4A4-packed projections) serves two traces through
+                 InferenceEngine on cuda: a Poisson trace on the bucketed
+                 step (bf16 paged KV pool, flash prefill, fused paged
+                 decode), then a mixed trace on the ragged step (int8 pool,
+                 token budget 64, ragged decode).  Every request must finish
+                 ok with tokens in [0, vocab), every parameter and cache
+                 tensor must live on the card, and each run must launch the
+                 kernels of its path (counts zeroed just before the run)
+                 and none of the other path's attention kernels.  After
+                 each run a few steps at full batch run under
+                 torch.profiler: step time, launches per step, the card's
+                 busy share and the largest kernels.
+  5. cpu      -- full width cut to 2 layers, on cuda and on cpu with the
+                 same weights.  Bucketed: one prefill and three decode
+                 steps with float weights in bf16 (logits within CPU_ATOL),
+                 the serving path's W4A4 weights in float32 through the
+                 CUDA GEMM (logits within CPU_W4A4_F32_ATOL), and the
+                 serving path itself, W4A4 in bf16 (correlation reported,
+                 see phase_cpu).  Ragged: a pack of two prefill chunks and
+                 padding, then three ragged decode steps, float weights in
+                 bf16 on a bf16 pool and on an int8 pool (logits of the
+                 emitted rows within CPU_ATOL on both).
 
 The line before the last is a JSON object with every kernel's launches,
 error and times; the last line is {"ok": true, "device": {...}}.
@@ -71,6 +82,14 @@ SLEEP_CYCLES = 4_000_000
 MAX_BATCH = 8
 PAGE_SIZE = 16
 PROMPT_BUCKET = 256
+#: the ragged step's auto token budget at MAX_BATCH and PAGE_SIZE:
+#: prompt_bucket(8 + 2 * 16)
+BUDGET = 64
+#: qwen2-0.5b's attention: query heads, KV heads, head dim
+H, KV, HD = 14, 2, 64
+POOL_DTYPES = ("bfloat16", "int8", "int4")
+#: bytes per K/V element of each pool, and of its scales per (token, head)
+POOL_BYTES = {"bfloat16": (2.0, 0), "int8": (1.0, 4), "int4": (0.5, 4)}
 
 
 def fail(msg: str) -> None:
@@ -187,8 +206,12 @@ def check_gemm(torch, timer):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
              "bytes": 0.0, "ops": 0.0}
+    at_budget = {"shape": f"one layer's 7 projections at M={BUDGET} (the "
+                          "ragged step's rows)",
+                 "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                 "library_ms": 0.0}
     worst = 0.0
-    for M in (1, MAX_BATCH, PROMPT_BUCKET):
+    for M in (1, MAX_BATCH, BUDGET, PROMPT_BUCKET):
         for (K, N), per_layer in GEMM_SHAPES:
             x, w_q, w_km, w_scale = _gemm_inputs(torch, gen, M, K, N)
             got = int4_matmul_fused_cuda(x, w_km, w_scale)
@@ -212,6 +235,10 @@ def check_gemm(torch, timer):
             say(f"gemm M={M:4d} K={K:5d} N={N:5d}: bit-exact; kernel "
                 f"{t:.4f} ms, plain {tp:.4f} ms, bound {b_ms:.5f} ms "
                 f"({b_by}), _int_mm {lib if lib is None else round(lib, 4)}")
+            if M == BUDGET:
+                for key, val in (("ms", t), ("plain_ms", tp),
+                                 ("bound_ms", b_ms), ("library_ms", lib)):
+                    at_budget[key] += per_layer * val
             if M == PROMPT_BUCKET:
                 total["ms"] += per_layer * t
                 total["plain_ms"] += per_layer * tp
@@ -224,87 +251,221 @@ def check_gemm(torch, timer):
     return {"shape": f"one layer's 7 projections at M={PROMPT_BUCKET}",
             "max_abs_err": worst, "ms": total["ms"],
             "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
-            "bound_by": by, "library_ms": total["library_ms"]}
+            "bound_by": by, "library_ms": total["library_ms"],
+            "at_budget": at_budget}
 
 
-def _decode_inputs(torch, gen, B, H, KV, hd, P, ps, pps, last_pos):
-    q = torch.randn((B, H, hd), generator=gen, device="cuda").to(
-        torch.bfloat16)
-    k_pool = torch.randn((P, ps, KV, hd), generator=gen, device="cuda").to(
-        torch.bfloat16)
-    v_pool = torch.randn((P, ps, KV, hd), generator=gen, device="cuda").to(
-        torch.bfloat16)
+def _pools(torch, gen, P, ps):
+    """{pool dtype: (k, v, k_scale, v_scale)}: one set of seeded normal K/V
+    values as a bf16 pool and quantized per (token, head) into int8 and
+    int4 pools, as the serving writes store them."""
+    from repro_torch.models.attention import quantize_kv
+
+    vals = [torch.randn((P, ps, KV, HD), generator=gen, device="cuda")
+            for _ in range(2)]
+    out = {"bfloat16": (vals[0].to(torch.bfloat16),
+                        vals[1].to(torch.bfloat16), None, None)}
+    for dt in ("int8", "int4"):
+        (k, ks), (v, vs) = (quantize_kv(x, int4=dt == "int4") for x in vals)
+        out[dt] = (k, v, ks, vs)
+    return out
+
+
+def _table(torch, gen, rows, P, pps, last_pos):
+    """Block-table rows [rows, pps] on distinct random pages covering each
+    row's positions 0..last_pos[r]; the rest sentinel (== P)."""
     perm = torch.randperm(P, generator=gen, device="cuda").to(torch.int32)
-    tbl = torch.full((B, pps), P, dtype=torch.int32, device="cuda")
+    tbl = torch.full((rows, pps), P, dtype=torch.int32, device="cuda")
     used = 0
     for b, lp in enumerate(last_pos):
-        n = -(-(lp + 1) // ps) if lp >= 0 else 0
-        tbl[b, :n] = perm[used:used + n]       # beyond n: sentinel slots
+        n = -(-(lp + 1) // PAGE_SIZE) if lp >= 0 else 0
+        tbl[b, :n] = perm[used:used + n]
         used += n
-    lp = torch.tensor(last_pos, dtype=torch.int32, device="cuda")
-    return q, k_pool, v_pool, tbl, lp
+    return tbl
+
+
+def _gather_dense(torch, pool, scale, tbl, P):
+    """Yardstick helper: each table row's pages as a dense bf16
+    [rows, pps * ps, KV, HD], dequantized like the reference's gather."""
+    from repro_torch.models.attention import dequantize_kv
+
+    idx = tbl.clamp(max=P - 1).long()
+    g = pool[idx]                                   # [rows, pps, ps, KV, w]
+    if scale is not None:
+        g = dequantize_kv(g, scale[idx])
+    return g.reshape(tbl.shape[0], -1, KV, HD)
+
+
+def _sdpa(torch, q, kf, vf, mask):
+    """q [rows, H, HD] against dense kf/vf [rows, S, KV, HD] with a
+    [rows, S] mask, GQA expanded: the yardstick's one library call."""
+    G = H // KV
+    kt = kf.repeat_interleave(G, dim=2).transpose(1, 2)
+    vt = vf.repeat_interleave(G, dim=2).transpose(1, 2)
+    return torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None], kt, vt, attn_mask=mask[:, None, None, :])
 
 
 def check_decode(torch, timer):
+    from repro_torch.kernels.autotune import attn_default_blocks
     from repro_torch.kernels.paged_attention import (
         paged_decode_attention_cuda, paged_decode_attention_plain)
-    from repro_torch.kernels.autotune import attn_default_blocks
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    H, KV, hd, ps = 14, 2, 64, PAGE_SIZE
+    ps = PAGE_SIZE
     P, pps = 256, 512 // PAGE_SIZE
     # live contexts of a serving batch: two idle rows (-1), a page boundary
     last_pos = [287, 15, -1, 140, 16, 319, -1, 63]
     B = len(last_pos)
-    q, k_pool, v_pool, tbl, lp = _decode_inputs(torch, gen, B, H, KV, hd, P,
-                                                ps, pps, last_pos)
-    pp = max(1, attn_default_blocks("attn.paged_decode", B, pps * ps, H * hd,
+    q = torch.randn((B, H, HD), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    tbl = _table(torch, gen, B, P, pps, last_pos)
+    lp = torch.tensor(last_pos, dtype=torch.int32, device="cuda")
+    pools = _pools(torch, gen, P, ps)
+    pp = max(1, attn_default_blocks("attn.paged_decode", B, pps * ps, H * HD,
                                     group_size=ps)["bk"] // ps)
-    got = paged_decode_attention_cuda(q, k_pool, v_pool, tbl, lp)
-    want = paged_decode_attention_plain(q, k_pool, v_pool, tbl, lp, pp=pp)
-    err = (got.float() - want.float()).abs().max().item()
     idle = [b for b, x in enumerate(last_pos) if x < 0]
-    if err > ATTN_ATOL or not torch.all(got[idle] == 0):
-        fail(f"paged_decode_attention: max |diff| {err} > {ATTN_ATOL} or an "
-             "idle row is not zero")
-    windowed = paged_decode_attention_cuda(q, k_pool, v_pool, tbl, lp,
-                                           window=40)
-    want_w = paged_decode_attention_plain(q, k_pool, v_pool, tbl, lp,
-                                          window=40, pp=pp)
-    err_w = (windowed.float() - want_w.float()).abs().max().item()
-    if err_w > ATTN_ATOL:
-        fail(f"paged_decode_attention window=40: max |diff| {err_w}")
     n_tok = sum(x + 1 for x in last_pos if x >= 0)
-    n_bytes = (q.numel() * 2 * 2 + 2 * n_tok * KV * hd * 2 + tbl.numel() * 4
-               + B * 4)
-    n_ops = 4.0 * H * hd * n_tok
-    b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
-    t = timer.ms(lambda: paged_decode_attention_cuda(q, k_pool, v_pool, tbl,
-                                                     lp))
-    tp = timer.ms(lambda: paged_decode_attention_plain(q, k_pool, v_pool, tbl,
-                                                       lp, pp=pp), reps=5)
-    F = torch.nn.functional
-    G = H // KV
+    n_pages = sum(-(-(x + 1) // ps) for x in last_pos if x >= 0)
     S = pps * ps
-    pos = torch.arange(S, device="cuda")
-    mask = (pos[None, :] <= lp[:, None])[:, None, None, :]
+    mask = torch.arange(S, device="cuda")[None, :] <= lp[:, None]
+    res = {}
+    for dt in POOL_DTYPES:
+        k, v, ks, vs = pools[dt]
+        got = paged_decode_attention_cuda(q, k, v, tbl, lp, ks, vs)
+        want = paged_decode_attention_plain(q, k, v, tbl, lp, ks, vs, pp=pp)
+        err = (got.float() - want.float()).abs().max().item()
+        if err > ATTN_ATOL or not torch.all(got[idle] == 0):
+            fail(f"paged_decode_attention ({dt} pool): max |diff| {err} > "
+                 f"{ATTN_ATOL} or an idle row is not zero")
+        got_w = paged_decode_attention_cuda(q, k, v, tbl, lp, ks, vs,
+                                            window=40)
+        want_w = paged_decode_attention_plain(q, k, v, tbl, lp, ks, vs,
+                                              window=40, pp=pp)
+        err_w = (got_w.float() - want_w.float()).abs().max().item()
+        if err_w > ATTN_ATOL:
+            fail(f"paged_decode_attention ({dt} pool) window=40: max |diff| "
+                 f"{err_w}")
+        # q of the live rows in, every row out, the live pages' K/V, scales
+        # and table entries, and last_pos: idle rows only write zeros
+        elem, sbytes = POOL_BYTES[dt]
+        n_bytes = ((B - len(idle)) * H * HD * 2 + B * H * HD * 2
+                   + 2 * n_tok * KV * (HD * elem + sbytes)
+                   + n_pages * 4 + B * 4)
+        n_ops = 4.0 * H * HD * n_tok
+        b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
+        t = timer.ms(lambda: paged_decode_attention_cuda(q, k, v, tbl, lp, ks,
+                                                         vs))
+        tp = timer.ms(lambda: paged_decode_attention_plain(
+            q, k, v, tbl, lp, ks, vs, pp=pp), reps=5)
+        lib = timer.ms(lambda: _sdpa(
+            torch, q, _gather_dense(torch, k, ks, tbl, P),
+            _gather_dense(torch, v, vs, tbl, P), mask))
+        say(f"paged decode {dt} pool B={B} H={H} KV={KV} hd={HD} ps={ps}: "
+            f"max |diff| {err:.3g} (window {err_w:.3g}); kernel {t:.4f} ms, "
+            f"plain {tp:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
+            f"gather+SDPA {lib:.4f} ms")
+        res[dt] = {"max_abs_err": max(err, err_w), "ms": t, "plain_ms": tp,
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+    return {"shape": f"B={B}, H={H}, KV={KV}, hd={HD}, ps={ps}, "
+                     f"{n_tok} live tokens, bf16 pool (int8/int4 under "
+                     f"'pools')",
+            **res["bfloat16"],
+            "max_abs_err": max(r["max_abs_err"] for r in res.values()),
+            "pools": {dt: res[dt] for dt in ("int8", "int4")}}
 
-    def library():
-        kf = k_pool[tbl.clamp(max=P - 1).long()].reshape(B, S, KV, hd)
-        vf = v_pool[tbl.clamp(max=P - 1).long()].reshape(B, S, KV, hd)
-        kf = kf.repeat_interleave(G, dim=2).transpose(1, 2)
-        vf = vf.repeat_interleave(G, dim=2).transpose(1, 2)
-        return F.scaled_dot_product_attention(q[:, :, None], kf, vf,
-                                              attn_mask=mask)
 
-    lib = timer.ms(library)
-    say(f"paged decode B={B} H={H} KV={KV} hd={hd} ps={ps}: max |diff| "
-        f"{err:.3g} (window {err_w:.3g}); kernel {t:.4f} ms, plain "
-        f"{tp:.4f} ms, bound {b_ms:.5f} ms ({b_by}), gather+SDPA {lib:.4f} ms")
-    return {"shape": f"B={B}, H={H}, KV={KV}, hd={hd}, ps={ps}, "
-                     f"{n_tok} live tokens",
-            "max_abs_err": max(err, err_w), "ms": t, "plain_ms": tp,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+def _ragged_pack(torch):
+    """The ragged step's pack at the serving shape: BUDGET = 64 rows, 8
+    decode rows (slots 0-7, one per running request), one 48-row prefill
+    chunk (slot 8: positions 160..207 of a 256-token prompt) and 8 padding
+    rows.  Returns (slot, pos, last positions per table row)."""
+    dec = [287, 15, 140, 16, 319, 63, 511, 200]
+    chunk = list(range(160, 208))
+    n_pad = BUDGET - len(dec) - len(chunk)
+    slot = list(range(len(dec))) + [len(dec)] * len(chunk) + [-1] * n_pad
+    pos = dec + chunk + [-1] * n_pad
+    as_t = (lambda x: torch.tensor(x, dtype=torch.int32, device="cuda"))
+    return as_t(slot), as_t(pos), dec + [chunk[-1]]
+
+
+def check_ragged(torch, timer):
+    from repro_torch.kernels.autotune import attn_default_blocks
+    from repro_torch.kernels.paged_attention import paged_decode_attention_cuda
+    from repro_torch.kernels.ragged_attention import (
+        ragged_decode_attention_cuda, ragged_decode_attention_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    ps = PAGE_SIZE
+    P, pps = 320, 512 // PAGE_SIZE
+    slot, pos, row_last = _ragged_pack(torch)
+    T = slot.shape[0]
+    tbl = _table(torch, gen, len(row_last), P, pps, row_last)
+    q = torch.randn((T, H, HD), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    pools = _pools(torch, gen, P, ps)
+    pp = max(1, attn_default_blocks("attn.ragged", T, pps * ps, H * HD,
+                                    group_size=ps)["bk"] // ps)
+    pad = (slot < 0) | (pos < 0)
+    n_dec = len(row_last) - 1
+    live_tok = sum(x + 1 for x in row_last)        # each live page once
+    n_pages = sum(-(-(x + 1) // ps) for x in row_last)
+    n_live = int((~pad).sum().item())
+    pairs = int((pos[~pad] + 1).sum().item())      # (query, key) pairs
+    S = pps * ps
+    rows = tbl[slot.clamp(min=0).long()]
+    mask = (torch.arange(S, device="cuda")[None, :] <= pos[:, None])
+    mask[pad, 0] = True                            # keep SDPA finite
+    res = {}
+    for dt in POOL_DTYPES:
+        k, v, ks, vs = pools[dt]
+        got = ragged_decode_attention_cuda(q, k, v, tbl, slot, pos, ks, vs)
+        want = ragged_decode_attention_plain(q, k, v, tbl, slot, pos, ks, vs,
+                                             pp=pp)
+        err = (got.float() - want.float()).abs().max().item()
+        if err > ATTN_ATOL or not torch.all(got[pad] == 0):
+            fail(f"ragged_decode_attention ({dt} pool): max |diff| {err} > "
+                 f"{ATTN_ATOL} or a padding row is not exactly zero")
+        # a decode-only pack: the paged decode kernel's output, bit for bit
+        dec_rows = ragged_decode_attention_cuda(
+            q[:n_dec].contiguous(), k, v, tbl, slot[:n_dec].contiguous(),
+            pos[:n_dec].contiguous(), ks, vs)
+        paged = paged_decode_attention_cuda(
+            q[:n_dec].contiguous(), k, v, tbl[:n_dec].contiguous(),
+            pos[:n_dec].contiguous(), ks, vs)
+        if not torch.equal(dec_rows, paged):
+            fail(f"ragged_decode_attention ({dt} pool): a decode-only pack "
+                 "differs from the paged decode kernel's output (max |diff| "
+                 f"{(dec_rows.float() - paged.float()).abs().max().item()})")
+        # q of the live rows in, every row out, each live page's K/V, scales
+        # and table entry once, and slot/pos: padding rows only write zeros
+        elem, sbytes = POOL_BYTES[dt]
+        n_bytes = (n_live * H * HD * 2 + T * H * HD * 2
+                   + 2 * live_tok * KV * (HD * elem + sbytes)
+                   + n_pages * 4 + T * 4 * 2)
+        n_ops = 4.0 * H * HD * pairs
+        b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
+        t = timer.ms(lambda: ragged_decode_attention_cuda(q, k, v, tbl, slot,
+                                                          pos, ks, vs))
+        tp = timer.ms(lambda: ragged_decode_attention_plain(
+            q, k, v, tbl, slot, pos, ks, vs, pp=pp), reps=5)
+        lib = timer.ms(lambda: _sdpa(
+            torch, q, _gather_dense(torch, k, ks, rows, P),
+            _gather_dense(torch, v, vs, rows, P), mask))
+        say(f"ragged {dt} pool T={T} ({n_dec} decode rows, one "
+            f"{int((slot == n_dec).sum())}-row chunk, {int(pad.sum())} "
+            f"padding) H={H} KV={KV} hd={HD} ps={ps}: max |diff| {err:.3g}, "
+            f"decode-only pack == paged decode; kernel {t:.4f} ms, plain "
+            f"{tp:.4f} ms, bound {b_ms:.5f} ms ({b_by}), gather+SDPA "
+            f"{lib:.4f} ms")
+        res[dt] = {"max_abs_err": err, "ms": t, "plain_ms": tp,
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+    return {"shape": f"T={T}: {n_dec} decode rows, a 48-row prefill chunk, "
+                     f"{int(pad.sum())} padding; H={H}, KV={KV}, hd={HD}, "
+                     f"ps={ps}, int8 pool (bf16/int4 under 'pools')",
+            **res["int8"],
+            "max_abs_err": max(r["max_abs_err"] for r in res.values()),
+            "pools": {dt: res[dt] for dt in ("bfloat16", "int4")}}
 
 
 def check_flash(torch, timer):
@@ -313,7 +474,7 @@ def check_flash(torch, timer):
     from repro_torch.kernels.autotune import attn_default_blocks
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    H, KV, hd = 14, 2, 64
+    hd = HD
     G = H // KV
     out = {}
     # fresh prefill: a 200-token prompt left-padded to the 256 bucket; tail
@@ -390,31 +551,39 @@ def _tensors(tree):
         yield tree
 
 
-def phase_serve(torch):
+#: the kernels each serve run must launch (and the attention kernels of
+#: the other path, which it must not)
+PATH_KERNELS = {
+    "bucketed": (("int4_matmul_fused", "flash_prefill",
+                  "paged_decode_attention"), ("ragged_decode_attention",)),
+    "ragged": (("int4_matmul_fused", "ragged_decode_attention"),
+               ("flash_prefill", "paged_decode_attention")),
+}
+
+
+def serve_run(torch, params, step: str, cache_dtype: str, trace,
+              prompt_lens):
+    """Serve `trace` on full-width qwen2-0.5b through InferenceEngine on
+    cuda with the given step and KV pool; checks every request, the
+    devices of every tensor and the launches of the path (counted from 0
+    just before the run).  Returns (engine, launches, stats)."""
     from repro_torch.configs import Runtime, ServingConfig, get_config
     from repro_torch.kernels import ops
-    from repro_torch.serving.api import poisson_trace, run_trace
-    from repro_torch.serving.engine import InferenceEngine, build_params
+    from repro_torch.serving.api import run_trace
+    from repro_torch.serving.engine import InferenceEngine
 
     cfg = get_config("qwen2-0.5b")
     rt = Runtime(attn_impl="flash", quant_backend="w4a4_packed",
-                 cache_dtype="bfloat16")
+                 cache_dtype=cache_dtype)
     sv = ServingConfig(layout="paged", max_batch=MAX_BATCH,
                        page_size=PAGE_SIZE, num_pages=320, max_ctx=512,
-                       prefix_cache=True)
-    t0 = time.perf_counter()
-    params = build_params(cfg, rt, seed=SEED, device="cuda")
+                       prefix_cache=True, step=step)
     engine = InferenceEngine(cfg, rt, sv, params=params, device="cuda")
-    torch.cuda.synchronize()
-    say(f"serve: built full-width {cfg.name} ({cfg.n_layers} layers, "
-        f"d_model {cfg.d_model}, vocab {cfg.vocab}) in "
-        f"{time.perf_counter() - t0:.1f} s")
     for tree, what in ((engine.params, "parameter"), (engine.caches, "cache")):
         cpu = [t for t in _tensors(tree) if t.device.type != "cuda"]
         if cpu:
-            fail(f"serve: {len(cpu)} {what} tensors are not on the card")
-    prompt_lens, gen_lens = (32, 96, 160, 256), (16, 32, 64)
-    trace = poisson_trace(8, 0.5, prompt_lens, gen_lens, cfg.vocab, seed=SEED)
+            fail(f"serve ({step}): {len(cpu)} {what} tensors are not on the "
+                 "card")
     engine.warmup(prompt_lens)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
@@ -423,41 +592,94 @@ def phase_serve(torch):
     launches = ops.launch_counts()
     bad = [r.rid for r in finished if r.outcome != "ok"]
     if len(finished) != len(trace) or bad:
-        fail(f"serve: {len(finished)}/{len(trace)} requests retired, not ok: "
-             f"{bad}")
+        fail(f"serve ({step}): {len(finished)}/{len(trace)} requests "
+             f"retired, not ok: {bad}")
     for r in finished:
         if len(r.tokens) != r.max_new or not all(
                 0 <= t < cfg.vocab for t in r.tokens):
-            fail(f"serve: request {r.rid} produced {len(r.tokens)} tokens "
-                 f"(want {r.max_new}) or a token outside [0, {cfg.vocab})")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"serve: kernel {name} was never launched on the main path")
-    say(f"serve: {len(finished)} requests ok, {stats['decode_tokens']} decode "
-        f"tokens in {stats['wall_s']:.2f} s = {stats['decode_tok_per_s']:.1f} "
-        f"tok/s; latency p50 {stats['latency_p50_s']:.3f} s, p95 "
-        f"{stats['latency_p95_s']:.3f} s; ttft p50 {stats['ttft_p50_s']:.3f} s"
-        f"; steps {stats['steps']}, preempted {stats['requests_preempted']}, "
-        f"prefill tokens {stats['prefill_tokens']}")
-    say(f"serve: kernel launches {json.dumps(launches)}")
-    profile_decode(torch, engine, cfg.vocab)
-    return launches, stats
+            fail(f"serve ({step}): request {r.rid} produced {len(r.tokens)} "
+                 f"tokens (want {r.max_new}) or a token outside "
+                 f"[0, {cfg.vocab})")
+    must, must_not = PATH_KERNELS[step]
+    for name in must:
+        if launches[name] <= 0:
+            fail(f"serve ({step}): kernel {name} was never launched on the "
+                 "path")
+    for name in must_not:
+        if launches[name] != 0:
+            fail(f"serve ({step}): {name} launched {launches[name]} times "
+                 "on a path that does not run it")
+    budget = (f", token budget {stats['token_budget']}, padding rows "
+              f"{stats['padding_tokens_wasted']}" if step == "ragged" else "")
+    say(f"serve ({step}, {cache_dtype} pool): {len(finished)} requests ok, "
+        f"{stats['decode_tokens']} decode tokens in {stats['wall_s']:.2f} s = "
+        f"{stats['decode_tok_per_s']:.1f} tok/s; latency p50 "
+        f"{stats['latency_p50_s']:.3f} s, p95 {stats['latency_p95_s']:.3f} s; "
+        f"ttft p50 {stats['ttft_p50_s']:.3f} s; steps {stats['steps']} "
+        f"(mean {stats['wall_s'] / stats['steps'] * 1e3:.1f} ms), preempted "
+        f"{stats['requests_preempted']}, prefill tokens "
+        f"{stats['prefill_tokens']}{budget}")
+    say(f"serve ({step}): kernel launches {json.dumps(launches)}")
+    return engine, launches, stats
 
 
-def profile_decode(torch, engine, vocab: int, steps: int = 4):
+def phase_serve(torch):
+    """The bucketed path (bf16 pool, Poisson trace), then the ragged path
+    (int8 pool, mixed trace), on one set of full-width weights.  Returns
+    the launches of both runs, summed."""
+    from repro_torch.configs import Runtime, get_config
+    from repro_torch.serving.api import mixed_trace, poisson_trace
+    from repro_torch.serving.engine import build_params
+
+    cfg = get_config("qwen2-0.5b")
+    t0 = time.perf_counter()
+    params = build_params(cfg, Runtime(quant_backend="w4a4_packed"),
+                          seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    say(f"serve: built full-width {cfg.name} ({cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, vocab {cfg.vocab}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    prompt_lens = (32, 96, 160, 256)
+    engine, bucketed, _ = serve_run(
+        torch, params, "bucketed", "bfloat16",
+        poisson_trace(8, 0.5, prompt_lens, (16, 32, 64), cfg.vocab,
+                      seed=SEED), prompt_lens)
+    profile_steps(torch, engine, cfg.vocab, "bucketed")
+    del engine
+    engine, ragged, _ = serve_run(
+        torch, params, "ragged", "int8",
+        mixed_trace(8, prompt_lens, (16, 32), cfg.vocab, seed=SEED),
+        prompt_lens)
+    profile_steps(torch, engine, cfg.vocab, "ragged")
+    return {k: bucketed[k] + ragged[k] for k in bucketed}
+
+
+def profile_steps(torch, engine, vocab: int, step: str, steps: int = 4):
     """Where a decode step's time goes: a full decode batch (MAX_BATCH
     requests of 200-token prompts) runs `steps` pure decode steps under
-    torch.profiler.  Prints the step wall time, the device's busy share
-    (kernel time over wall time), the launches per step and the kernels
-    that take the most device time.  Runs after the serve phase has read
-    its launch counts."""
+    torch.profiler, once every request decodes (ragged: 8 decode rows and
+    BUDGET - 8 padding rows a step).  Prints the step wall time, the
+    device's busy share (kernel time over wall time), the launches per step
+    and the kernels that take the most device time.  Runs after the serve
+    run has read its launch counts."""
     from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator().manual_seed(SEED + 3)
+    L = 200
+    # bucketed: one step admits and prefills all, then decodes; ragged: the
+    # prompts drain through the token budget first while the early ones
+    # decode, so those need enough tokens to still run when the last starts
+    new = steps + 4 + (0 if step == "bucketed"
+                       else -(-MAX_BATCH * L // (BUDGET - MAX_BATCH)))
     for _ in range(MAX_BATCH):
-        engine.submit(torch.randint(0, vocab, (200,), generator=gen).numpy(),
-                      steps + 4)
-    engine.step()                  # admit + prefill all, first decode
+        engine.submit(torch.randint(0, vocab, (L,), generator=gen).numpy(),
+                      new)
+    running = engine.scheduler.running
+    while len(running) < MAX_BATCH or not all(
+            r.tokens for r in running.values()):
+        if engine.step() == 0:
+            fail(f"profile ({step}): the engine went idle before the batch "
+                 "was full")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -483,13 +705,13 @@ def profile_decode(torch, engine, vocab: int, steps: int = 4):
     n_launch = sum(e.count for e in events
                    if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
                                 "cuLaunchKernel", "cuLaunchKernelEx"))
-    say(f"profile: {steps} decode steps at batch {MAX_BATCH}: "
+    say(f"profile ({step}): {steps} decode steps at batch {MAX_BATCH}: "
         f"{wall_us / steps / 1e3:.3f} ms per step, "
         f"{n_launch / steps:.0f} launches per step, device busy "
         + (f"{busy / wall_us:.3f} of wall time" if busy else "not measured "
            "(the profiler saw no device time)"))
     for e in kernels[:8]:
-        say(f"profile:   {dev_us(e) / steps / 1e3:8.3f} ms/step "
+        say(f"profile ({step}):   {dev_us(e) / steps / 1e3:8.3f} ms/step "
             f"{e.count // steps:5d}x/step  {e.key[:90]}")
 
 
@@ -544,9 +766,92 @@ def _two_devices(torch, rt):
     return logits, launches
 
 
+def _two_devices_ragged(torch, rt):
+    """Full width cut to 2 layers, the same weights on both devices, the
+    ragged step's forward at the budget's width: one pack of two prefill
+    chunks (slot 0: a 40-token prompt, slot 1: a 20-token prompt) and
+    padding, then three packs of the two decode rows fed fixed tokens.
+    Returns {device: logits of the emitted rows [8, vocab] f32 on the
+    CPU} and the launch counts of the card's run."""
+    from repro_torch.configs import ServingConfig, get_config
+    from repro_torch.convert import tree_to
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import _logits, forward
+    from repro_torch.serving.engine import build_params
+    from repro_torch.serving.kv_pages import (init_paged_caches,
+                                              with_token_slots)
+
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"), n_layers=2)
+    sv = ServingConfig(layout="paged", max_batch=2, page_size=PAGE_SIZE,
+                       num_pages=16, max_ctx=128, step="ragged")
+    params_gpu = build_params(cfg, rt, seed=SEED + 5, device="cuda")
+    params_cpu = tree_to(params_gpu, "cpu")
+    gen = torch.Generator().manual_seed(SEED + 7)
+    lens = (40, 20)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen) for n in lens]
+    feed = torch.randint(0, cfg.vocab, (3, 2), generator=gen)
+    packs = []                                # (tokens, pos, slots, emit)
+    tok = torch.zeros((1, BUDGET), dtype=torch.int32)
+    pos = torch.full((1, BUDGET), -1, dtype=torch.int32)
+    slots = torch.full((BUDGET,), -1, dtype=torch.int32)
+    used = 0
+    for s, p in enumerate(prompts):
+        tok[0, used:used + len(p)] = p
+        pos[0, used:used + len(p)] = torch.arange(len(p))
+        slots[used:used + len(p)] = s
+        used += len(p)
+    packs.append((tok, pos, slots, torch.tensor([lens[0] - 1, used - 1])))
+    for i in range(len(feed)):
+        tok = torch.zeros((1, BUDGET), dtype=torch.int32)
+        pos = torch.full((1, BUDGET), -1, dtype=torch.int32)
+        slots = torch.full((BUDGET,), -1, dtype=torch.int32)
+        tok[0, :2] = feed[i]
+        pos[0, :2] = torch.tensor([lens[0] + i, lens[1] + i])
+        slots[:2] = torch.tensor([0, 1])
+        packs.append((tok, pos, slots, torch.tensor([0, 1])))
+    tbl = torch.arange(16, dtype=torch.int32).reshape(2, sv.pages_per_seq)
+    logits = {}
+    with torch.inference_mode():
+        for dev, params in (("cuda", params_gpu), ("cpu", params_cpu)):
+            if dev == "cuda":
+                ops.reset_launch_counts()
+            caches = init_paged_caches(cfg, rt, sv, device=dev)
+            out = []
+            for tok, pos, slots, emit in packs:
+                caches = with_token_slots(caches, tbl.to(dev), slots.to(dev))
+                hidden, caches = forward(params, tok.to(dev), cfg, rt,
+                                         pos.to(dev), caches,
+                                         update_cache=True,
+                                         return_hidden=True)
+                h = hidden.index_select(1, emit.to(dev))
+                out.append(_logits(params, h, cfg, rt)[0].float().cpu())
+            logits[dev] = torch.cat(out)[:, :cfg.vocab]
+            if dev == "cuda":
+                launches = ops.launch_counts()
+    return logits, launches
+
+
+def _compare(torch, what, logits, launches):
+    """Print the card-vs-CPU reading of one run; returns (max |diff|,
+    correlation)."""
+    a, b = logits["cuda"], logits["cpu"]
+    diff = (a - b).abs()
+    corr = torch.corrcoef(torch.stack([a.flatten(), b.flatten()]))[0, 1]
+    relrms = (diff.square().mean() / b.square().mean()).sqrt().item()
+    agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+    say(f"cpu: {what}: max |logit diff| {diff.max().item():.6g}, mean "
+        f"{diff.mean().item():.6g}, rel rms {relrms:.6g}, corr "
+        f"{corr.item():.6f} (|logit| <= {b.abs().max().item():.3f}), "
+        f"argmax agreement {agree:.2f}, card launches "
+        f"{json.dumps(launches)}")
+    if not torch.isfinite(a).all():
+        fail(f"cpu: {what}: non-finite logits on the card")
+    return diff.max().item(), corr.item()
+
+
 def phase_cpu(torch):
     """The card against the CPU path that the tests hold to the JAX
-    package.  Three runs, each on both devices:
+    package.  Five runs, each on both devices; the bucketed step's three:
 
       * float weights, bf16 activations, flash prefill and fused paged
         decode: every op rounds to bf16 on both devices, sums run in other
@@ -567,6 +872,13 @@ def phase_cpu(torch):
         spread between the JAX package and the port on one CPU).  Its
         logits must stay finite; their correlation is reported and must
         stay >= CPU_W4A4_CORR.
+
+    and the ragged step's two, float weights in bf16 (the ragged kernel on
+    the card, its plain version on the CPU): on a bf16 pool and on an int8
+    pool, the logits of the emitted rows must agree within CPU_ATOL.  The
+    int8 run holds the card's quantizing writes (scales and bytes) and the
+    dequantizing kernel against the CPU path that the tests hold to the
+    JAX package.
     """
     from repro_torch.configs import Runtime
 
@@ -583,29 +895,32 @@ def phase_cpu(torch):
     readings = {}
     for what, rt, atol in runs:
         logits, launches = _two_devices(torch, rt)
-        a, b = logits["cuda"], logits["cpu"]
-        diff = (a - b).abs()
-        corr = torch.corrcoef(torch.stack([a.flatten(), b.flatten()]))[0, 1]
-        relrms = (diff.square().mean() / b.square().mean()).sqrt().item()
-        agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
-        say(f"cpu: {what}, 2 layers at full width, prefill + 3 decode "
-            f"steps: max |logit diff| {diff.max().item():.6g}, mean "
-            f"{diff.mean().item():.6g}, rel rms {relrms:.6g}, corr "
-            f"{corr.item():.6f} (|logit| <= {b.abs().max().item():.3f}), "
-            f"argmax agreement {agree:.2f}, card launches "
-            f"{json.dumps(launches)}")
-        readings[what] = diff.max().item()
-        if not torch.isfinite(a).all():
-            fail(f"cpu: {what}: non-finite logits on the card")
+        what = (f"{what}, 2 layers at full width, prefill + 3 decode "
+                "steps")
+        err, corr = _compare(torch, what, logits, launches)
+        readings[what] = err
         if rt.quant_backend == "w4a4_packed" \
                 and launches["int4_matmul_fused"] <= 0:
             fail(f"cpu: {what}: the card's run never launched the W4A4 GEMM")
-        if atol is not None and diff.max().item() > atol:
-            fail(f"cpu: {what}: card and CPU logits differ by "
-                 f"{diff.max().item():.6g} > {atol}")
-        if atol is None and corr.item() < CPU_W4A4_CORR:
-            fail(f"cpu: {what}: card and CPU logits correlate "
-                 f"{corr.item():.4f} < {CPU_W4A4_CORR}")
+        if atol is not None and err > atol:
+            fail(f"cpu: {what}: card and CPU logits differ by {err:.6g} > "
+                 f"{atol}")
+        if atol is None and corr < CPU_W4A4_CORR:
+            fail(f"cpu: {what}: card and CPU logits correlate {corr:.4f} < "
+                 f"{CPU_W4A4_CORR}")
+    for pool in ("bfloat16", "int8"):
+        rt = Runtime(quant_backend="float", cache_dtype=pool)
+        logits, launches = _two_devices_ragged(torch, rt)
+        what = (f"ragged step, float weights, bf16, {pool} pool, 2 layers at "
+                "full width, two prefill chunks + 3 decode packs")
+        err, _ = _compare(torch, what, logits, launches)
+        readings[what] = err
+        if launches["ragged_decode_attention"] <= 0:
+            fail(f"cpu: {what}: the card's run never launched the ragged "
+                 "kernel")
+        if err > CPU_ATOL:
+            fail(f"cpu: {what}: card and CPU logits differ by {err:.6g} > "
+                 f"{CPU_ATOL}")
     return readings
 
 
@@ -617,6 +932,8 @@ SOURCES = {
                       "src/repro/kernels/paged_attention.py:384"),
     "paged_decode_attention": ("src/repro_torch/csrc/paged_decode.cu",
                                "src/repro/kernels/paged_attention.py:157"),
+    "ragged_decode_attention": ("src/repro_torch/csrc/ragged_decode.cu",
+                                "src/repro/kernels/ragged_attention.py:133"),
 }
 
 
@@ -631,9 +948,10 @@ def main() -> None:
     timer = Timer(torch)
     results = {"int4_matmul_fused": check_gemm(torch, timer),
                "flash_prefill": check_flash(torch, timer),
-               "paged_decode_attention": check_decode(torch, timer)}
+               "paged_decode_attention": check_decode(torch, timer),
+               "ragged_decode_attention": check_ragged(torch, timer)}
     del timer
-    launches, _ = phase_serve(torch)
+    launches = phase_serve(torch)
     phase_cpu(torch)
     kernels = []
     for name, res in results.items():

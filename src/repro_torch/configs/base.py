@@ -112,7 +112,7 @@ class Runtime:
     paged_attn: str = "fused"
     # uniform backend-string override, mapped to a uniform plan
     quant_backend: Optional[str] = None
-    cache_dtype: str = "bfloat16"   # bfloat16 | float32 (quantized pools wait)
+    cache_dtype: str = "bfloat16"   # bfloat16 | float32 | int8 | int4
     compute_dtype: str = "bfloat16"
     # paged prefill attends over the gathered page pool (tail prefill after
     # a prefix-cache hit) instead of the in-flight K/V
@@ -135,7 +135,10 @@ class ServingConfig:
     the nearest bucket, prompts to the nearest power-of-two length.
     `prefix_cache` reuses full KV pages across requests by chained prefix
     hash; `prefix_lru` keeps freed registered pages hittable until the
-    free list runs dry."""
+    free list runs dry.  `step="ragged"` packs every live request's tokens
+    (chunked-prefill slices and decode tokens) into one flat
+    ``[1, budget]`` step; `token_budget` is its padded capacity (0 = auto,
+    see `budget`)."""
 
     layout: str = "paged"
     max_batch: int = 8
@@ -145,7 +148,8 @@ class ServingConfig:
     decode_buckets: Tuple[int, ...] = ()
     prefix_cache: bool = True
     prefix_lru: bool = True
-    step: str = "bucketed"
+    step: str = "bucketed"          # bucketed | ragged
+    token_budget: int = 0           # ragged step's rows per step, 0 = auto
     max_queue: int = 0              # bounded admission queue (0 = none)
 
     def __post_init__(self):
@@ -156,6 +160,15 @@ class ServingConfig:
         assert self.max_ctx % self.page_size == 0, \
             f"max_ctx {self.max_ctx} must be a multiple of page_size {self.page_size}"
         assert self.max_queue >= 0
+
+    @property
+    def budget(self) -> int:
+        """Effective ragged token budget: the explicit one (the engine
+        doubles it the step the decode set outgrows it), else every decode
+        slot plus two pages of prefill chunk, padded to a power of two."""
+        if self.token_budget:
+            return self.token_budget
+        return self.prompt_bucket(self.max_batch + 2 * self.page_size)
 
     @property
     def pages_per_seq(self) -> int:

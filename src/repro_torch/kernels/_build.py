@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds),
 loaded with ``ctypes``.  Libraries land in ``repro_torch/_build/`` (listed
-in ``.gitignore``), named by a hash of the source and the flags, so an
-edited source rebuilds and an unchanged one is reused.  The compiler's
+in ``.gitignore``), named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source rebuilds and an
+unchanged one is reused.  The compiler's
 output (with ptxas's register and spill report) is kept beside each
 library as ``<library>.log``, so a reused library still has its report.
 Nothing is built or
@@ -32,7 +33,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 
 #: the kernels of this package: one source file and one library each
-SOURCES = ("int4_matmul", "flash_prefill", "paged_decode")
+SOURCES = ("int4_matmul", "flash_prefill", "paged_decode", "ragged_decode")
 
 #: every flag that reaches nvcc (``-Xptxas -v`` only adds the report)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -57,7 +58,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library's path, named by a hash of its source, every header
+    under ``csrc/`` and the flags."""
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
@@ -127,4 +131,5 @@ def stream_of(t) -> ctypes.c_void_p:
 
 
 def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+    """A tensor's device address (NULL for None: an absent operand)."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())

@@ -26,12 +26,17 @@ from .paged_attention import (
     paged_decode_attention_cuda,
     paged_decode_attention_plain,
 )
+from .ragged_attention import (
+    ragged_decode_attention_cuda,
+    ragged_decode_attention_plain,
+)
 
 #: kernel name -> its CUDA wrapper (the holder of the launch count)
 CUDA_WRAPPERS = {
     "int4_matmul_fused": int4_matmul_fused_cuda,
     "flash_prefill": flash_prefill_cuda,
     "paged_decode_attention": paged_decode_attention_cuda,
+    "ragged_decode_attention": ragged_decode_attention_cuda,
 }
 
 
@@ -61,20 +66,42 @@ def int4_matmul_fused_kmajor(x, w_kmajor, w_scale):
     return int4_matmul_fused_plain(x, w_kmajor, w_scale)
 
 
-def paged_decode_attention(q, k_pool, v_pool, tbl, last_pos, *,
-                           window: int = 0):
+def paged_decode_attention(q, k_pool, v_pool, tbl, last_pos, k_scale=None,
+                           v_scale=None, *, window: int = 0):
     """Decode attention over the KV page pool: q [B, H, hd]; pools
-    [P, ps, KV, hd]; tbl [B, pages_per_seq]; last_pos [B] (-1 = inactive
-    row, zero output)."""
+    [P, ps, KV, hd(/2)] (+ f32 scales [P, ps, KV, 1] for int8/int4 pools);
+    tbl [B, pages_per_seq]; last_pos [B] (-1 = inactive row, zero
+    output)."""
     if _on_cuda(q, "paged_decode_attention"):
         return paged_decode_attention_cuda(q, k_pool, v_pool, tbl, last_pos,
-                                           window=window)
+                                           k_scale, v_scale, window=window)
     B, H, hd = q.shape
     ps = k_pool.shape[1]
     b = autotune.attn_default_blocks("attn.paged_decode", B,
                                      tbl.shape[1] * ps, H * hd, group_size=ps)
     return paged_decode_attention_plain(q, k_pool, v_pool, tbl, last_pos,
-                                        window=window, pp=max(1, b["bk"] // ps))
+                                        k_scale, v_scale, window=window,
+                                        pp=max(1, b["bk"] // ps))
+
+
+def ragged_paged_attention(q, k_pool, v_pool, tbl, token_slot, token_pos,
+                           k_scale=None, v_scale=None, *, window: int = 0):
+    """Ragged token-major attention over the KV page pool, one launch for a
+    flat pack of prefill-chunk and decode rows: q [T, H, hd]; pools as for
+    `paged_decode_attention`; tbl [max_batch, pages_per_seq]; token_slot /
+    token_pos [T] (-1 = padding row, zero output)."""
+    if _on_cuda(q, "ragged_decode_attention"):
+        return ragged_decode_attention_cuda(q, k_pool, v_pool, tbl,
+                                            token_slot, token_pos, k_scale,
+                                            v_scale, window=window)
+    T, H, hd = q.shape
+    ps = k_pool.shape[1]
+    b = autotune.attn_default_blocks("attn.ragged", T, tbl.shape[1] * ps,
+                                     H * hd, group_size=ps)
+    return ragged_decode_attention_plain(q, k_pool, v_pool, tbl, token_slot,
+                                         token_pos, k_scale, v_scale,
+                                         window=window,
+                                         pp=max(1, b["bk"] // ps))
 
 
 def flash_prefill(q, k, v, q_positions, k_positions, *, window: int = 0):

@@ -9,12 +9,17 @@ Ports ``repro/kernels/paged_attention.py``:
     ``[P, ps, KV, hd]`` through the block table ``[B, pages_per_seq]``.
     Sentinel table entries (== P) are clamped and their positions masked;
     positions past ``last_pos`` (and rows with ``last_pos == -1``) are
-    masked, inactive rows output zeros.  The plain version copies the JAX
+    masked, inactive rows output zeros.  int8 pools and int4 pools
+    (``[..., hd // 2]`` uint8 nibble pairs) carry f32 scales
+    ``[P, ps, KV, 1]`` and dequantize per page as ``(q.f32 * scale) ->
+    bf16`` (``_dequant_slab``), the rounding of
+    ``models.attention.dequantize_kv``.  The plain version copies the JAX
     package's two-pass XLA twin (blocked QK into a score buffer, the exact
-    softmax with the probabilities cast to the pool dtype, blocked PV with
-    f32 partial sums); the CUDA kernel runs a single-pass online softmax and
-    agrees with it to bf16 tolerance.  bf16 (and, in the plain version, f32)
-    pools only: the int8/int4 pools wait.
+    softmax with the probabilities cast to the pool dtype, bf16 for a
+    quantized pool, blocked PV with f32 partial sums); the CUDA kernel runs
+    a single-pass online softmax and agrees with it to bf16 tolerance.  The
+    kernel takes bf16, int8 and int4 pools; the plain version f32 pools as
+    well.
 
 ``flash_prefill``
     Tiled causal GQA attention over the in-flight prompt, masks from the
@@ -33,6 +38,7 @@ import math
 
 import torch
 
+from ..core.quant import unpack_int4
 from . import _build
 
 NEG_INF = -1e30
@@ -46,13 +52,27 @@ def _round_scores(s: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
     return s.to(torch.float32)
 
 
+def _dequant_slab(kq: torch.Tensor, scale, hd: int) -> torch.Tensor:
+    """Pool slab [..., hd or hd // 2] -> bf16 with the rounding of
+    ``models.attention.dequantize_kv`` (int4 nibbles interleave along hd);
+    a float pool passes through."""
+    if kq.dtype == torch.uint8:
+        kq = unpack_int4(kq, axis=-1)
+    if kq.dtype == torch.int8:
+        return (kq.to(torch.float32) * scale).to(torch.bfloat16)
+    return kq
+
+
 # ------------------------------------------------------- decode (paged) ----
 def paged_decode_attention_plain(q, k_pool, v_pool, tbl, last_pos,
-                                 window: int = 0, pp: int = 4) -> torch.Tensor:
+                                 k_scale=None, v_scale=None, window: int = 0,
+                                 pp: int = 4) -> torch.Tensor:
     """Two-pass plain version (``paged_decode_attention_xla``):
 
       1. blocked QK into a [B, KV, G, S] f32 score buffer, pp pages a block,
-      2. the exact softmax, probabilities cast to the pool dtype,
+         each block dequantized when the pool carries scales,
+      2. the exact softmax, probabilities cast to the pool dtype (bf16 for
+         a quantized pool),
       3. blocked PV with f32 partial sums.
 
     Both loops stop at the block holding the batch's last active position.
@@ -65,6 +85,7 @@ def paged_decode_attention_plain(q, k_pool, v_pool, tbl, last_pos,
     G = H // KV
     scale = 1.0 / math.sqrt(hd)
     cd = q.dtype
+    quant = k_scale is not None
 
     pp = max(1, min(pp, pps))
     nj = -(-pps // pp)
@@ -83,7 +104,10 @@ def paged_decode_attention_plain(q, k_pool, v_pool, tbl, last_pos,
                       device=q.device)
     for j in range(steps):
         cols = tbl_p[:, j * pp:(j + 1) * pp]                 # [B, pp]
-        kb = k_pool[cols].reshape(B, tokens, KV, hd)
+        kb = k_pool[cols]                          # [B, pp, ps, KV, hd(/2)]
+        if quant:
+            kb = _dequant_slab(kb, k_scale[cols], hd)
+        kb = kb.reshape(B, tokens, KV, hd)
         s = torch.einsum("bkgh,btkh->bkgt", q4, kb.to(cd))
         sbuf[..., j * tokens:(j + 1) * tokens] = _round_scores(s, cd) * scale
 
@@ -92,12 +116,16 @@ def paged_decode_attention_plain(q, k_pool, v_pool, tbl, last_pos,
     if window:
         mask &= (last_pos[:, None] - pos[None, :]) < window
     sbuf = torch.where(mask[:, None, None, :], sbuf, NEG_INF)
-    probs = torch.softmax(sbuf, dim=-1).to(v_pool.dtype)
+    probs = torch.softmax(sbuf, dim=-1).to(
+        torch.bfloat16 if quant else v_pool.dtype)
 
     acc = torch.zeros((B, KV, G, hd), dtype=torch.float32, device=q.device)
     for j in range(steps):
         cols = tbl_p[:, j * pp:(j + 1) * pp]
-        vb = v_pool[cols].reshape(B, tokens, KV, hd)
+        vb = v_pool[cols]
+        if quant:
+            vb = _dequant_slab(vb, v_scale[cols], hd)
+        vb = vb.reshape(B, tokens, KV, hd)
         p = probs[..., j * tokens:(j + 1) * tokens]
         acc = acc + torch.einsum("bkgt,btkh->bkgh", p.to(torch.float32),
                                  vb.to(torch.float32))
@@ -106,8 +134,8 @@ def paged_decode_attention_plain(q, k_pool, v_pool, tbl, last_pos,
 
 
 def _bind_decode(lib: ctypes.CDLL) -> None:
-    lib.paged_decode_launch.argtypes = [ctypes.c_void_p] * 6 \
-        + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+    lib.paged_decode_launch.argtypes = [ctypes.c_void_p] * 8 \
+        + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
     lib.paged_decode_launch.restype = ctypes.c_int
 
 
@@ -124,34 +152,68 @@ def _check_cuda(name: str, tensors, dtypes) -> None:
             raise ValueError(f"{name}: operands must be contiguous")
 
 
+#: pool dtype -> the kernels' pool kind (``csrc/decode_common.cuh``)
+POOL_KINDS = {torch.bfloat16: 0, torch.int8: 1, torch.uint8: 2}
+
+
+def check_pools(name: str, q, k_pool, v_pool, k_scale, v_scale) -> int:
+    """Validate the K/V pools (and scales) a decode kernel reads for
+    queries q [rows, H, hd] bf16, and return the pool kind: bf16
+    ``[P, ps, KV, hd]``, int8 the same shape, or int4 ``[P, ps, KV, hd // 2]``
+    uint8, the quantized ones with f32 scales ``[P, ps, KV, 1]``.  Raises
+    on anything else, and on shapes the kernels are not built for."""
+    kind = POOL_KINDS.get(k_pool.dtype)
+    if kind is None:
+        raise TypeError(f"{name}: no kernel for {k_pool.dtype} pools")
+    quant = kind != 0
+    if quant != (k_scale is not None) or (k_scale is None) != (v_scale is None):
+        raise ValueError(f"{name}: scales go with int8/int4 pools only, "
+                         "both or neither")
+    tensors = (q, k_pool, v_pool) + ((k_scale, v_scale) if quant else ())
+    _check_cuda(name, tensors, (torch.bfloat16, k_pool.dtype, k_pool.dtype,
+                                torch.float32, torch.float32))
+    _, H, hd = q.shape
+    P, ps, KV = k_pool.shape[:3]
+    width = hd // 2 if kind == 2 else hd
+    if (k_pool.dim() != 4 or v_pool.shape != k_pool.shape
+            or k_pool.shape[3] != width or H % KV or (quant and (
+                k_scale.shape != (P, ps, KV, 1)
+                or v_scale.shape != k_scale.shape))):
+        raise ValueError(
+            f"{name}: q {tuple(q.shape)}, pools {tuple(k_pool.shape)} "
+            f"{k_pool.dtype}, scales "
+            f"{None if k_scale is None else tuple(k_scale.shape)}")
+    if hd != 64 or H // KV > 8:
+        raise ValueError(f"{name}: head dim {hd} with {H // KV} query heads "
+                         "per KV head is not supported")
+    return kind
+
+
 def paged_decode_attention_cuda(q, k_pool, v_pool, tbl, last_pos,
+                                k_scale=None, v_scale=None,
                                 window: int = 0) -> torch.Tensor:
-    """Launch the paged decode kernel: q [B, H, hd] bf16, pools
-    [P, ps, KV, hd] bf16, tbl [B, pps] int32, last_pos [B] int32."""
-    bf, i32 = torch.bfloat16, torch.int32
-    _check_cuda("paged_decode_attention_cuda",
-                (q, k_pool, v_pool, tbl, last_pos), (bf, bf, bf, i32, i32))
+    """Launch the paged decode kernel: q [B, H, hd] bf16; pools as
+    `check_pools` takes them; tbl [B, pps] int32; last_pos [B] int32."""
+    name = "paged_decode_attention_cuda"
+    kind = check_pools(name, q, k_pool, v_pool, k_scale, v_scale)
+    _check_cuda(name, (q, tbl, last_pos),
+                (torch.bfloat16, torch.int32, torch.int32))
     B, H, hd = q.shape
     P, ps, KV = k_pool.shape[:3]
     pps = tbl.shape[1]
-    if (v_pool.shape != k_pool.shape or k_pool.shape[3] != hd
-            or H % KV or tbl.shape[0] != B or last_pos.shape != (B,)):
-        raise ValueError(
-            f"paged_decode_attention_cuda: q {tuple(q.shape)}, pool "
-            f"{tuple(k_pool.shape)}, tbl {tuple(tbl.shape)}, last_pos "
-            f"{tuple(last_pos.shape)}")
-    G = H // KV
-    if hd != 64 or G > 8:
-        raise ValueError(f"paged_decode_attention_cuda: head dim {hd} with "
-                         f"{G} query heads per KV head is not supported")
+    if tbl.dim() != 2 or tbl.shape[0] != B or last_pos.shape != (B,):
+        raise ValueError(f"{name}: q {tuple(q.shape)}, tbl "
+                         f"{tuple(tbl.shape)}, last_pos "
+                         f"{tuple(last_pos.shape)}")
     out = torch.empty_like(q)
     if B == 0:
         return out
     lib = _build.load("paged_decode", _bind_decode)
     code = lib.paged_decode_launch(
         _build.ptr(q), _build.ptr(k_pool), _build.ptr(v_pool),
-        _build.ptr(tbl), _build.ptr(last_pos), _build.ptr(out),
-        B, H, KV, hd, P, ps, pps, int(window), 1.0 / math.sqrt(hd),
+        _build.ptr(k_scale), _build.ptr(v_scale), _build.ptr(tbl),
+        _build.ptr(last_pos), _build.ptr(out),
+        B, H, KV, hd, P, ps, pps, int(window), kind, 1.0 / math.sqrt(hd),
         _build.stream_of(q))
     _build.check(lib, code, "paged_decode_attention")
     paged_decode_attention_cuda.launches += 1

@@ -1,12 +1,17 @@
 """Continuous-batching serving driver for the PyTorch port.
 
-Serves synthetic Poisson traffic with W4A4-packed weights (every attention
-and FFN projection through the fused int4 GEMM), a bf16 paged KV pool with
-the prefix cache, flash prefill and fused paged decode, and prints a JSON
-report with tokens/s and p50/p95 request latency.  Runs on ``cuda`` unless
-``--device cpu`` is given.
+Serves synthetic traffic (Poisson arrivals, or the mixed and bursty
+scenarios) with W4A4-packed weights (every attention and FFN projection
+through the fused int4 GEMM) and a paged KV pool (bf16, or int8/int4 with
+per-token scales) with the prefix cache, and prints a JSON report with
+tokens/s and p50/p95 request latency.  ``--step bucketed`` runs flash
+prefill and fused paged decode; ``--step ragged`` packs prefill chunks and
+decode tokens into one ragged step a token budget wide.  Runs on ``cuda``
+unless ``--device cpu`` is given.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b --full
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
+        --full --step ragged --cache-dtype int8 --scenario mixed
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
         --reduced --device cpu --requests 4 --prompt-lens 8,16 --gen-lens 4
 """
@@ -21,26 +26,40 @@ import torch
 
 from ..configs import Runtime, ServingConfig, get_config
 from ..kernels import ops
-from ..serving.api import poisson_trace, run_trace
+from ..serving.api import (bursty_trace, mixed_trace, poisson_trace,
+                           run_trace)
 from ..serving.engine import InferenceEngine, build_params
+
+#: the bursty scenario's arrivals per burst and decode steps between bursts
+#: (the reference CLI's defaults)
+BURST, PERIOD = 4, 8
 
 
 def serve(arch: str, *, reduced=True, layers=None, max_batch=4,
           page_size=16, num_pages=48, max_ctx=128, requests=8, rate=0.5,
           prompt_lens=(8, 16, 32), gen_lens=(8, 16), prefix_cache=True,
-          seed=0, device="cuda"):
+          scenario="poisson", step="bucketed",
+          token_budget=0, cache_dtype="bfloat16", seed=0, device="cuda"):
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced(**({"n_layers": layers} if layers else {}))
     elif layers:
         cfg = dataclasses.replace(cfg, n_layers=layers)
     rt = Runtime(attn_impl="flash", attn_chunk_q=min(512, max_ctx),
-                 quant_backend="w4a4_packed", cache_dtype="bfloat16")
+                 quant_backend="w4a4_packed", cache_dtype=cache_dtype)
     sv = ServingConfig(layout="paged", max_batch=max_batch,
                        page_size=page_size, num_pages=num_pages,
-                       max_ctx=max_ctx, prefix_cache=prefix_cache)
-    trace = poisson_trace(requests, rate, prompt_lens, gen_lens, cfg.vocab,
-                          seed=seed)
+                       max_ctx=max_ctx, prefix_cache=prefix_cache, step=step,
+                       token_budget=token_budget)
+    if scenario == "mixed":
+        trace = mixed_trace(requests, prompt_lens, gen_lens, cfg.vocab,
+                            seed=seed)
+    elif scenario == "bursty":
+        trace = bursty_trace(requests, BURST, PERIOD, prompt_lens, gen_lens,
+                             cfg.vocab, seed=seed)
+    else:
+        trace = poisson_trace(requests, rate, prompt_lens, gen_lens,
+                              cfg.vocab, seed=seed)
     params = build_params(cfg, rt, seed, device)
     engine = InferenceEngine(cfg, rt, sv, params=params, device=device)
     engine.warmup(prompt_lens)
@@ -49,7 +68,8 @@ def serve(arch: str, *, reduced=True, layers=None, max_batch=4,
     ops.reset_launch_counts()
     stats, _ = run_trace(engine, trace)
     report = {"arch": arch, "reduced": reduced, "n_layers": cfg.n_layers,
-              "quant": "w4a4_packed", "cache_dtype": "bfloat16",
+              "quant": "w4a4_packed", "cache_dtype": cache_dtype,
+              "step": step, "scenario": scenario,
               "device": str(engine.device),
               "device_name": (torch.cuda.get_device_name(engine.device)
                               if engine.device.type == "cuda" else "cpu"),
@@ -80,7 +100,21 @@ def main():
                     help="Poisson arrival rate in requests per decode step")
     ap.add_argument("--prompt-lens", default="8,16,32")
     ap.add_argument("--gen-lens", default="8,16")
+    ap.add_argument("--scenario", default="poisson",
+                    choices=["poisson", "mixed", "bursty"],
+                    help="mixed: one arrival per step with cycling lengths; "
+                         f"bursty: {BURST} arrivals every {PERIOD} steps")
+    ap.add_argument("--step", default="bucketed",
+                    choices=["bucketed", "ragged"],
+                    help="bucketed prefill/decode steps, or the ragged "
+                         "token-major step")
+    ap.add_argument("--token-budget", type=int, default=0,
+                    help="ragged step's padded token capacity per step "
+                         "(0 = auto from max_batch/page_size)")
     ap.add_argument("--prefix-cache", default="on", choices=["on", "off"])
+    ap.add_argument("--cache-dtype", default="bfloat16",
+                    choices=["bfloat16", "int8", "int4"],
+                    help="KV pool: bf16, or int8/int4 with per-token scales")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
@@ -95,7 +129,10 @@ def main():
         requests=args.requests, rate=args.rate,
         prompt_lens=tuple(int(x) for x in args.prompt_lens.split(",")),
         gen_lens=tuple(int(x) for x in args.gen_lens.split(",")),
-        prefix_cache=args.prefix_cache == "on", seed=args.seed,
+        prefix_cache=args.prefix_cache == "on", scenario=args.scenario,
+        step=args.step,
+        token_budget=args.token_budget, cache_dtype=args.cache_dtype,
+        seed=args.seed,
         device=args.device)
     text = json.dumps(out, indent=1)
     print(text)

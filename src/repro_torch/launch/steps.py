@@ -1,5 +1,6 @@
 """Serving step functions for the continuous-batching engine (PyTorch port
-of ``repro/launch/steps.py::make_serving_steps``, paged layout).
+of ``repro/launch/steps.py``: ``make_serving_steps`` and
+``make_ragged_step``, paged layout).
 
 Each step gathers the batch's block-table rows on the device
 (``tbl_all[slots]``), binds them to every layer, runs the model and takes
@@ -15,8 +16,8 @@ import dataclasses
 
 import torch
 
-from ..models.transformer import decode_step, prefill
-from ..serving.kv_pages import with_block_tables
+from ..models.transformer import _logits, decode_step, forward, prefill
+from ..serving.kv_pages import with_block_tables, with_token_slots
 
 
 def make_serving_steps(cfg, rt):
@@ -54,3 +55,31 @@ def make_serving_steps(cfg, rt):
         return greedy(logits), caches
 
     return make_prefill(rt), make_prefill(rt_tail), dec_step
+
+
+def make_ragged_step(cfg, rt):
+    """The ragged token-major step:
+    ``step(params, tokens, caches, positions, tbl_all, slots, emit_rows)
+    -> (next_tokens [max_batch] int32, caches)``.
+
+    tokens / positions [1, T] are a flat pack of prefill-chunk and decode
+    rows, ``slots`` [T] each row's table row (-1 = padding).  ``emit_rows``
+    [max_batch] names, per slot, the packed row whose logits give that
+    request's next token (-1 = no emission this step: its prefill has
+    chunks to go, or the slot is empty); the tied logits run only on those
+    rows, and their greedy argmax stays on the device (-1 where nothing is
+    emitted)."""
+    vocab = cfg.vocab
+
+    @torch.inference_mode()
+    def ragged_step(params, tokens, caches, positions, tbl_all, slots,
+                    emit_rows):
+        caches = with_token_slots(caches, tbl_all, slots)
+        hidden, caches = forward(params, tokens, cfg, rt, positions, caches,
+                                 update_cache=True, return_hidden=True)
+        h = hidden.index_select(1, emit_rows.clamp(min=0).long())  # [1,mb,D]
+        logits = _logits(params, h, cfg, rt)[0]                    # [mb, Vp]
+        nxt = torch.argmax(logits[:, :vocab], dim=-1).to(torch.int32)
+        return torch.where(emit_rows >= 0, nxt, -1), caches
+
+    return ragged_step

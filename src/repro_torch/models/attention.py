@@ -11,8 +11,9 @@ Three interchangeable attention cores:
 
 Masks come from explicit absolute positions (``-1`` = padding), which makes
 causal, window and validity masking uniform across prefill and decode.
-The paged KV cache (``serving.kv_pages``) is the only cache layout ported;
-the contiguous ring cache and quantized KV pools wait.
+The paged KV cache (``serving.kv_pages``, bf16/f32 pools or int8/int4 pools
+quantized by `quantize_kv`) is the only cache layout ported; the
+contiguous ring cache waits.
 """
 
 from __future__ import annotations
@@ -47,10 +48,41 @@ def init_attention(gen: torch.Generator, cfg) -> Dict:
     return p
 
 
+def quantize_kv(val: torch.Tensor, int4: bool):
+    """Per-(token, head) absmax quantization of K/V slabs [..., hd]: int8
+    values (int4: nibble pairs packed along hd, element 2i in the low
+    nibble) and f32 scales [..., 1].  The op sequence is the JAX package's,
+    dtype by dtype: the scale, the division and the rounding run in `val`'s
+    own dtype (bf16 on the serving path) and only the scale is cast to
+    f32, so the bytes are the reference's."""
+    qmax = 7.0 if int4 else 127.0
+    scale = val.abs().amax(dim=-1, keepdim=True) / qmax + 1e-8
+    q = torch.clamp(torch.round(val / scale), -qmax, qmax).to(torch.int8)
+    if int4:
+        from ..core.quant import pack_int4
+
+        q = pack_int4(q, axis=-1)
+    return q, scale.to(torch.float32)
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Inverse of `quantize_kv` (uint8 => packed nibbles): ``(q.f32 *
+    scale) -> bf16``."""
+    if q.dtype == torch.uint8:
+        from ..core.quant import unpack_int4
+
+        q = unpack_int4(q, axis=-1)
+    return (q.to(torch.float32) * scale).to(torch.bfloat16)
+
+
 def _gqa_block(q, k, v, mask):
-    """q [B, n, KV, G, hd]; k/v [B, Skv, KV, hd]; mask [B, n, Skv] bool."""
+    """q [B, n, KV, G, hd]; k/v [B, Skv, KV, hd]; mask [B, n, Skv] bool.
+    Mixed operand dtypes (f32 queries over a dequantized bf16 pool) promote
+    as jnp.einsum does."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    scores = torch.einsum("bqkgh,btkh->bkgqt", q, k).to(torch.float32) * scale
+    dt = torch.promote_types(q.dtype, k.dtype)
+    scores = torch.einsum("bqkgh,btkh->bkgqt", q.to(dt), k.to(dt)).to(
+        torch.float32) * scale
     scores = torch.where(mask[:, None, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bkgqt,btkh->bqkgh", probs.to(v.dtype), v)
@@ -88,7 +120,11 @@ def apply_attention(params: Dict, x: torch.Tensor, cfg, rt,
                     update_cache: bool = False, site: str = ""
                     ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """x [B, S, D], positions [B, S].  With a paged cache (a dict holding
-    ``"tbl"``) the branches are those of the JAX package: S == 1 is decode
+    ``"tbl"``) the branches are those of the JAX package.  A cache that also
+    holds ``"slots"`` is the ragged token-major step (B == 1, S packed rows,
+    each routed through the table row ``slots`` names): write every row's
+    K/V first, then attend with ``pos <= token_pos``, which is causal for
+    prefill-chunk rows and last-token for decode rows.  S == 1 is decode
     (write the token's K/V, then the fused paged kernel, or the gather
     baseline with ``rt.paged_attn == "gather"``); ``rt.prefill_over_cache``
     is the tail prefill after a prefix-cache hit (write, then attend over
@@ -110,7 +146,16 @@ def apply_attention(params: Dict, x: torch.Tensor, cfg, rt,
     v = v.reshape(B, S, KV, hd)
 
     new_cache = None
-    if cache is not None and "tbl" in cache:
+    if cache is not None and "slots" in cache:
+        from ..kernels import ops
+        from ..serving.kv_pages import ragged_paged_write
+
+        new_cache = ragged_paged_write(cache, k, v, positions)
+        out = ops.ragged_paged_attention(
+            q[0], new_cache["k"], new_cache["v"], new_cache["tbl"],
+            cache["slots"], positions[0], new_cache.get("k_scale"),
+            new_cache.get("v_scale"), window=cfg.local_window)[None]
+    elif cache is not None and "tbl" in cache:
         from ..serving.kv_pages import paged_read, paged_write
 
         if S == 1:
@@ -121,6 +166,7 @@ def apply_attention(params: Dict, x: torch.Tensor, cfg, rt,
                 out = ops.paged_decode_attention(
                     q[:, 0], new_cache["k"], new_cache["v"],
                     new_cache["tbl"], positions[:, -1],
+                    new_cache.get("k_scale"), new_cache.get("v_scale"),
                     window=cfg.local_window)[:, None]
             else:
                 kf, vf, kpos = paged_read(new_cache, positions[:, -1])

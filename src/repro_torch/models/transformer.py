@@ -110,8 +110,10 @@ def forward(params: Dict, tokens: torch.Tensor, cfg, rt,
     for r, lp in enumerate(layers):
         cache = None
         if attn_c is not None:
-            cache = {"tbl": attn_c["tbl"], "k": attn_c["k"][r],
-                     "v": attn_c["v"][r]}
+            # layer r's pools (and scale pools) under the shared routing
+            # leaves: the block table, and the ragged step's token slots
+            cache = {key: val if key in ("tbl", "slots") else val[r]
+                     for key, val in attn_c.items()}
         x, _ = apply_block(lp, x, cfg, rt, positions, cache, update_cache,
                            site=f"block[{r}]")
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -1,11 +1,15 @@
 """Synthetic traffic and the trace driver (PyTorch port of
-``repro/serving/api.py::poisson_trace`` / ``run_trace``).
+``repro/serving/api.py``: ``poisson_trace``, ``mixed_trace``,
+``bursty_trace`` and ``run_trace``).
 
-`poisson_trace` draws a reproducible open-loop request trace: exponential
-interarrival times in decode-step units (so scheduling replays identically
-across engines) with prompt/generation lengths drawn from the given
-choices.  The draws are numpy's, so the JAX package and this port get the
-same trace from the same seed.
+The traces are reproducible open-loop request streams with arrivals in
+decode-step units (so scheduling replays identically across engines):
+`poisson_trace` draws exponential interarrival times, `mixed_trace` has one
+arrival per step with lengths cycling (the batch's mix of prefill chunks
+and decode tokens changes every step: the ragged step's workload), and
+`bursty_trace` sends groups of simultaneous arrivals.  The draws are
+numpy's, so the JAX package and this port get the same trace from the same
+seed.
 """
 
 from __future__ import annotations
@@ -40,6 +44,39 @@ def poisson_trace(n_requests: int, rate_per_step: float,
             prompt=rng.integers(0, vocab, size=L, dtype=np.int32),
             max_new=int(rng.choice(list(gen_lens))),
         ))
+    return out
+
+
+def mixed_trace(n_requests: int, prompt_lens: Sequence[int],
+                gen_lens: Sequence[int], vocab: int,
+                seed: int = 0) -> List[TraceItem]:
+    """One arrival per decode step with prompt/gen lengths cycling through
+    their cross product, so every step's running set mixes prefill chunks
+    and decode tokens differently."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n_requests):
+        L = int(prompt_lens[i % len(prompt_lens)])
+        g = int(gen_lens[(i // len(prompt_lens)) % len(gen_lens)])
+        prompt = rng.integers(0, vocab, size=L, dtype=np.int32)
+        out.append(TraceItem(arrival_step=i, prompt=prompt, max_new=g))
+    return out
+
+
+def bursty_trace(n_requests: int, burst: int, period: int,
+                 prompt_lens: Sequence[int], gen_lens: Sequence[int],
+                 vocab: int, seed: int = 0) -> List[TraceItem]:
+    """Groups of `burst` simultaneous requests every `period` decode steps,
+    prompt lengths alternating between bursts: admission spikes."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n_requests):
+        group = i // burst
+        L = int(prompt_lens[(group + i) % len(prompt_lens)])
+        g = int(gen_lens[i % len(gen_lens)])
+        prompt = rng.integers(0, vocab, size=L, dtype=np.int32)
+        out.append(TraceItem(arrival_step=group * period, prompt=prompt,
+                             max_new=g))
     return out
 
 

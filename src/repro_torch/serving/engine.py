@@ -1,10 +1,13 @@
-"""Inference engine: runs the prefill/decode steps over the scheduled batch
-with per-request state tracking and latency/throughput stats (PyTorch port
-of ``repro/serving/engine.py``, bucketed paged path).
+"""Inference engine: runs the serving steps over the scheduled batch with
+per-request state tracking and latency/throughput stats (PyTorch port of
+``repro/serving/engine.py``, paged layout, both step modes).
 
-One `step()` is a decode-step boundary: admit (+ prefill) newly arrived
-requests, preempt if the page pool is dry, run one decode step for the
-running set, retire finished requests.  Greedy decoding.
+One `step()` is a decode-step boundary.  Bucketed (``sv.step ==
+"bucketed"``): admit (+ prefill) newly arrived requests, preempt if the
+page pool is dry, run one decode step for the running set, retire finished
+requests.  Ragged (``"ragged"``): admit, plan a token budget's worth of
+work (decode tokens first, then prefill chunks, ``Scheduler.plan_tokens``),
+run one step over the flat pack, retire.  Greedy decoding.
 
 The pool and the block-table pool ``[max_batch, pages_per_seq]`` live on
 the device.  Table rows move host->device only when a request is admitted
@@ -28,7 +31,7 @@ import numpy as np
 import torch
 
 from ..core.quant_plan import pack_for_serving
-from ..launch.steps import make_serving_steps
+from ..launch.steps import make_ragged_step, make_serving_steps
 from ..models.transformer import init_model, with_layer_views
 from ..observability.metrics import COUNT_BUCKETS, MetricsRegistry
 from .kv_pages import PagedKVCacheManager, init_paged_caches
@@ -66,10 +69,9 @@ class InferenceEngine:
     def __init__(self, cfg, rt, sv, params=None, seed: int = 0,
                  clock=time.time, metrics: Optional[MetricsRegistry] = None,
                  device="cuda"):
-        if sv.layout != "paged" or sv.step != "bucketed":
+        if sv.layout != "paged":
             raise NotImplementedError(
-                "only the bucketed paged layout is ported "
-                f"(got layout={sv.layout!r}, step={sv.step!r})")
+                f"only the paged layout is ported (got {sv.layout!r})")
         self.cfg, self.rt, self.sv = cfg, rt, sv
         self.device = resolve_device(device)
         self.clock = clock
@@ -93,6 +95,12 @@ class InferenceEngine:
                                    max_queue=sv.max_queue)
         self._prefill, self._prefill_tail, self._decode = make_serving_steps(
             cfg, rt)
+        # ragged token-major step: one step function whose shape is the
+        # padded token budget, whatever the batch's mix of prefill chunks
+        # and decode tokens
+        self._ragged = make_ragged_step(cfg, rt) \
+            if sv.step == "ragged" else None
+        self._budget = sv.budget
 
         self._next_rid = 0
         self._finished: List[Request] = []
@@ -145,7 +153,11 @@ class InferenceEngine:
         bucket, one decode per batch bucket) before the measured window,
         so first-call costs (kernel loading, allocator growth) stay out of
         the stats.  Every position is -1: all writes go to the spill page
-        and the pool is untouched."""
+        and the pool is untouched.  The ragged step has one shape, the
+        token budget, so it warms with one call whatever the prompts."""
+        if self._ragged is not None:
+            self._warm_ragged()
+            return
         slot0 = torch.zeros((1,), dtype=torch.int32, device=self.device)
         for L in sorted({self.sv.prompt_bucket(n) for n in prompt_lens}):
             tokens = torch.zeros((1, L), dtype=torch.int32, device=self.device)
@@ -168,7 +180,34 @@ class InferenceEngine:
     def step(self) -> int:
         """One decode-step boundary; returns the number of running requests
         after the step (0 = idle)."""
+        if self._ragged is not None:
+            return self._step_ragged()
         return self._step_bucketed()
+
+    def _warm_ragged(self) -> None:
+        """One ragged step at the current budget, all rows padding (slot
+        and position -1): every write goes to the spill page."""
+        T, dev = self._budget, self.device
+        pad = torch.full((T,), -1, dtype=torch.int32, device=dev)
+        _, self.caches = self._ragged(
+            self.params, torch.zeros((1, T), dtype=torch.int32, device=dev),
+            self.caches, pad[None], self._tbl, pad,
+            torch.full((self.sv.max_batch,), -1, dtype=torch.int32,
+                       device=dev))
+
+    def _grow_budget(self, need: int) -> None:
+        """The running set's decode tokens (plus one prefill-chunk row)
+        exceed the budget, which only an explicit token_budget below
+        max_batch allows: double it until they fit, and warm the new
+        shape."""
+        new = self._budget
+        while new < need:
+            new *= 2
+        self._budget = new
+        self.metrics.counter(
+            "ragged_budget_grows_total",
+            "token-budget doublings of the ragged step").inc()
+        self._warm_ragged()
 
     def _step_bucketed(self) -> int:
         t0 = time.perf_counter()
@@ -187,6 +226,96 @@ class InferenceEngine:
         self._retire()
         self._observe_step(t0, batch)
         return len(self.scheduler.running)
+
+    def _step_ragged(self) -> int:
+        """One ragged token-major step: admit, plan a token budget's worth
+        of work, run one step over the flat pack, apply its emissions.  An
+        admitted request's prefix drains through the planner as chunks,
+        possibly over several steps, beside everyone else's decode
+        tokens."""
+        t0 = time.perf_counter()
+        now = self.clock()
+        if self.t_start is None:
+            self.t_start = now
+        for req in self.scheduler.admit(now):
+            # prefix-cache hits are realized at admission: the planner only
+            # ever feeds prefix[n_cached:]
+            hit = req.n_cached
+            self.n_prefix_hit_tokens += hit
+            self.metrics.counter(
+                "prefix_hit_tokens_total",
+                "prompt/resume tokens served from cached pages").inc(hit)
+        self.scheduler.ensure_decode()
+        # the budget must cover every decode token plus one prefill-chunk
+        # row while a prefill-phase request runs, or a saturated decode set
+        # starves the later slots (decode tokens are planned in slot order)
+        running = self.scheduler.running.values()
+        need = sum(1 for r in running if r.decoding) \
+            + (1 if any(not r.decoding for r in running) else 0)
+        if need > self._budget:
+            self._grow_budget(need)
+        plan = self.scheduler.plan_tokens(self._budget)
+        if plan:
+            self._ragged_exec(plan)
+        self.n_steps += 1
+        self._retire()
+        self._observe_step(t0, [r for r, _, _ in plan if r.decoding])
+        return len(self.scheduler.running)
+
+    def _ragged_exec(self, plan) -> None:
+        """Pack the planned (req, start, n) chunks into the flat [1, T]
+        buffers and run the ragged step.  Every row's K/V is written
+        through its block table before attention, so one mask rule (key
+        position <= query position) is causal for prefill chunks and
+        last-token for decode rows."""
+        T = self._budget
+        tokens = np.zeros((1, T), np.int32)
+        positions = np.full((1, T), -1, np.int32)   # -1 = padding: spilled
+        slots = np.full((T,), -1, np.int32)
+        emit_rows = np.full((self.sv.max_batch,), -1, np.int32)
+        used = 0
+        for req, start, n in plan:
+            tokens[0, used:used + n] = req.prefix[start:start + n]
+            positions[0, used:used + n] = np.arange(start, start + n)
+            slots[used:used + n] = req.slot
+            if start + n == len(req.prefix):
+                # the chunk reaches the prefix's end: its last row's logits
+                # give the request's next token (always, for a decode row)
+                emit_rows[req.slot] = used + n - 1
+            used += n
+        self._observe_packing(used, T)
+        self._sync_tables([r for r, _, _ in plan])
+        nxt, self.caches = self._ragged(
+            self.params, self._dev(tokens), self.caches,
+            self._dev(positions), self._tbl, self._dev(slots),
+            self._dev(emit_rows))
+        # the step's one device->host sync: token readback
+        nxt = np.asarray(nxt.cpu())  # repro: ignore[host-sync-in-hot-path]
+        ps = self.sv.page_size
+        m = self.metrics
+        for req, start, n in plan:
+            end = start + n
+            if req.decoding:
+                self.n_decode_tokens += 1
+                m.counter("decode_tokens_total",
+                          "tokens emitted by decode steps").inc()
+            else:
+                self.n_prefill_tokens += n
+                m.counter("prefill_tokens_total",
+                          "tokens pushed through prefill").inc(n)
+            req.n_cached = end
+            if emit_rows[req.slot] >= 0:
+                if not req.decoding:
+                    # the prefill just completed: index its full pages
+                    # before the emitted token joins the prefix
+                    self.kv.register_upto(req.rid, req.prefix, end)
+                req.tokens.append(int(nxt[req.slot]))
+                if req.t_first is None:
+                    req.t_first = self.clock()
+                req.decoding = True
+                if end % ps == 0 and len(req.tokens) > 1:
+                    # a decode row filled a generated-token page
+                    self.kv.register_upto(req.rid, req.prefix, end)
 
     def _observe_step(self, t0: float, batch: List[Request]) -> None:
         m = self.metrics
@@ -352,6 +481,8 @@ class InferenceEngine:
         return {
             "layout": self.sv.layout,
             "step_mode": self.sv.step,
+            **({"token_budget": self._budget}
+               if self._ragged is not None else {}),
             "device": str(self.device),
             "padding_tokens_wasted": self.n_tokens_wasted,
             "token_utilization": (self.n_tokens_packed / capacity

@@ -1,32 +1,38 @@
 """Paged KV cache: fixed-size pages from a preallocated pool + block tables
-(PyTorch port of ``repro/serving/kv_pages.py``, bf16/f32 pools).
+(PyTorch port of ``repro/serving/kv_pages.py``).
 
 Device side, each attention layer's cache is a dict
 
     {"tbl": [B, pages_per_seq] int32,        # logical page -> physical page
      "k":   [num_pages, page_size, KV, hd],  # shared pool
-     "v":   [num_pages, page_size, KV, hd]}
+     "v":   [num_pages, page_size, KV, hd],
+     (+ "k_scale"/"v_scale" [num_pages, page_size, KV, 1] f32 for int8
+      pools, and for int4 pools, whose K/V are [..., hd // 2] uint8 nibble
+      pairs),
+     (+ "slots" [T] int32 on the ragged step: the table row of each packed
+      token row, -1 = padding; "tbl" is then the whole table pool)}
 
 and the model tree stacks the pools of all layers: ``caches["rep"]["u0"]
 ["attn"]["k"]`` is ``[n_layers, num_pages, page_size, KV, hd]``.  Logical
 slot ``j`` of a sequence lives at ``tbl[j // page_size]``, slot
 ``j % page_size``.  Unallocated table slots hold the sentinel
-``num_pages``.
+``num_pages``.  Quantized pools store `models.attention.quantize_kv`'s
+bytes and read back through `dequantize_kv`, as the JAX package's do.
 
 The JAX package routes writes through that sentinel out of bounds, where
 ``mode="drop"`` discards them, and reads it with ``mode="fill"`` zeros.
 PyTorch has neither, so both are explicit here:
 
-  * every pool is allocated with one spill page behind its last page
-    (``alloc_pool``): the pool tensor is the first ``num_pages`` pages of
-    that storage, and ``paged_write`` sends every write whose position is
-    negative, or whose table entry is the sentinel, to the spill page.  The
-    write is one ``index_copy_`` with no host sync; the spill page is never
-    read.
+  * every pool (scale pools too) is allocated with one spill page behind
+    its last page (``alloc_pool``): the pool tensor is the first
+    ``num_pages`` pages of that storage, and the writes send every row
+    whose position (or ragged slot) is negative, or whose table entry is
+    the sentinel, to the spill page.  A write is one ``index_copy_`` per
+    pool with no host sync; the spill page is never read.
   * ``paged_read`` gathers through clamped indices and then replaces every
     sentinel slot by exact zeros.
 
-Pools are updated in place: ``paged_write`` returns the same tensors it was
+Pools are updated in place: the writes return the same tensors they were
 given (where the JAX package returns new, donated buffers).
 
 Host side, ``PagedKVCacheManager`` owns the page pool and per-request page
@@ -45,15 +51,17 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..models.attention import dequantize_kv, quantize_kv
 from ..observability.metrics import NULL_REGISTRY
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_QUANT = ("int8", "int4")
 
 
 # ------------------------------------------------------- device-side cache --
 def alloc_pool(shape, dtype, device) -> torch.Tensor:
     """Zeroed pool ``shape`` = [..., P, ps, KV, hd] whose storage holds one
-    more page (the spill page of ``paged_write``) behind each pool."""
+    more page (the spill page of the writes) behind each pool."""
     shape = tuple(shape)
     store = torch.zeros(shape[:-4] + (shape[-4] + 1,) + shape[-3:],
                         dtype=dtype, device=device)
@@ -69,22 +77,45 @@ def _with_spill_page(pool: torch.Tensor) -> torch.Tensor:
 
 def init_paged_caches(cfg, rt, sv, device="cuda") -> Dict:
     """Full-model paged pools, stacked over layers:
-    ``{"rep": {"u0": {"attn": {"k", "v"}}}, "tail": {}}``.  Block tables are
-    bound per step with ``with_block_tables``."""
+    ``{"rep": {"u0": {"attn": {"k", "v"(, "k_scale", "v_scale")}}},
+    "tail": {}}``.  Block tables are bound per step with
+    ``with_block_tables`` (or ``with_token_slots``)."""
     blocks = tuple(cfg.pattern) + tuple(cfg.tail)
     if blocks != ("A",):
         raise NotImplementedError(
             f"paged KV serving of block pattern {blocks} is not ported")
-    if rt.cache_dtype not in _DTYPES:
-        raise NotImplementedError(
-            f"cache_dtype={rt.cache_dtype!r}: quantized KV pools are not "
-            f"ported yet")
-    shape = (cfg.n_repeats, sv.num_pages, sv.page_size, cfg.n_kv_heads,
-             cfg.hd)
-    dt = _DTYPES[rt.cache_dtype]
-    attn = {"k": alloc_pool(shape, dt, device),
-            "v": alloc_pool(shape, dt, device)}
+    if rt.cache_dtype not in _DTYPES and rt.cache_dtype not in _QUANT:
+        raise ValueError(f"cache_dtype={rt.cache_dtype!r}")
+    lead = (cfg.n_repeats, sv.num_pages, sv.page_size, cfg.n_kv_heads)
+    if rt.cache_dtype in _QUANT:
+        int4 = rt.cache_dtype == "int4"
+        shape = lead + (cfg.hd // 2 if int4 else cfg.hd,)
+        dt = torch.uint8 if int4 else torch.int8
+        attn = {"k_scale": alloc_pool(lead + (1,), torch.float32, device),
+                "v_scale": alloc_pool(lead + (1,), torch.float32, device)}
+    else:
+        shape, dt, attn = lead + (cfg.hd,), _DTYPES[rt.cache_dtype], {}
+    attn.update(k=alloc_pool(shape, dt, device),
+                v=alloc_pool(shape, dt, device))
     return {"rep": {"u0": {"attn": attn}}, "tail": {}}
+
+
+def _write_rows(cache: Dict, k, v, idx) -> None:
+    """Store K/V rows [N, KV, hd] (k, v flattened over their leading dims)
+    at flat pool slots ``idx`` [N] (the spill page's slots included),
+    quantizing them first when the pool carries scales."""
+    P, ps = cache["k"].shape[:2]
+
+    def write(pool, val):
+        flat = _with_spill_page(pool).view((P + 1) * ps, *pool.shape[2:])
+        flat.index_copy_(0, idx, val.reshape(-1, *pool.shape[2:]).to(
+            pool.dtype))
+
+    for name, val in (("k", k), ("v", v)):
+        if name + "_scale" in cache:
+            val, scale = quantize_kv(val, cache[name].dtype == torch.uint8)
+            write(cache[name + "_scale"], scale)
+        write(cache[name], val)
 
 
 def paged_write(cache: Dict, k, v, abs_pos) -> Dict:
@@ -96,24 +127,35 @@ def paged_write(cache: Dict, k, v, abs_pos) -> Dict:
     logical = torch.clamp(abs_pos // ps, 0, tbl.shape[1] - 1).long()
     phys = torch.gather(tbl, 1, logical).long()
     page = torch.where(abs_pos >= 0, phys, P)
-    idx = (page * ps + abs_pos % ps).reshape(-1)
+    _write_rows(cache, k, v, (page * ps + abs_pos % ps).reshape(-1))
+    return cache
 
-    def write(pool, val):
-        flat = _with_spill_page(pool).view((P + 1) * ps, *pool.shape[2:])
-        flat.index_copy_(0, idx, val.reshape(-1, *pool.shape[2:]).to(
-            pool.dtype))
 
-    write(cache["k"], k)
-    write(cache["v"], v)
+def ragged_paged_write(cache: Dict, k, v, abs_pos) -> Dict:
+    """Token-major twin of ``paged_write``: k/v [1, T, KV, hd] packed rows,
+    each routed through the table row its token belongs to
+    (``cache["slots"]`` [T], bound by ``with_token_slots``) at absolute
+    position ``abs_pos`` [1, T].  Padding rows (slot or position -1) and
+    sentinel table entries land on the spill page.  Quantization is per
+    token, the same `quantize_kv` as the bucketed writes, so a pool filled
+    by ragged steps holds the bytes bucketed prefill + decode would."""
+    P, ps = cache["k"].shape[:2]
+    tbl, slots = cache["tbl"], cache["slots"].long()
+    pos = abs_pos.reshape(-1)
+    logical = torch.clamp(pos // ps, 0, tbl.shape[1] - 1).long()
+    phys = tbl[torch.clamp(slots, 0, tbl.shape[0] - 1), logical].long()
+    page = torch.where((pos >= 0) & (slots >= 0), phys, P)
+    _write_rows(cache, k, v, page * ps + pos % ps)
     return cache
 
 
 def paged_read(cache: Dict, last_pos):
     """Gather each row's pages back into the contiguous [B, max_ctx, KV, hd]
-    layout.  last_pos [B] is the newest valid position per row (-1 =
-    inactive); returns (k, v, kpos) with kpos[b, j] = j for valid slots and
-    -1 otherwise.  Sentinel table slots read as exact zeros, so stale pool
-    data behind a dead entry never reaches attention."""
+    layout (dequantized to bf16 when the pool is quantized).  last_pos [B]
+    is the newest valid position per row (-1 = inactive); returns
+    (k, v, kpos) with kpos[b, j] = j for valid slots and -1 otherwise.
+    Sentinel table slots read as exact zeros, so stale pool data behind a
+    dead entry never reaches attention."""
     P, ps = cache["k"].shape[:2]
     tbl = cache["tbl"].long()
     B, pps = tbl.shape
@@ -128,29 +170,47 @@ def paged_read(cache: Dict, last_pos):
         g = flat[safe]
         return torch.where(dead[:, :, None, None], torch.zeros_like(g), g)
 
-    k, v = gather(cache["k"]), gather(cache["v"])
+    if "k_scale" in cache:
+        k = dequantize_kv(gather(cache["k"]), gather(cache["k_scale"]))
+        v = dequantize_kv(gather(cache["v"]), gather(cache["v_scale"]))
+    else:
+        k, v = gather(cache["k"]), gather(cache["v"])
     j = torch.arange(max_ctx, dtype=torch.int32, device=tbl.device)[None, :]
     lp = last_pos.to(torch.int32)[:, None]
     valid = (j <= lp) & (lp >= 0)
     return k, v, torch.where(valid, j, -1).to(torch.int32)
 
 
-def with_block_tables(caches: Dict, tbl) -> Dict:
-    """Bind the block table `tbl` [B, pages_per_seq] to every attention
-    cache (the same positions are cached in every layer, so one table
-    serves all).  Pools pass through untouched."""
+def _bind(caches: Dict, leaves: Dict) -> Dict:
+    """Rebind `leaves` into every attention cache (a dict holding "k");
+    pools pass through untouched, stale routing leaves are dropped."""
     def walk(node):
         out = {}
         for key, val in node.items():
             if isinstance(val, dict):
                 out[key] = walk(val)
-            elif key != "tbl":
+            elif key not in ("tbl", "slots"):
                 out[key] = val
         if "k" in node:
-            out["tbl"] = tbl
+            out.update(leaves)
         return out
 
     return {"rep": walk(caches["rep"]), "tail": walk(caches["tail"])}
+
+
+def with_block_tables(caches: Dict, tbl) -> Dict:
+    """Bind the block table `tbl` [B, pages_per_seq] to every attention
+    cache (the same positions are cached in every layer, so one table
+    serves all)."""
+    return _bind(caches, {"tbl": tbl})
+
+
+def with_token_slots(caches: Dict, tbl, slots) -> Dict:
+    """Bind the ragged step's routing to every attention cache: the whole
+    table pool `tbl` [max_batch, pages_per_seq] and the per-token table row
+    `slots` [T] (-1 = padding row).  The "slots" leaf is what sends
+    ``models.attention.apply_attention`` down the ragged branch."""
+    return _bind(caches, {"tbl": tbl, "slots": slots})
 
 
 # --------------------------------------------------------- host-side manager --

@@ -1,6 +1,6 @@
-"""Request scheduler: admission queue, continuous batching, preemption (a
-copy of ``repro/serving/scheduler.py``'s bucketed-path policies; host-side
-Python only).
+"""Request scheduler: admission queue, continuous batching, preemption and
+the ragged step's token planner (a copy of ``repro/serving/scheduler.py``'s
+policies; host-side Python only).
 
 Requests join the running set at decode-step boundaries (admission triggers
 a prefill), leave it the step they finish, and are preempted back to the
@@ -13,8 +13,8 @@ the uncached tail is recomputed.
 Determinism: slots are assigned lowest-free-first, the decode batch is the
 running set in slot order, and the preemption victim is always the
 latest-admitted request, so a trace replayed against this port and the JAX
-package makes identical scheduling decisions.  Cancellation, deadlines and
-the ragged planner wait for a later slice.
+package makes identical scheduling decisions.  Cancellation and deadlines
+wait for a later slice.
 """
 
 from __future__ import annotations
@@ -54,6 +54,9 @@ class Request:
     slot: int = -1
     tokens: List[int] = dataclasses.field(default_factory=list)  # generated
     n_cached: int = 0                   # tokens written to the KV cache
+    decoding: bool = False              # emitted since (re-)admission: the
+                                        # ragged planner feeds exactly one
+                                        # token a step once this flips
     n_preempts: int = 0
     admit_seq: int = -1                 # admission order (preemption victim key)
     t_visible: Optional[float] = None
@@ -124,6 +127,7 @@ class Scheduler:
                 break
             self.waiting.remove(req)
             req.n_cached = hit
+            req.decoding = False
             req.slot = heapq.heappop(self._free_slots)
             req.state = RUNNING
             req.t_admit = now
@@ -149,6 +153,7 @@ class Scheduler:
         self._evict_running(victim)
         victim.state = WAITING
         victim.n_cached = 0
+        victim.decoding = False
         victim.n_preempts += 1
         self.n_preemptions += 1
         self.metrics.counter("sched_preemptions_total",
@@ -181,6 +186,29 @@ class Scheduler:
     def batch(self) -> List[Request]:
         """The decode batch: running requests in slot order."""
         return sorted(self.running.values(), key=lambda r: r.slot)
+
+    def plan_tokens(self, budget: int) -> List:
+        """Token-budget plan for one ragged step: ``[(req, start, n)]``,
+        where the step feeds ``req.prefix[start:start + n]`` at positions
+        ``start .. start + n - 1``.  Decode tokens come first, one per
+        request that has emitted since admission, in slot order; then
+        prefill-phase requests chunk their remaining prefix into the budget
+        left, first admitted first served.  A prefill that gets no budget
+        waits for the next step."""
+        plan, used = [], 0
+        for req in self.batch():
+            if req.decoding and used < budget:
+                plan.append((req, req.n_cached, 1))
+                used += 1
+        for req in sorted((r for r in self.running.values()
+                           if not r.decoding), key=lambda r: r.admit_seq):
+            if used >= budget:
+                break
+            n = min(len(req.prefix) - req.n_cached, budget - used)
+            if n > 0:
+                plan.append((req, req.n_cached, n))
+                used += n
+        return plan
 
     @property
     def idle(self) -> bool:

@@ -8,7 +8,10 @@ Without a GPU every test here skips.  Tolerances: the W4A4 kernel must
 equal its plain version bit for bit (both divide with IEEE round-to-nearest
 and round half to even); the attention kernels run a single-pass online
 softmax against the plain versions' blocked sums and are held to atol 2e-2
-in bf16, the bound the JAX package holds its Pallas kernels to.
+in bf16, the bound the JAX package holds its Pallas kernels to, on bf16,
+int8 and int4 pools alike (both dequantize as bf16(q * scale)).  The ragged
+kernel shares the paged decode kernel's body, so a decode-only pack must
+give the paged decode kernel's output bit for bit.
 """
 
 import numpy as np
@@ -23,6 +26,9 @@ from repro_torch.kernels.packing import pack_kmajor  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     flash_prefill_cuda, flash_prefill_plain, paged_decode_attention_cuda,
     paged_decode_attention_plain)
+from repro_torch.kernels.ragged_attention import (  # noqa: E402
+    ragged_decode_attention_cuda, ragged_decode_attention_plain)
+from repro_torch.models.attention import quantize_kv  # noqa: E402
 
 ATOL = 2e-2
 RNG = np.random.default_rng(5)
@@ -37,6 +43,32 @@ def cuda():
 
 def _bf(a, dev):
     return torch.from_numpy(a).to(device=dev, dtype=torch.bfloat16)
+
+
+def _pools(shape, cache_dtype, dev):
+    """K and V pools (with scales, or None) of seeded normal values:
+    bf16, or quantized per (token, head) as the serving writes do."""
+    out = []
+    for _ in range(2):
+        vals = torch.from_numpy(
+            RNG.standard_normal(shape).astype(np.float32)).to(dev)
+        if cache_dtype == "bfloat16":
+            out.append((vals.to(torch.bfloat16), None))
+        else:
+            out.append(quantize_kv(vals, int4=cache_dtype == "int4"))
+    (k, ks), (v, vs) = out
+    return k, v, ks, vs
+
+
+def _table(B, pps, P, ps, last):
+    tbl = np.full((B, pps), P, np.int32)                 # sentinel slots
+    pages = RNG.permutation(P).astype(np.int32)
+    used = 0
+    for b, lp in enumerate(last):
+        n = (lp // ps + 1) if lp >= 0 else 0
+        tbl[b, :n] = pages[used:used + n]
+        used += n
+    return tbl
 
 
 @pytest.mark.cuda
@@ -79,6 +111,71 @@ def test_paged_decode_kernel_matches_plain(cuda, ps, window):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cache_dtype", ["int8", "int4"])
+@pytest.mark.parametrize("ps,window", [(16, 0), (4, 0), (16, 21)])
+def test_paged_decode_kernel_quantized_pools(cuda, cache_dtype, ps, window):
+    B, H, KV, hd, pps = 5, 14, 2, 64, 8
+    P = B * pps + 3
+    q = _bf(RNG.standard_normal((B, H, hd)).astype(np.float32), cuda)
+    k, v, ks, vs = _pools((P, ps, KV, hd), cache_dtype, cuda)
+    last = [pps * ps - 1, -1, pps * ps // 2, 0, ps]      # row 1 idle
+    tbl = torch.from_numpy(_table(B, pps, P, ps, last)).to(cuda)
+    lp = torch.tensor(last, dtype=torch.int32, device=cuda)
+    got = paged_decode_attention_cuda(q, k, v, tbl, lp, ks, vs,
+                                      window=window)
+    want = paged_decode_attention_plain(q, k, v, tbl, lp, ks, vs,
+                                        window=window)
+    assert (got.float() - want.float()).abs().max().item() <= ATOL
+    assert not got[1].float().any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ps", [1, 4, 16])
+@pytest.mark.parametrize("cache_dtype", ["bfloat16", "int8", "int4"])
+@pytest.mark.parametrize("G", [2, 7])
+def test_ragged_kernel_matches_plain(cuda, ps, cache_dtype, G):
+    """The reference's ragged kernel test geometry (two live table rows, a
+    dead all-sentinel row, interior padding rows) at head dim 64."""
+    P, KV, hd, pps, maxB = 8, 2, 64, 3, 3
+    H = KV * G
+    k, v, ks, vs = _pools((P, ps, KV, hd), cache_dtype, cuda)
+    tbl = np.full((maxB, pps), P, np.int32)
+    tbl[:2] = RNG.permutation(P)[:2 * pps].reshape(2, pps)
+    max_pos = pps * ps - 1
+    slot = torch.tensor([0, 1, -1, 0, 1, -1, 2], dtype=torch.int32,
+                        device=cuda)
+    pos = torch.tensor([0, max_pos, -1, max_pos // 2, max_pos // 3, 3, -1],
+                       dtype=torch.int32, device=cuda)
+    q = _bf(RNG.standard_normal((7, H, hd)).astype(np.float32), cuda)
+    tbl_t = torch.from_numpy(tbl).to(cuda)
+    for window in (0, 5):
+        got = ragged_decode_attention_cuda(q, k, v, tbl_t, slot, pos, ks, vs,
+                                           window=window)
+        want = ragged_decode_attention_plain(q, k, v, tbl_t, slot, pos, ks,
+                                             vs, window=window)
+        assert (got.float() - want.float()).abs().max().item() <= ATOL
+        assert not got[(slot < 0) | (pos < 0)].float().any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache_dtype", ["bfloat16", "int8", "int4"])
+def test_ragged_decode_only_pack_equals_paged_decode(cuda, cache_dtype):
+    """One row per slot, each at its last position: the ragged kernel's
+    output is the paged decode kernel's, bit for bit."""
+    B, H, KV, hd, ps, pps = 6, 14, 2, 64, 16, 8
+    P = B * pps
+    k, v, ks, vs = _pools((P, ps, KV, hd), cache_dtype, cuda)
+    last = [127, -1, 64, 0, 15, 100]
+    tbl = torch.from_numpy(_table(B, pps, P, ps, last)).to(cuda)
+    lp = torch.tensor(last, dtype=torch.int32, device=cuda)
+    q = _bf(RNG.standard_normal((B, H, hd)).astype(np.float32), cuda)
+    slots = torch.arange(B, dtype=torch.int32, device=cuda)
+    dec = paged_decode_attention_cuda(q, k, v, tbl, lp, ks, vs)
+    rag = ragged_decode_attention_cuda(q, k, v, tbl, slots, lp, ks, vs)
+    assert torch.equal(dec, rag)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("window", [0, 24])
 def test_flash_kernel_matches_plain(cuda, window):
     B, S, H, KV, hd = 2, 70, 14, 2, 64
@@ -96,6 +193,8 @@ def test_flash_kernel_matches_plain(cuda, window):
 
 @pytest.mark.cuda
 def test_engine_main_path_launches_every_kernel(cuda):
+    """The bucketed path launches its three kernels (GEMM, flash prefill,
+    paged decode) and never the ragged one."""
     from repro_torch.configs import Runtime, ServingConfig, get_config
     from repro_torch.serving.api import poisson_trace, run_trace
     from repro_torch.serving.engine import InferenceEngine
@@ -111,4 +210,77 @@ def test_engine_main_path_launches_every_kernel(cuda):
                                              cfg.vocab, seed=1))
     assert all(r.outcome == "ok" and len(r.tokens) == r.max_new for r in fin)
     assert all(0 <= t < cfg.vocab for r in fin for t in r.tokens)
-    assert all(n > 0 for n in ops.launch_counts().values())
+    n = ops.launch_counts()
+    assert all(n[k] > 0 for k in ("int4_matmul_fused", "flash_prefill",
+                                  "paged_decode_attention")), n
+    assert n["ragged_decode_attention"] == 0, n
+
+
+@pytest.mark.cuda
+def test_engine_ragged_int4_path(cuda):
+    """A 2-layer, head-dim-64 ragged engine on an int4 pool: every request
+    retires ok, through the GEMM and the ragged kernel alone."""
+    from repro_torch.configs import Runtime, ServingConfig, get_config
+    from repro_torch.serving.api import mixed_trace, run_trace
+    from repro_torch.serving.engine import InferenceEngine
+
+    cfg = get_config("qwen2-0.5b").reduced(n_layers=2, head_dim=64)
+    rt = Runtime(attn_impl="flash", quant_backend="w4a4_packed",
+                 cache_dtype="int4")
+    sv = ServingConfig(max_batch=4, page_size=16, num_pages=32, max_ctx=64,
+                       step="ragged")
+    engine = InferenceEngine(cfg, rt, sv, device=cuda)
+    ops.reset_launch_counts()
+    _, fin = run_trace(engine, mixed_trace(6, (8, 20, 33), (4, 8),
+                                           cfg.vocab, seed=1))
+    assert len(fin) == 6
+    assert all(r.outcome == "ok" and len(r.tokens) == r.max_new for r in fin)
+    assert all(0 <= t < cfg.vocab for r in fin for t in r.tokens)
+    n = ops.launch_counts()
+    assert n["int4_matmul_fused"] > 0 and n["ragged_decode_attention"] > 0, n
+    assert n["flash_prefill"] == 0 and n["paged_decode_attention"] == 0, n
+
+
+def _chip_smoke():
+    """chip_smoke.py at the repository root, imported as a module."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["scale x2", "bytes negated"])
+def test_ragged_int8_card_vs_cpu_catches_a_planted_fault(cuda, monkeypatch,
+                                                         fault):
+    """chip_smoke.py's int8-pool card-vs-CPU run (2 layers at full width,
+    the ragged step) holds the card within CPU_ATOL of the CPU, and the
+    same run fails that limit once the card's quantizing K/V writes are
+    broken: every scale doubled, or every byte negated."""
+    from repro_torch.configs import Runtime
+    from repro_torch.serving import kv_pages
+
+    cs = _chip_smoke()
+    rt = Runtime(quant_backend="float", cache_dtype="int8")
+    sound, _ = cs._two_devices_ragged(torch, rt)
+    err = (sound["cuda"] - sound["cpu"]).abs().max().item()
+
+    quantize = kv_pages.quantize_kv
+
+    def broken(val, int4):
+        q, scale = quantize(val, int4)
+        if not val.is_cuda:
+            return q, scale
+        return (q, scale * 2) if fault == "scale x2" else (-q, scale)
+
+    monkeypatch.setattr(kv_pages, "quantize_kv", broken)
+    planted, launches = cs._two_devices_ragged(torch, rt)
+    err_planted = (planted["cuda"] - planted["cpu"]).abs().max().item()
+    print(f"int8 ragged card vs CPU: max |logit diff| sound {err:.6g}, "
+          f"{fault} {err_planted:.6g} (limit {cs.CPU_ATOL})")
+    assert launches["ragged_decode_attention"] > 0, launches
+    assert err <= cs.CPU_ATOL < err_planted
