@@ -14,34 +14,47 @@ Phases, each of which raises on failure (the script then exits non-zero):
                  within atol 2e-2 (bf16) on bf16, int8 and int4 pools with
                  padding rows exactly 0, and a decode-only pack through the
                  ragged kernel bit for bit equal to the paged decode
-                 kernel.  Times (CUDA events, L2 flushed before each call)
-                 for the kernel, the plain version and a PyTorch yardstick,
-                 beside the least time the card could take (bytes over
-                 3.35 TB/s or operations over the int8/bf16 peak, whichever
-                 is larger).
+                 kernel; the W4A16 GEMM per channel and grouped (G = 128),
+                 on bf16 and f32 activations, within W4A16_RTOL; the
+                 table-lookup GEMM and the unfused W4A4 GEMM bit for bit,
+                 and equal to each other; the elementwise table product
+                 exactly, both strategies.  Times (CUDA events, L2 flushed
+                 before each call) for the kernel, the plain version and a
+                 PyTorch yardstick, beside the least time the card could
+                 take (bytes over 3.35 TB/s or operations over the
+                 int8/bf16 peak, whichever is larger).
   4. serve    -- full-width qwen2-0.5b (24 layers, random weights from a
-                 seed, W4A4-packed projections) serves two traces through
-                 InferenceEngine on cuda: a Poisson trace on the bucketed
+                 seed) serves through InferenceEngine on cuda: with
+                 W4A4-packed projections, a Poisson trace on the bucketed
                  step (bf16 paged KV pool, flash prefill, fused paged
                  decode), then a mixed trace on the ragged step (int8 pool,
-                 token budget 64, ragged decode).  Every request must finish
-                 ok with tokens in [0, vocab), every parameter and cache
-                 tensor must live on the card, and each run must launch the
-                 kernels of its path (counts zeroed just before the run)
-                 and none of the other path's attention kernels.  After
-                 each run a few steps at full batch run under
-                 torch.profiler: step time, launches per step, the card's
-                 busy share and the largest kernels.
+                 token budget 64, ragged decode); then the Poisson trace on
+                 the bucketed step under the pre-packed grouped W4A16 plan
+                 (W4A16_PLAN) and under lut4 (on-the-fly weights from the
+                 same masters), whose tokens must equal the W4A4 run's.
+                 Every request must finish ok with tokens in [0, vocab),
+                 every parameter and cache tensor must live on the card,
+                 and each run must launch the kernels of its path (counts
+                 zeroed just before the run) and none of the other path's
+                 attention kernels or the other plans' GEMMs.  After each
+                 run a few steps at full batch run under torch.profiler:
+                 step time, launches per step (the run's GEMM 7 per layer),
+                 the card's busy share and the largest kernels.  Then the
+                 public entry points no serving path reaches (ops.mul4,
+                 ops.int4_matmul), called as the JAX package's quickstart
+                 and benchmarks call theirs.
   5. cpu      -- full width cut to 2 layers, on cuda and on cpu with the
                  same weights.  Bucketed: one prefill and three decode
                  steps with float weights in bf16 (logits within CPU_ATOL),
                  the serving path's W4A4 weights in float32 through the
-                 CUDA GEMM (logits within CPU_W4A4_F32_ATOL), and the
-                 serving path itself, W4A4 in bf16 (correlation reported,
-                 see phase_cpu).  Ragged: a pack of two prefill chunks and
-                 padding, then three ragged decode steps, float weights in
-                 bf16 on a bf16 pool and on an int8 pool (logits of the
-                 emitted rows within CPU_ATOL on both).
+                 CUDA GEMM (logits within CPU_W4A4_F32_ATOL), the serving
+                 path itself, W4A4 in bf16 (correlation reported, see
+                 phase_cpu), W4A16 weights in bf16 per channel and grouped
+                 (within CPU_ATOL) and the mixed_sensitive plan in float32
+                 (within CPU_W4A4_F32_ATOL).  Ragged: a pack of two
+                 prefill chunks and padding, then three ragged decode
+                 steps, float weights in bf16 on a bf16 pool and on an int8
+                 pool (logits of the emitted rows within CPU_ATOL on both).
 
 The line before the last is a JSON object with every kernel's launches,
 error and times; the last line is {"ok": true, "device": {...}}.
@@ -74,6 +87,13 @@ CPU_ATOL = 0.25
 CPU_W4A4_F32_ATOL = 1e-3
 #: ... and the serving path itself, W4A4 in bf16 (see phase_cpu)
 CPU_W4A4_CORR = 0.7
+#: the W4A16 kernel against its plain version, relative to the output's
+#: largest magnitude: both sum exact products in f32 (the plain version
+#: dequantizes the weight first, the kernel scales each group's partial
+#: sum), so they differ by f32 rounding in the order of the sums, ~1e-6
+W4A16_RTOL = 1e-4
+#: qwen2-0.5b's layers; every one runs 7 projections a forward
+LAYERS = 24
 
 SEED = 0
 #: ~2 ms of device time at H100 clocks: longer than the host needs to
@@ -253,6 +273,196 @@ def check_gemm(torch, timer):
             "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
             "bound_by": by, "library_ms": total["library_ms"],
             "at_budget": at_budget}
+
+
+def _layer_sum(rows, M, peak):
+    """One layer's 7 projections at M rows: each per-shape timing weighted
+    by how many of that shape a layer runs; bound by bytes or by operations
+    at `peak` over the layer's sums."""
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms", "bytes", "ops")
+    out = dict.fromkeys(keys, 0.0)
+    for (K, N), per_layer in GEMM_SHAPES:
+        r = rows[(M, K, N)]
+        for key in keys:
+            out[key] = (None if out[key] is None or r[key] is None
+                        else out[key] + per_layer * r[key])
+    by = ("bytes" if out["bytes"] / HBM_BYTES_PER_S >= out["ops"] / peak
+          else "operations")
+    return {"ms": out["ms"], "plain_ms": out["plain_ms"],
+            "bound_ms": out["bound_ms"], "bound_by": by,
+            "library_ms": out["library_ms"]}
+
+
+def check_w4a16(torch, timer):
+    """The W4A16 kernel against its plain version at every main-path (K, N)
+    and M, per-channel and grouped (G = 128: K = 896 pads to 1024, so the
+    high plane carries a group of zeros), on bf16 and f32 activations.
+    Timed in bf16, the serving path's type; the yardstick is torch.matmul
+    of the bf16 activations with a pre-dequantized bf16 weight."""
+    from repro_torch.core.quant import group_quantize, pack_int4
+    from repro_torch.kernels.ops import w4a16_matmul
+    from repro_torch.kernels.packing import nmajor_to_kmajor_grouped
+    from repro_torch.kernels.w4a16_matmul import (w4a16_matmul_cuda,
+                                                  w4a16_matmul_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    rows = {"channel": {}, "g128": {}}
+    worst_abs = worst_rel = 0.0
+    for (K, N), _ in GEMM_SHAPES:
+        w = torch.randn((K, N), generator=gen, device="cuda") * 0.02
+        for form, G in (("channel", K), ("g128", 128)):
+            w_q, w_scale = group_quantize(w, G)
+            w_km = nmajor_to_kmajor_grouped(pack_int4(w_q), w_scale)
+            w_deq = (w_q.float().reshape(K // min(G, K), -1, N)
+                     * w_scale.reshape(-1, 1, N)).reshape(K, N)
+            w_bf = w_deq.to(torch.bfloat16)
+            for M in (1, MAX_BATCH, BUDGET, PROMPT_BUCKET):
+                x32 = torch.randn((M, K), generator=gen, device="cuda")
+                for dt in ("bfloat16", "float32"):
+                    x = x32.to(getattr(torch, dt))
+                    got = w4a16_matmul_cuda(x, w_km, w_scale, G)
+                    want = w4a16_matmul_plain(x, w_km, w_scale, G)
+                    err = (got - want).abs().max().item()
+                    scale = want.abs().max().item()
+                    worst_abs = max(worst_abs, err)
+                    worst_rel = max(worst_rel, err / scale)
+                    if not err <= W4A16_RTOL * scale:
+                        fail(f"w4a16_matmul {form} {dt} M={M} K={K} N={N}: "
+                             f"max |diff| {err} > {W4A16_RTOL} x {scale}")
+                    if dt == "float32":
+                        continue
+                    n_bytes = (x.numel() * x.element_size() + w_km.numel()
+                               + w_scale.numel() * 4 + M * N * 4)
+                    n_ops = 2.0 * M * K * N
+                    b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
+                    t = timer.ms(lambda: w4a16_matmul_cuda(x, w_km, w_scale,
+                                                           G))
+                    tp = timer.ms(lambda: w4a16_matmul_plain(
+                        x, w_km, w_scale, G), reps=5)
+                    lib = timer.ms(lambda: torch.matmul(x, w_bf))
+                    say(f"w4a16 {form:7s} M={M:4d} K={K:5d} N={N:5d}: max "
+                        f"|diff| {err:.3g} (bf16; f32 checked too); kernel "
+                        f"{t:.4f} ms, plain {tp:.4f} ms, bound {b_ms:.5f} ms "
+                        f"({b_by}), bf16 matmul {lib:.4f}")
+                    rows[form][(M, K, N)] = {
+                        "ms": t, "plain_ms": tp, "bound_ms": b_ms,
+                        "library_ms": lib, "bytes": n_bytes, "ops": n_ops}
+    # the public entry point repacks a serialized weight the same way
+    x = torch.randn((3, 896), generator=gen, device="cuda").to(torch.bfloat16)
+    w_q, w_scale = group_quantize(torch.randn((896, 64), generator=gen,
+                                              device="cuda"), 128)
+    if not torch.equal(w4a16_matmul(x, pack_int4(w_q), w_scale, 128),
+                       w4a16_matmul_cuda(x, nmajor_to_kmajor_grouped(
+                           pack_int4(w_q), w_scale), w_scale, 128)):
+        fail("ops.w4a16_matmul differs from the kernel on its repacked "
+             "weight")
+    peak = BF16_OPS_PER_S
+    return {"shape": f"one layer's 7 projections at M={MAX_BATCH}, grouped "
+                     "G=128, bf16 x (per-channel and M=256 under 'forms')",
+            "max_abs_err": worst_abs, "max_rel_err": worst_rel,
+            **_layer_sum(rows["g128"], MAX_BATCH, peak),
+            "forms": {"g128_M256": _layer_sum(rows["g128"], PROMPT_BUCKET,
+                                              peak),
+                      "channel_M8": _layer_sum(rows["channel"], MAX_BATCH,
+                                               peak),
+                      "channel_M256": _layer_sum(rows["channel"],
+                                                 PROMPT_BUCKET, peak)}}
+
+
+def check_lut4_int4(torch, timer):
+    """The table-lookup kernel and the unfused W4A4 kernel against their
+    plain version (exact integer dot) and against each other, bit for bit,
+    at every main-path (K, N) and M.  Yardstick: torch._int_mm on int8
+    operands where M > 16 (its minimum)."""
+    from repro_torch.kernels.int4_matmul import (int4_matmul_cuda,
+                                                 int4_matmul_plain)
+    from repro_torch.kernels.lut4_matmul import lut4_matmul_cuda
+    from repro_torch.kernels.packing import pack_kmajor
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    rows = {"lut4": {}, "int4": {}}
+    for M in (1, MAX_BATCH, BUDGET, PROMPT_BUCKET):
+        for (K, N), _ in GEMM_SHAPES:
+            a_q = torch.randint(-8, 8, (M, K), generator=gen, device="cuda",
+                                dtype=torch.int8)
+            a_s = torch.rand((M, 1), generator=gen, device="cuda") * 0.1 + 1e-3
+            w_q = torch.randint(-8, 8, (K, N), generator=gen, device="cuda",
+                                dtype=torch.int8)
+            w_km = pack_kmajor(w_q).contiguous()
+            w_s = (torch.rand((1, N), generator=gen, device="cuda") * 0.01
+                   + 1e-3)
+            want = int4_matmul_plain(a_q, a_s, w_km, w_s)
+            got_lut = lut4_matmul_cuda(a_q, a_s, w_km, w_s)
+            got_int = int4_matmul_cuda(a_q, a_s, w_km, w_s)
+            for name, got in (("lut4_matmul", got_lut),
+                              ("int4_matmul", got_int)):
+                if not torch.equal(got, want):
+                    fail(f"{name} M={M} K={K} N={N}: kernel differs from the "
+                         f"plain version (max |diff| "
+                         f"{(got - want).abs().max().item()})")
+            if not torch.equal(got_lut, got_int):
+                fail(f"lut4_matmul M={M} K={K} N={N}: differs from the "
+                     "unfused W4A4 kernel")
+            n_bytes = M * K + M * 4 + w_km.numel() + N * 4 + M * N * 4
+            n_ops = 2.0 * M * K * N
+            b_ms, b_by = bound_ms(n_bytes, n_ops, INT8_OPS_PER_S)
+            t_lut = timer.ms(lambda: lut4_matmul_cuda(a_q, a_s, w_km, w_s))
+            t_int = timer.ms(lambda: int4_matmul_cuda(a_q, a_s, w_km, w_s))
+            tp = timer.ms(lambda: int4_matmul_plain(a_q, a_s, w_km, w_s),
+                          reps=5)
+            lib = (timer.ms(lambda: torch._int_mm(a_q, w_q)) if M > 16
+                   else None)
+            say(f"lut4/int4 M={M:4d} K={K:5d} N={N:5d}: both bit-exact and "
+                f"equal; lut4 {t_lut:.4f} ms, int4 {t_int:.4f} ms, plain "
+                f"{tp:.4f} ms, bound {b_ms:.5f} ms ({b_by}), _int_mm "
+                f"{lib if lib is None else round(lib, 4)}")
+            for name, t in (("lut4", t_lut), ("int4", t_int)):
+                rows[name][(M, K, N)] = {
+                    "ms": t, "plain_ms": tp, "bound_ms": b_ms,
+                    "library_ms": lib, "bytes": n_bytes, "ops": n_ops}
+    out = {}
+    for name in ("lut4", "int4"):
+        out[name] = {"shape": f"one layer's 7 projections at "
+                              f"M={PROMPT_BUCKET} (M={MAX_BATCH} under "
+                              "'at_decode')",
+                     "max_abs_err": 0.0,
+                     **_layer_sum(rows[name], PROMPT_BUCKET, INT8_OPS_PER_S),
+                     "at_decode": _layer_sum(rows[name], MAX_BATCH,
+                                             INT8_OPS_PER_S)}
+    return out["lut4"], out["int4"]
+
+
+def check_mul4(torch, timer):
+    """The elementwise table kernel, both strategies, on all 256 int4 pairs
+    and on a 1M-element tensor: exact.  Yardstick: torch.mul on the int8
+    tensors (every product fits int8)."""
+    from repro_torch.kernels.lut_mul4 import lut_mul4_cuda, lut_mul4_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    vals = torch.arange(-8, 8, dtype=torch.int8, device="cuda")
+    pairs = (vals.repeat_interleave(16), vals.repeat(16))
+    n = 1 << 20
+    big = tuple(torch.randint(-8, 8, (n,), generator=gen, device="cuda",
+                              dtype=torch.int8) for _ in range(2))
+    exact = (pairs[0].int() * pairs[1].int()).to(torch.int8)
+    for strategy in ("onehot", "take"):
+        for what, (a, b) in (("all 256 pairs", pairs), ("1M elements", big)):
+            got = lut_mul4_cuda(a, b, strategy)
+            if not torch.equal(got, lut_mul4_plain(a, b, strategy)):
+                fail(f"lut_mul4 {strategy} on {what}: differs from the plain "
+                     "version")
+        if not torch.equal(lut_mul4_cuda(*pairs, strategy), exact):
+            fail(f"lut_mul4 {strategy}: a product of the 256 pairs is wrong")
+    b_ms, b_by = bound_ms(3.0 * n, float(n), INT8_OPS_PER_S)
+    t = timer.ms(lambda: lut_mul4_cuda(*big))
+    tp = timer.ms(lambda: lut_mul4_plain(*big), reps=5)
+    lib = timer.ms(lambda: torch.mul(*big))
+    say(f"lut_mul4 n={n} (both strategies, and all 256 pairs): exact; kernel "
+        f"{t:.4f} ms, plain {tp:.4f} ms, bound {b_ms:.6f} ms ({b_by}), "
+        f"torch.mul {lib:.4f} ms")
+    return {"shape": f"{n} int8 elements", "max_abs_err": 0.0, "ms": t,
+            "plain_ms": tp, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib}
 
 
 def _pools(torch, gen, P, ps):
@@ -551,30 +761,49 @@ def _tensors(tree):
         yield tree
 
 
-#: the kernels each serve run must launch (and the attention kernels of
-#: the other path, which it must not)
-PATH_KERNELS = {
-    "bucketed": (("int4_matmul_fused", "flash_prefill",
-                  "paged_decode_attention"), ("ragged_decode_attention",)),
-    "ragged": (("int4_matmul_fused", "ragged_decode_attention"),
-               ("flash_prefill", "paged_decode_attention")),
+#: the W4A16 serve run's plan: pre-packed grouped weight-only int4
+W4A16_PLAN = "*=w4a16_packed/g128;lm_head=float"
+#: the serve runs of phase 4: name -> (step, KV pool, Runtime quant keywords,
+#: the kernels the run must launch, and those it must not: the other
+#: path's attention kernels and the other plans' GEMMs)
+SERVE_RUNS = {
+    "bucketed": ("bucketed", "bfloat16", {"quant_backend": "w4a4_packed"},
+                 ("int4_matmul_fused", "flash_prefill",
+                  "paged_decode_attention"),
+                 ("ragged_decode_attention", "w4a16_matmul", "lut4_matmul")),
+    "ragged": ("ragged", "int8", {"quant_backend": "w4a4_packed"},
+               ("int4_matmul_fused", "ragged_decode_attention"),
+               ("flash_prefill", "paged_decode_attention", "w4a16_matmul",
+                "lut4_matmul")),
+    "w4a16": ("bucketed", "bfloat16", {"quant_plan": W4A16_PLAN},
+              ("w4a16_matmul", "flash_prefill", "paged_decode_attention"),
+              ("int4_matmul_fused", "lut4_matmul",
+               "ragged_decode_attention")),
+    "lut4": ("bucketed", "bfloat16", {"quant_backend": "lut4"},
+             ("lut4_matmul", "flash_prefill", "paged_decode_attention"),
+             ("int4_matmul_fused", "w4a16_matmul",
+              "ragged_decode_attention")),
 }
+#: the GEMM each serve run's projections go through: 7 launches per layer
+#: per forward
+RUN_GEMM = {"bucketed": "int4_matmul_fused", "ragged": "int4_matmul_fused",
+            "w4a16": "w4a16_matmul", "lut4": "lut4_matmul"}
 
 
-def serve_run(torch, params, step: str, cache_dtype: str, trace,
-              prompt_lens):
+def serve_run(torch, params, run: str, trace, prompt_lens):
     """Serve `trace` on full-width qwen2-0.5b through InferenceEngine on
-    cuda with the given step and KV pool; checks every request, the
+    cuda as serve run `run` of SERVE_RUNS; checks every request, the
     devices of every tensor and the launches of the path (counted from 0
-    just before the run).  Returns (engine, launches, stats)."""
+    just before the run).  Returns (engine, launches, stats, tokens by
+    request id)."""
     from repro_torch.configs import Runtime, ServingConfig, get_config
     from repro_torch.kernels import ops
     from repro_torch.serving.api import run_trace
     from repro_torch.serving.engine import InferenceEngine
 
+    step, cache_dtype, quant, must, must_not = SERVE_RUNS[run]
     cfg = get_config("qwen2-0.5b")
-    rt = Runtime(attn_impl="flash", quant_backend="w4a4_packed",
-                 cache_dtype=cache_dtype)
+    rt = Runtime(attn_impl="flash", cache_dtype=cache_dtype, **quant)
     sv = ServingConfig(layout="paged", max_batch=MAX_BATCH,
                        page_size=PAGE_SIZE, num_pages=320, max_ctx=512,
                        prefix_cache=True, step=step)
@@ -582,7 +811,7 @@ def serve_run(torch, params, step: str, cache_dtype: str, trace,
     for tree, what in ((engine.params, "parameter"), (engine.caches, "cache")):
         cpu = [t for t in _tensors(tree) if t.device.type != "cuda"]
         if cpu:
-            fail(f"serve ({step}): {len(cpu)} {what} tensors are not on the "
+            fail(f"serve ({run}): {len(cpu)} {what} tensors are not on the "
                  "card")
     engine.warmup(prompt_lens)
     torch.cuda.synchronize()
@@ -592,26 +821,30 @@ def serve_run(torch, params, step: str, cache_dtype: str, trace,
     launches = ops.launch_counts()
     bad = [r.rid for r in finished if r.outcome != "ok"]
     if len(finished) != len(trace) or bad:
-        fail(f"serve ({step}): {len(finished)}/{len(trace)} requests "
+        fail(f"serve ({run}): {len(finished)}/{len(trace)} requests "
              f"retired, not ok: {bad}")
     for r in finished:
         if len(r.tokens) != r.max_new or not all(
                 0 <= t < cfg.vocab for t in r.tokens):
-            fail(f"serve ({step}): request {r.rid} produced {len(r.tokens)} "
+            fail(f"serve ({run}): request {r.rid} produced {len(r.tokens)} "
                  f"tokens (want {r.max_new}) or a token outside "
                  f"[0, {cfg.vocab})")
-    must, must_not = PATH_KERNELS[step]
     for name in must:
         if launches[name] <= 0:
-            fail(f"serve ({step}): kernel {name} was never launched on the "
+            fail(f"serve ({run}): kernel {name} was never launched on the "
                  "path")
     for name in must_not:
         if launches[name] != 0:
-            fail(f"serve ({step}): {name} launched {launches[name]} times "
+            fail(f"serve ({run}): {name} launched {launches[name]} times "
                  "on a path that does not run it")
+    gemm = RUN_GEMM[run]
+    if launches[gemm] % (7 * LAYERS):
+        fail(f"serve ({run}): {gemm} launched {launches[gemm]} times, not 7 "
+             "per layer per forward")
     budget = (f", token budget {stats['token_budget']}, padding rows "
               f"{stats['padding_tokens_wasted']}" if step == "ragged" else "")
-    say(f"serve ({step}, {cache_dtype} pool): {len(finished)} requests ok, "
+    say(f"serve ({run}: {step}, {cache_dtype} pool, "
+        f"{rt.quant_plan or rt.quant_backend}): {len(finished)} requests ok, "
         f"{stats['decode_tokens']} decode tokens in {stats['wall_s']:.2f} s = "
         f"{stats['decode_tok_per_s']:.1f} tok/s; latency p50 "
         f"{stats['latency_p50_s']:.3f} s, p95 {stats['latency_p95_s']:.3f} s; "
@@ -619,50 +852,120 @@ def serve_run(torch, params, step: str, cache_dtype: str, trace,
         f"(mean {stats['wall_s'] / stats['steps'] * 1e3:.1f} ms), preempted "
         f"{stats['requests_preempted']}, prefill tokens "
         f"{stats['prefill_tokens']}{budget}")
-    say(f"serve ({step}): kernel launches {json.dumps(launches)}")
-    return engine, launches, stats
+    say(f"serve ({run}): kernel launches {json.dumps(launches)}")
+    return engine, launches, stats, {r.rid: list(r.tokens) for r in finished}
 
 
 def phase_serve(torch):
     """The bucketed path (bf16 pool, Poisson trace), then the ragged path
-    (int8 pool, mixed trace), on one set of full-width weights.  Returns
-    the launches of both runs, summed."""
+    (int8 pool, mixed trace), on one set of full-width W4A4 weights; then
+    the bucketed path on the Poisson trace under the W4A16 plan (pre-packed
+    grouped weights) and under lut4 (on-the-fly weights, the same masters),
+    whose tokens must equal the W4A4 run's.  Returns the launches of all
+    runs, summed."""
     from repro_torch.configs import Runtime, get_config
     from repro_torch.serving.api import mixed_trace, poisson_trace
     from repro_torch.serving.engine import build_params
 
     cfg = get_config("qwen2-0.5b")
-    t0 = time.perf_counter()
-    params = build_params(cfg, Runtime(quant_backend="w4a4_packed"),
-                          seed=SEED, device="cuda")
-    torch.cuda.synchronize()
-    say(f"serve: built full-width {cfg.name} ({cfg.n_layers} layers, "
-        f"d_model {cfg.d_model}, vocab {cfg.vocab}) in "
-        f"{time.perf_counter() - t0:.1f} s")
     prompt_lens = (32, 96, 160, 256)
-    engine, bucketed, _ = serve_run(
-        torch, params, "bucketed", "bfloat16",
-        poisson_trace(8, 0.5, prompt_lens, (16, 32, 64), cfg.vocab,
-                      seed=SEED), prompt_lens)
-    profile_steps(torch, engine, cfg.vocab, "bucketed")
-    del engine
-    engine, ragged, _ = serve_run(
-        torch, params, "ragged", "int8",
-        mixed_trace(8, prompt_lens, (16, 32), cfg.vocab, seed=SEED),
-        prompt_lens)
-    profile_steps(torch, engine, cfg.vocab, "ragged")
-    return {k: bucketed[k] + ragged[k] for k in bucketed}
+    poisson = poisson_trace(8, 0.5, prompt_lens, (16, 32, 64), cfg.vocab,
+                            seed=SEED)
+    launches, tokens = [], {}
+    for runs, quant in ((("bucketed", "ragged"), "w4a4_packed"),
+                        (("w4a16",), "w4a16"), (("lut4",), "lut4")):
+        t0 = time.perf_counter()
+        params = build_params(cfg, Runtime(**SERVE_RUNS[runs[0]][2]),
+                              seed=SEED, device="cuda")
+        torch.cuda.synchronize()
+        say(f"serve: built full-width {cfg.name} ({cfg.n_layers} layers, "
+            f"d_model {cfg.d_model}, vocab {cfg.vocab}) for {quant} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for run in runs:
+            trace = (mixed_trace(8, prompt_lens, (16, 32), cfg.vocab,
+                                 seed=SEED) if run == "ragged" else poisson)
+            engine, n, _, tokens[run] = serve_run(torch, params, run, trace,
+                                                  prompt_lens)
+            launches.append(n)
+            profile_steps(torch, engine, cfg.vocab, run)
+            del engine
+        del params
+    if tokens["lut4"] != tokens["bucketed"]:
+        diff = [rid for rid in tokens["bucketed"]
+                if tokens["lut4"].get(rid) != tokens["bucketed"][rid]]
+        fail(f"serve (lut4): requests {diff} emitted other tokens than the "
+             "w4a4_packed bucketed run (the integer math is the same)")
+    say("serve (lut4): every request's tokens equal the w4a4_packed "
+        "bucketed run's, token for token")
+    return {k: sum(n[k] for n in launches) for k in launches[0]}
 
 
-def profile_steps(torch, engine, vocab: int, step: str, steps: int = 4):
+def entry_points_run(torch):
+    """The port's public kernel entry points that no serving path reaches,
+    called as examples/quickstart.py and benchmarks/run.py call the JAX
+    package's: ops.mul4 on int4 tensors (a quickstart-sized pair and 1M
+    elements, both strategies) and ops.int4_matmul on pre-quantized
+    activations with a serialized N-packed weight at qwen2-0.5b's
+    projection shapes.  Checks the results and returns the launches
+    (counted from 0 just before)."""
+    from repro_torch.core.quant import pack_int4
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    cases = [tuple(torch.randint(-8, 8, shape, generator=gen, device="cuda",
+                                 dtype=torch.int8) for _ in range(2))
+             for shape in ((4, 64), (1 << 20,))]
+    gemms = []
+    for (K, N), _ in GEMM_SHAPES:
+        a_q = torch.randint(-8, 8, (MAX_BATCH, K), generator=gen,
+                            device="cuda", dtype=torch.int8)
+        w_q = torch.randint(-8, 8, (K, N), generator=gen, device="cuda",
+                            dtype=torch.int8)
+        a_s = torch.rand((MAX_BATCH, 1), generator=gen, device="cuda") + 0.05
+        w_s = torch.rand((1, N), generator=gen, device="cuda") + 0.05
+        gemms.append((a_q, a_s, w_q, pack_int4(w_q), w_s))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    prods = [ops.mul4(a, b, strategy=s) for a, b in cases
+             for s in ("onehot", "take")]
+    outs = [ops.int4_matmul(a_q, a_s, w_p, w_s)
+            for a_q, a_s, _, w_p, w_s in gemms]
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    for i, (a, b) in enumerate(cases):
+        exact = (a.int() * b.int()).to(torch.int8)
+        for got in prods[2 * i:2 * i + 2]:
+            if got.shape != a.shape or not torch.equal(got, exact):
+                fail(f"entry points: ops.mul4 on {tuple(a.shape)} is not the "
+                     "exact product")
+    for (a_q, a_s, w_q, _, w_s), got in zip(gemms, outs):
+        acc = torch.matmul(a_q.double(), w_q.double())      # exact integers
+        if not torch.equal(got, (acc.float() * a_s) * w_s):
+            fail(f"entry points: ops.int4_matmul at K={a_q.shape[1]} "
+                 f"N={w_q.shape[1]} is not the exact integer GEMM")
+    for name in ("lut_mul4", "int4_matmul"):
+        if launches[name] <= 0:
+            fail(f"entry points: kernel {name} was never launched")
+    say(f"entry points: ops.mul4 exact on {len(prods)} calls, "
+        f"ops.int4_matmul exact at {len(outs)} shapes; kernel launches "
+        f"{json.dumps(launches)}")
+    return launches
+
+
+def profile_steps(torch, engine, vocab: int, run: str, steps: int = 4):
     """Where a decode step's time goes: a full decode batch (MAX_BATCH
     requests of 200-token prompts) runs `steps` pure decode steps under
     torch.profiler, once every request decodes (ragged: 8 decode rows and
     BUDGET - 8 padding rows a step).  Prints the step wall time, the
     device's busy share (kernel time over wall time), the launches per step
-    and the kernels that take the most device time.  Runs after the serve
+    and the kernels that take the most device time, and checks that the
+    run's GEMM launched 7 times per layer per step.  Runs after the serve
     run has read its launch counts."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+
+    step = SERVE_RUNS[run][0]
 
     gen = torch.Generator().manual_seed(SEED + 3)
     L = 200
@@ -678,9 +981,10 @@ def profile_steps(torch, engine, vocab: int, step: str, steps: int = 4):
     while len(running) < MAX_BATCH or not all(
             r.tokens for r in running.values()):
         if engine.step() == 0:
-            fail(f"profile ({step}): the engine went idle before the batch "
+            fail(f"profile ({run}): the engine went idle before the batch "
                  "was full")
     torch.cuda.synchronize()
+    before = ops.launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -688,6 +992,15 @@ def profile_steps(torch, engine, vocab: int, step: str, steps: int = 4):
             engine.step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    after = ops.launch_counts()
+    per_step = {k: (after[k] - before[k]) / steps for k in after
+                if after[k] != before[k]}
+    gemm = RUN_GEMM[run]
+    if per_step.get(gemm) != 7 * LAYERS or any(
+            per_step.get(k) for k in ("int4_matmul_fused", "w4a16_matmul",
+                                      "lut4_matmul") if k != gemm):
+        fail(f"profile ({run}): kernel launches per decode step {per_step}; "
+             f"want {7 * LAYERS} of {gemm} and no other GEMM")
     engine.run_until_idle()
     engine.collect()
     events = prof.key_averages()
@@ -705,14 +1018,25 @@ def profile_steps(torch, engine, vocab: int, step: str, steps: int = 4):
     n_launch = sum(e.count for e in events
                    if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
                                 "cuLaunchKernel", "cuLaunchKernelEx"))
-    say(f"profile ({step}): {steps} decode steps at batch {MAX_BATCH}: "
+    say(f"profile ({run}): {steps} decode steps at batch {MAX_BATCH}: "
         f"{wall_us / steps / 1e3:.3f} ms per step, "
         f"{n_launch / steps:.0f} launches per step, device busy "
         + (f"{busy / wall_us:.3f} of wall time" if busy else "not measured "
-           "(the profiler saw no device time)"))
+           "(the profiler saw no device time)")
+        + f"; kernel launches per step {json.dumps(per_step)}")
     for e in kernels[:8]:
-        say(f"profile ({step}):   {dev_us(e) / steps / 1e3:8.3f} ms/step "
+        say(f"profile ({run}):   {dev_us(e) / steps / 1e3:8.3f} ms/step "
             f"{e.count // steps:5d}x/step  {e.key[:90]}")
+    # the host's side: PyTorch ops by their own CPU time (the kernel
+    # wrappers' Python and ctypes calls are in no op: the rest of the wall)
+    host = sorted((e for e in events if e.self_cpu_time_total > 0),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)
+    in_ops = sum(e.self_cpu_time_total for e in host)
+    say(f"profile ({run}): host time in PyTorch ops {in_ops / wall_us:.3f} "
+        "of wall time; the largest:")
+    for e in host[:6]:
+        say(f"profile ({run}):   {e.self_cpu_time_total / steps / 1e3:8.3f} "
+            f"ms/step {e.count // steps:5d}x/step  {e.key[:90]}")
 
 
 # ------------------------------------------------------------ phase 5 ----
@@ -849,9 +1173,30 @@ def _compare(torch, what, logits, launches):
     return diff.max().item(), corr.item()
 
 
+def _w4a16_cpu_runs():
+    """Phase 5's runs of the third slice: W4A16 in bf16, per channel and
+    grouped (no activation quantize, so no int4 rounding boundary amplifies
+    a one-step bf16 difference: held to CPU_ATOL like float weights), and
+    the mixed plan in float32 (on-the-fly w4a16 FFNs, int_sim W4A4 and a
+    float block-0 attention: held to CPU_W4A4_F32_ATOL)."""
+    from repro_torch.configs import Runtime
+
+    return (
+        ("W4A16 weights per channel (w4a16_packed), bf16",
+         Runtime(attn_impl="flash", quant_backend="w4a16_packed"), CPU_ATOL),
+        (f"W4A16 weights grouped ({W4A16_PLAN}), bf16",
+         Runtime(attn_impl="flash", quant_plan=W4A16_PLAN), CPU_ATOL),
+        ("mixed_sensitive plan, float32",
+         Runtime(attn_impl="chunked", paged_attn="gather",
+                 quant_plan="mixed_sensitive", compute_dtype="float32",
+                 cache_dtype="float32"), CPU_W4A4_F32_ATOL),
+    )
+
+
 def phase_cpu(torch):
     """The card against the CPU path that the tests hold to the JAX
-    package.  Five runs, each on both devices; the bucketed step's three:
+    package.  Eight runs, each on both devices; the bucketed step's six
+    (the last three in `_w4a16_cpu_runs`):
 
       * float weights, bf16 activations, flash prefill and fused paged
         decode: every op rounds to bf16 on both devices, sums run in other
@@ -872,6 +1217,9 @@ def phase_cpu(torch):
         spread between the JAX package and the port on one CPU).  Its
         logits must stay finite; their correlation is reported and must
         stay >= CPU_W4A4_CORR.
+      * W4A16 weights in bf16, per channel and grouped: the W4A16 kernel on
+        the card, its plain version on the CPU; within CPU_ATOL.
+      * the mixed_sensitive plan in float32; within CPU_W4A4_F32_ATOL.
 
     and the ragged step's two, float weights in bf16 (the ragged kernel on
     the card, its plain version on the CPU): on a bf16 pool and on an int8
@@ -891,7 +1239,7 @@ def phase_cpu(torch):
                  cache_dtype="float32"), CPU_W4A4_F32_ATOL),
         ("W4A4 weights, bf16 (serving path)",
          Runtime(attn_impl="flash", quant_backend="w4a4_packed"), None),
-    )
+    ) + _w4a16_cpu_runs()
     readings = {}
     for what, rt, atol in runs:
         logits, launches = _two_devices(torch, rt)
@@ -902,6 +1250,9 @@ def phase_cpu(torch):
         if rt.quant_backend == "w4a4_packed" \
                 and launches["int4_matmul_fused"] <= 0:
             fail(f"cpu: {what}: the card's run never launched the W4A4 GEMM")
+        if (rt.quant_plan or rt.quant_backend).startswith(("w4a16", "mixed")) \
+                and launches["w4a16_matmul"] <= 0:
+            fail(f"cpu: {what}: the card's run never launched the W4A16 GEMM")
         if atol is not None and err > atol:
             fail(f"cpu: {what}: card and CPU logits differ by {err:.6g} > "
                  f"{atol}")
@@ -934,6 +1285,14 @@ SOURCES = {
                                "src/repro/kernels/paged_attention.py:157"),
     "ragged_decode_attention": ("src/repro_torch/csrc/ragged_decode.cu",
                                 "src/repro/kernels/ragged_attention.py:133"),
+    "w4a16_matmul": ("src/repro_torch/csrc/w4a16_matmul.cu",
+                     "src/repro/kernels/w4a16_matmul.py:89"),
+    "lut4_matmul": ("src/repro_torch/csrc/lut4_matmul.cu",
+                    "src/repro/kernels/lut4_matmul.py:83"),
+    "int4_matmul": ("src/repro_torch/csrc/int4_matmul.cu",
+                    "src/repro/kernels/int4_matmul.py:123"),
+    "lut_mul4": ("src/repro_torch/csrc/lut_mul4.cu",
+                 "src/repro/kernels/lut_mul4.py:66"),
 }
 
 
@@ -950,8 +1309,14 @@ def main() -> None:
                "flash_prefill": check_flash(torch, timer),
                "paged_decode_attention": check_decode(torch, timer),
                "ragged_decode_attention": check_ragged(torch, timer)}
+    results["w4a16_matmul"] = check_w4a16(torch, timer)
+    results["lut4_matmul"], results["int4_matmul"] = check_lut4_int4(torch,
+                                                                     timer)
+    results["lut_mul4"] = check_mul4(torch, timer)
     del timer
     launches = phase_serve(torch)
+    entry = entry_points_run(torch)
+    launches = {k: launches[k] + entry[k] for k in launches}
     phase_cpu(torch)
     kernels = []
     for name, res in results.items():

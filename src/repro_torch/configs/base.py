@@ -112,6 +112,9 @@ class Runtime:
     paged_attn: str = "fused"
     # uniform backend-string override, mapped to a uniform plan
     quant_backend: Optional[str] = None
+    # quant plan spec: preset name | JSON path | inline "pattern=backend"
+    # rules (core.quant_plan); takes precedence over quant_backend
+    quant_plan: Optional[str] = None
     cache_dtype: str = "bfloat16"   # bfloat16 | float32 | int8 | int4
     compute_dtype: str = "bfloat16"
     # paged prefill attends over the gathered page pool (tail prefill after

@@ -15,8 +15,9 @@ import numpy as np
 import torch
 
 
-def params_from_jax(tree, device="cpu"):
-    """numpy-leaved reference tree -> torch tree on `device`."""
+def params_from_jax(tree, device="cuda"):
+    """numpy-leaved reference tree -> torch tree on `device` (the card
+    unless the caller asks for the CPU)."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     a = np.asarray(tree)

@@ -5,16 +5,25 @@ Every projection routes through `qdense`.  The backend comes from
 serving weights (``{"packed", "scale", "packed_km"}`` dicts from
 `quant_plan.pack_for_serving`) take the packed path.  Ported here:
 
-  float       -- plain GEMM in the activation dtype
-  int_sim     -- W4A4 from a float master: the weight is quantized and
-                 packed K-major per call, the GEMM is the fused W4A4 kernel
-                 (``kernels.ops.int4_matmul_fused_kmajor``: the CUDA kernel
-                 on CUDA tensors, its plain version on CPU tensors)
-  w4a4_packed -- pre-packed int4 weights through the fused W4A4 kernel
+  float        -- plain GEMM in the activation dtype
+  fake_quant   -- QAT: straight-through fake-quant on weight and
+                  activations, float GEMM
+  int_sim,     -- W4A4 from a float master: the weight is quantized and
+  pallas_int4     packed K-major per call, the GEMM is the fused W4A4
+                  kernel (``kernels.ops.int4_matmul_fused_kmajor``)
+  lut4         -- W4A4 through the table-lookup GEMM
+                  (``kernels.ops.lut4_matmul_kmajor``): the same integers
+  w4a16        -- weight-only int4 (per channel or per group), activations
+                  in their dtype (``kernels.ops.w4a16_matmul_kmajor``)
+  w4a4_packed  -- pre-packed int4 weights through the fused W4A4 kernel
+  w4a16_packed -- pre-packed int4 weights (per-channel or grouped scales)
+                  through the W4A16 kernel
 
-The W4A4 integer math is exact, so all of these equal the JAX package's
-int_sim numerics.  fake_quant, w4a16, lut4 and netlist wait for later
-slices and raise.
+Every kernel-backed GEMM takes the kernel route on every device: the CUDA
+kernel on CUDA tensors, its plain version on CPU tensors.  The W4A4
+integer math is exact, so the W4A4 backends equal the JAX package's
+int_sim numerics; W4A16 equals the JAX package's XLA twin up to f32
+summation order.  netlist is not ported and raises.
 """
 
 from __future__ import annotations
@@ -25,7 +34,7 @@ from typing import Optional
 import torch
 
 from ..kernels import ops
-from ..kernels.packing import nmajor_to_kmajor
+from ..kernels.packing import nmajor_to_kmajor_grouped
 from .quant import pack_int4, quant_scale, quantize
 
 
@@ -42,8 +51,8 @@ class QuantConfig:
         return self.backend != "float"
 
 
-#: backends whose packed weights run the W4A4 integer GEMM
-W4A4_BACKENDS = ("w4a4_packed", "int_sim")
+#: backends whose packed weights run a W4A4 integer GEMM
+W4A4_BACKENDS = ("w4a4_packed", "int_sim", "pallas_int4", "lut4")
 
 
 def check_int4(cfg: QuantConfig, tag: str = "") -> None:
@@ -66,10 +75,12 @@ def qdense(w, x: torch.Tensor, cfg: QuantConfig,
     if isinstance(w, dict) and "packed" in w:
         fn = _packed_backend
     else:
-        if cfg.backend == "w4a4_packed":
+        if cfg.backend in ("w4a4_packed", "w4a16_packed"):
             # weight left unpacked (too small for the plan packer): the
             # equivalent on-the-fly path
-            cfg = dataclasses.replace(cfg, backend="int_sim")
+            cfg = dataclasses.replace(
+                cfg,
+                backend="int_sim" if cfg.backend == "w4a4_packed" else "w4a16")
         fn = get_backend(cfg.backend)
     out_dtype = x.dtype
     lead = x.shape[:-1]
@@ -81,20 +92,31 @@ def qdense(w, x: torch.Tensor, cfg: QuantConfig,
 
 
 def _packed_backend(w, x2: torch.Tensor, cfg: QuantConfig, tag: str = ""):
-    """Serving path for a pre-packed weight: W4A4 through the fused kernel
-    on the planar K-major twin (`packed_km`, added by `prepack_tree`; made
-    here when absent)."""
+    """Serving path for a pre-packed weight, on its planar K-major twin
+    (`packed_km`, added by `prepack_tree`; made here when absent).  W4A4
+    backends run the fused W4A4 kernel, ``lut4`` quantizes the activations
+    and runs the table-lookup kernel, the W4A16 backends run the W4A16
+    kernel with the scales' rank picking per-channel or grouped (the group
+    size recovered from the scale's shape)."""
     packed, w_scale = w["packed"], w["scale"]
-    if cfg.backend not in W4A4_BACKENDS:
-        raise ValueError(
-            f"packed weight at site {tag!r} reached backend {cfg.backend!r}, "
-            f"which has no packed-weight path in this port")
-    check_int4(cfg, tag)
-    xf = x2.to(torch.float32)
     w_km = w.get("packed_km")
     if w_km is None:
-        w_km = nmajor_to_kmajor(packed)
-    return ops.int4_matmul_fused_kmajor(xf, w_km, w_scale)
+        w_km = nmajor_to_kmajor_grouped(packed, w_scale)
+    if cfg.backend in W4A4_BACKENDS:
+        check_int4(cfg, tag)
+        xf = x2.to(torch.float32)
+        if cfg.backend == "lut4":
+            a_scale = quant_scale(xf, axis=1, bits=4)
+            a_q = quantize(xf, a_scale, bits=4)
+            return ops.lut4_matmul_kmajor(a_q, a_scale, w_km, w_scale)
+        return ops.int4_matmul_fused_kmajor(xf, w_km, w_scale)
+    if cfg.backend not in ("w4a16", "w4a16_packed"):
+        raise ValueError(
+            f"packed weight at site {tag!r} reached backend {cfg.backend!r}, "
+            f"which has no packed-weight path")
+    K = x2.shape[1]
+    g = K // w_scale.shape[0] if w_scale.ndim == 3 else K
+    return ops.w4a16_matmul_kmajor(x2, w_km, w_scale, g)
 
 
 #: linear-weight leaf names eligible for serving-side packing
@@ -133,13 +155,12 @@ def prepack_tree(params):
         if isinstance(node, dict) and "packed" in node:
             if "packed_km" in node:
                 return node
-            rm = 2
-            if node["scale"].ndim == node["packed"].ndim + 1:
-                rm = 2 * (node["packed"].shape[-2] // node["scale"].shape[-3])
-            return {**node, "packed_km":
-                    nmajor_to_kmajor(node["packed"], rm).contiguous()}
+            return {**node, "packed_km": nmajor_to_kmajor_grouped(
+                node["packed"], node["scale"]).contiguous()}
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
         return node
 
     return walk(params)

@@ -1,5 +1,6 @@
 """int4 quantization (PyTorch port of ``repro/core/quant.py``): symmetric
-signed int4 (q in [-8, 7], scale = amax / 7) and nibble packing.
+signed int4 (q in [-8, 7], scale = amax / 7) per tensor, channel or group,
+straight-through fake-quant, and nibble packing.
 
 ``torch.round`` rounds half to even, as ``jnp.round`` does, so quantized
 values and packed bytes are the JAX package's exactly.
@@ -32,6 +33,44 @@ def quant_scale(x: torch.Tensor, axis: Optional[int] = None, bits: int = 4,
 def quantize(x: torch.Tensor, scale: torch.Tensor, bits: int = 4) -> torch.Tensor:
     qmin, qmax = _qrange(bits)
     return torch.clamp(torch.round(x / scale), qmin, qmax).to(torch.int8)
+
+
+def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(scale.dtype) * scale
+
+
+def fake_quant(x: torch.Tensor, axis: Optional[int] = None,
+               bits: int = 4) -> torch.Tensor:
+    """Quantize-dequantize with a straight-through gradient (QAT).  The
+    scale and grid math runs in f32; the result keeps x's dtype."""
+    x32 = x.to(torch.float32)
+    scale = quant_scale(x32, axis=axis, bits=bits)
+    xq = dequantize(quantize(x32, scale, bits=bits), scale).to(x.dtype)
+    return x + (xq - x).detach()
+
+
+def group_quantize(w: torch.Tensor, group_size: int, bits: int = 4
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-group quantization along the first (reduction) axis of w [K, N]:
+    (q [K, N] int8 of int4 values, scales [K//G, 1, N]); a group size of 0
+    or >= K gives per-output-channel scales [1, N]."""
+    K, N = w.shape
+    if group_size <= 0 or group_size >= K:
+        scale = quant_scale(w, axis=0, bits=bits)
+        return quantize(w, scale, bits=bits), scale
+    assert K % group_size == 0, (K, group_size)
+    wg = w.reshape(K // group_size, group_size, N)
+    scale = quant_scale(wg, axis=1, bits=bits)
+    return quantize(wg, scale, bits=bits).reshape(K, N), scale
+
+
+def group_dequantize(q: torch.Tensor, scale: torch.Tensor,
+                     group_size: int) -> torch.Tensor:
+    K, N = q.shape
+    if scale.ndim == 2:                                    # per-channel
+        return dequantize(q, scale)
+    qg = q.reshape(K // group_size, group_size, N)
+    return dequantize(qg, scale).reshape(K, N)
 
 
 def pack_int4(q: torch.Tensor, axis: int = -1) -> torch.Tensor:

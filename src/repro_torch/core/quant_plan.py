@@ -8,16 +8,22 @@ wildcards; a pattern matches the full site or any ``.``-aligned suffix; the
 matching pattern with the most literal characters wins, later rules break
 ties.
 
-Ported: resolution, the uniform plan behind ``Runtime.quant_backend``,
-``plan_pack_tree`` and ``pack_for_serving``.  Presets and the inline/JSON
-plan parsers (the JAX package's ``Runtime.quant_plan``) wait for a later
-slice.
+Plans come from three spec forms (``get_plan``): a named preset
+(``PRESETS``), a JSON file path, or inline ``pattern=backend[/g<G>][/w<b>]
+[/a<b>][;...]`` rules; ``active_plan`` gives ``Runtime.quant_plan``
+precedence over ``Runtime.quant_backend``, then ``ArchConfig.quant_plan``,
+then the uniform ``ArchConfig.quant``.  A plan that resolves the same at
+every layer packs the stacked ``layers`` tree in place; one that differs
+between layers splits it into a list of per-layer trees, which the port's
+Python layer loop walks as it walks the stacked views.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import json
+import os
 import re
 from typing import Dict, Optional, Tuple
 
@@ -97,6 +103,117 @@ def _resolve(plan: QuantPlan, site: str) -> QuantConfig:
     return best
 
 
+# ---------------------------------------------------------- plan specs ----
+_QC_FIELDS = ("backend", "w_bits", "a_bits", "group_size",
+              "quantize_embedding")
+
+
+def plan_from_dict(d: Dict) -> QuantPlan:
+    rules = tuple(
+        (r["pattern"], QuantConfig(**{f: r[f] for f in _QC_FIELDS if f in r}))
+        for r in d["rules"])
+    return QuantPlan(rules=rules, name=d.get("name", ""))
+
+
+def _parse_inline(spec: str) -> QuantPlan:
+    """``"block[0].*=float;ffn.*=w4a16/g128;*=int_sim"`` -> QuantPlan."""
+    rules = []
+    for part in spec.split(";"):
+        part = part.strip()
+        if not part:
+            continue
+        pattern, _, rhs = part.partition("=")
+        if not rhs:
+            raise ValueError(
+                f"bad plan rule {part!r}: expected pattern=backend")
+        backend, *opts = rhs.split("/")
+        kw = {"backend": backend.strip()}
+        for opt in opts:
+            if opt.startswith("g"):
+                kw["group_size"] = int(opt[1:])
+            elif opt.startswith("w"):
+                kw["w_bits"] = int(opt[1:])
+            elif opt.startswith("a"):
+                kw["a_bits"] = int(opt[1:])
+            else:
+                raise ValueError(f"unknown plan option {opt!r} in {part!r}")
+        rules.append((pattern.strip(), QuantConfig(**kw)))
+    return QuantPlan(rules=tuple(rules), name="inline")
+
+
+_FLOAT = QuantConfig(backend="float")
+
+#: named presets, the JAX package's, rule for rule
+PRESETS: Dict[str, QuantPlan] = {
+    # uniform W4A4 integer GEMMs; lm_head stays float
+    "uniform_w4a4": QuantPlan(
+        name="uniform_w4a4",
+        rules=(("*", QuantConfig(backend="int_sim")),
+               ("lm_head", _FLOAT)),
+    ),
+    # weight-only int4 everywhere except the sensitive sites, which stay fp
+    "w4a16_sensitive_fp": QuantPlan(
+        name="w4a16_sensitive_fp",
+        rules=(("*", QuantConfig(backend="w4a16", a_bits=16, group_size=128)),
+               ("block[0].*", _FLOAT),
+               ("lm_head", _FLOAT)),
+    ),
+    # QAT with the first block and head in full precision
+    "qat_mixed": QuantPlan(
+        name="qat_mixed",
+        rules=(("*", QuantConfig(backend="fake_quant")),
+               ("block[0].*", _FLOAT),
+               ("lm_head", _FLOAT)),
+    ),
+    # pre-packed W4A4 serving (`--quant w4a4_packed` as a plan)
+    "serve_w4a4": QuantPlan(
+        name="serve_w4a4",
+        rules=(("*", QuantConfig(backend="w4a4_packed")),
+               ("lm_head", _FLOAT)),
+    ),
+    # w4a16 FFNs, float lm_head and block-0 attention, int_sim elsewhere
+    "mixed_sensitive": QuantPlan(
+        name="mixed_sensitive",
+        rules=(("*", QuantConfig(backend="int_sim")),
+               ("ffn.*", QuantConfig(backend="w4a16", a_bits=16)),
+               ("block[0].attn.*", _FLOAT),
+               ("lm_head", _FLOAT)),
+    ),
+}
+
+_PLAN_CACHE: Dict[str, QuantPlan] = {}
+
+
+def get_plan(spec: str) -> QuantPlan:
+    """Resolve a plan spec: preset name | JSON file path | inline rules.
+    File plans are cached per (path, mtime), so an edited file is read
+    again."""
+    if spec in PRESETS:
+        return PRESETS[spec]
+    key = spec
+    is_file = spec.endswith(".json") or os.path.exists(spec)
+    if is_file:
+        try:
+            key = f"{spec}@{os.stat(spec).st_mtime_ns}"
+        except OSError:
+            pass
+    hit = _PLAN_CACHE.get(key)
+    if hit is not None:
+        return hit
+    if is_file:
+        with open(spec) as f:
+            plan = plan_from_dict(json.load(f))
+    elif "=" in spec:
+        plan = _parse_inline(spec)
+    else:
+        raise ValueError(
+            f"unknown quant plan {spec!r}: not a preset "
+            f"({sorted(PRESETS)}), not a file, and not inline rules "
+            "(pattern=backend[;...])")
+    _PLAN_CACHE[key] = plan
+    return plan
+
+
 @functools.lru_cache(maxsize=256)
 def uniform_plan(qc: QuantConfig) -> QuantPlan:
     """One QuantConfig as a plan; lm_head stays float unless the config
@@ -108,17 +225,17 @@ def uniform_plan(qc: QuantConfig) -> QuantPlan:
 
 
 def active_plan(arch, rt) -> QuantPlan:
-    """The plan in effect for (arch, runtime): ``Runtime.quant_backend``
-    mapped to a uniform plan, else the uniform ``ArchConfig.quant``.  Plan
-    specs (``ArchConfig.quant_plan``; the JAX package's
-    ``Runtime.quant_plan``) are not ported yet and raise."""
-    if arch.quant_plan:
-        raise NotImplementedError(
-            "quant plan specs (presets, JSON, inline rules) are not ported "
-            "yet; use Runtime.quant_backend")
+    """The plan in effect for (arch, runtime).  Precedence:
+    ``Runtime.quant_plan`` (name | path | inline) > ``Runtime.quant_backend``
+    (as a uniform plan) > ``ArchConfig.quant_plan`` > uniform
+    ``ArchConfig.quant``."""
+    if rt.quant_plan:
+        return get_plan(rt.quant_plan)
     if rt.quant_backend is not None:
         return uniform_plan(
             dataclasses.replace(arch.quant, backend=rt.quant_backend))
+    if arch.quant_plan:
+        return get_plan(arch.quant_plan)
     return uniform_plan(arch.quant)
 
 
@@ -164,8 +281,9 @@ def plan_pack_tree(params, cfg, plan: QuantPlan, *,
 
     Sites whose backend is outside ``backends`` keep their float masters, as
     do leaves under ``min_size`` elements (counted over the layer-stacked
-    leaf, as the JAX package counts them).  Only repeat-uniform plans are
-    ported: the stacked ``layers`` tree packs in place."""
+    leaf, as the JAX package counts them).  A repeat-uniform plan packs the
+    stacked ``layers`` tree in place; any other splits it into a list of
+    per-layer trees (the JAX package's ``{"r<i>": {"u0": ...}}``)."""
     from .qlinear import PACKABLE_NAMES, pack_weight_nd
 
     def pack_leaf(leaf, site: str, *, check_name: Optional[str] = None):
@@ -197,16 +315,25 @@ def plan_pack_tree(params, cfg, plan: QuantPlan, *,
                              check_name=comps[-1])
         return rec(bp, ())
 
-    if not plan_repeat_uniform(plan, cfg):
-        raise NotImplementedError(
-            "plans that differ between repeats are not ported yet")
     out = dict(params)
-    out["layers"] = {f"u{j}": pack_block(params["layers"][f"u{j}"],
-                                         f"block[{j}]")
-                     for j in range(len(cfg.pattern))}
+    if plan_repeat_uniform(plan, cfg):
+        out["layers"] = {f"u{j}": pack_block(params["layers"][f"u{j}"],
+                                             f"block[{j}]")
+                         for j in range(len(cfg.pattern))}
+    else:
+        out["layers"] = [pack_block(layer_slice(params["layers"]["u0"], r),
+                                    f"block[{r}]")
+                         for r in range(cfg.n_repeats)]
     if "lm_head" in params:
         out["lm_head"] = {"w": pack_leaf(params["lm_head"]["w"], "lm_head")}
     return out
+
+
+def layer_slice(tree, r: int):
+    """Layer r of a layer-stacked tree (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: layer_slice(v, r) for k, v in tree.items()}
+    return tree[r]
 
 
 def pack_for_serving(params, cfg, rt):

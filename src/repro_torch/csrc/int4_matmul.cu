@@ -1,23 +1,29 @@
-// W4A4 GEMM with the activation quantize fused into the tile prologue.
+// W4A4 GEMM: with the activation quantize fused into the tile prologue, or
+// on activations quantized beforehand.
 //
-// Replaces: src/repro/kernels/int4_matmul.py::int4_matmul_fused
-//   (Pallas `_call(fused=True)`, `_kernel`, `_quantize_tile`).
+// Replaces: src/repro/kernels/int4_matmul.py::int4_matmul_fused and
+//   ::int4_matmul (Pallas `_call(fused=True / False)`, `_kernel`,
+//   `_quantize_tile`).
 //
 // Computes out[m, n] = (float(acc[m, n]) * a_scale[m]) * w_scale[n] with
-//   acc[m, n] = sum_k q(x[m, k]) * w[k, n],
-//   q(v)      = clamp(rint(v / a_scale[m]), -8, 7)   (IEEE division,
-//               round half to even: the rounding of jnp.round / torch.round)
-// and w stored planar K-major: byte w_km[r, n] holds row r in its low nibble
-// and row r + Kh in its high nibble (Kh = ceil(K / 2)).
+//   acc[m, n] = sum_k q(m, k) * w[k, n],
+// where q(m, k) is, fused (FUSED = true):
+//   clamp(rint(x[m, k] / a_scale[m]), -8, 7)   (IEEE division, round half
+//   to even: the rounding of jnp.round / torch.round),
+// and unfused (FUSED = false) the int8 a_q[m, k] handed in.  w is stored
+// planar K-major: byte w_km[r, n] holds row r in its low nibble and row
+// r + Kh in its high nibble (Kh = ceil(K / 2)).  The two variants share the
+// weight tile, the __dp4a loop and the epilogue, so on the same a_q and
+// a_scale they give the same bits.
 //
 // What bounds it on the card: at decode (M = 1..8) the packed weight bytes
 // (K * N / 2) dominate, so the kernel is bound by memory; at prefill
 // (M = 256) it does 2*M*K*N integer operations on ~K*N/2 weight bytes and is
 // bound by the integer rate.  What the design does about it: weights are read
 // from device memory once per CTA row-block as packed nibbles (4 bits each,
-// never widened in device memory), the activation never round-trips device
-// memory as int8 (quantized in the prologue into shared memory), and the
-// inner product runs on __dp4a (four int8 products per instruction).  The
+// never widened in device memory), the fused activation never round-trips
+// device memory as int8 (quantized in the prologue into shared memory), and
+// the inner product runs on __dp4a (four int8 products per instruction).  The
 // nibble planes are expanded with one mask per 32-bit word and kept as
 // signed nibble*16 bytes, so the accumulator carries a factor 16 that one
 // arithmetic shift removes exactly at the end.  No tensor cores yet: a later
@@ -33,9 +39,10 @@ constexpr int HALF_WORDS = BKH / 4;    // int32 words per plane (4 k each)
 constexpr int WORDS = 2 * HALF_WORDS;  // lo plane words, then hi plane words
 constexpr int THREADS = 256;
 
-template <int BM>
-__global__ void __launch_bounds__(THREADS) w4a4_fused_kernel(
-    const float* __restrict__ x,          // [M, K] row-major
+template <int BM, bool FUSED>
+__global__ void __launch_bounds__(THREADS) w4a4_kernel(
+    const void* __restrict__ a,           // [M, K] row-major: f32 x (FUSED)
+                                          // or int8 a_q
     const float* __restrict__ a_scale,    // [M]
     const uint8_t* __restrict__ w,        // [Kh, N] planar K-major
     const float* __restrict__ w_scale,    // [N]
@@ -67,16 +74,20 @@ __global__ void __launch_bounds__(THREADS) w4a4_fused_kernel(
       uint32_t word = 0;
       if (gm < M) {
         const float s = a_scale[gm];
-        const float* row = x + (size_t)gm * K;
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           const int rr = r + u;
           const int k = plane * Kh + rr;
           int q = 0;
           if (rr < Kh && k < K) {
-            float v = rintf(__fdiv_rn(row[k], s));
-            v = fminf(fmaxf(v, -8.0f), 7.0f);
-            q = (int)v;
+            if constexpr (FUSED) {
+              const float* row = (const float*)a + (size_t)gm * K;
+              float v = rintf(__fdiv_rn(row[k], s));
+              v = fminf(fmaxf(v, -8.0f), 7.0f);
+              q = (int)v;
+            } else {
+              q = ((const int8_t*)a)[(size_t)gm * K + k];
+            }
           }
           word |= (uint32_t)(q & 0xFF) << (8 * u);
         }
@@ -130,24 +141,41 @@ __global__ void __launch_bounds__(THREADS) w4a4_fused_kernel(
   }
 }
 
-}  // namespace
-
-extern "C" int w4a4_fused_launch(const void* x, const void* a_scale,
-                                 const void* w, const void* w_scale, void* out,
-                                 int M, int K, int N, int Kh, void* stream) {
+template <bool FUSED>
+int w4a4_launch_impl(const void* a, const void* a_scale, const void* w,
+                     const void* w_scale, void* out, int M, int K, int N,
+                     int Kh, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (M <= 16) {
     dim3 grid((N + BN - 1) / BN, (M + 15) / 16);
-    w4a4_fused_kernel<16><<<grid, THREADS, 0, st>>>(
-        (const float*)x, (const float*)a_scale, (const uint8_t*)w,
-        (const float*)w_scale, (float*)out, M, K, N, Kh);
+    w4a4_kernel<16, FUSED><<<grid, THREADS, 0, st>>>(
+        a, (const float*)a_scale, (const uint8_t*)w, (const float*)w_scale,
+        (float*)out, M, K, N, Kh);
   } else {
     dim3 grid((N + BN - 1) / BN, (M + 63) / 64);
-    w4a4_fused_kernel<64><<<grid, THREADS, 0, st>>>(
-        (const float*)x, (const float*)a_scale, (const uint8_t*)w,
-        (const float*)w_scale, (float*)out, M, K, N, Kh);
+    w4a4_kernel<64, FUSED><<<grid, THREADS, 0, st>>>(
+        a, (const float*)a_scale, (const uint8_t*)w, (const float*)w_scale,
+        (float*)out, M, K, N, Kh);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// x [M, K] f32: quantized per row in the prologue
+extern "C" int w4a4_fused_launch(const void* x, const void* a_scale,
+                                 const void* w, const void* w_scale, void* out,
+                                 int M, int K, int N, int Kh, void* stream) {
+  return w4a4_launch_impl<true>(x, a_scale, w, w_scale, out, M, K, N, Kh,
+                                stream);
+}
+
+// a_q [M, K] int8 holding int4 values, quantized by the caller
+extern "C" int w4a4_launch(const void* a_q, const void* a_scale,
+                           const void* w, const void* w_scale, void* out,
+                           int M, int K, int N, int Kh, void* stream) {
+  return w4a4_launch_impl<false>(a_q, a_scale, w, w_scale, out, M, K, N, Kh,
+                                 stream);
 }
 
 extern "C" const char* kernel_error_string(int code) {

@@ -33,7 +33,8 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 
 #: the kernels of this package: one source file and one library each
-SOURCES = ("int4_matmul", "flash_prefill", "paged_decode", "ragged_decode")
+SOURCES = ("int4_matmul", "flash_prefill", "paged_decode", "ragged_decode",
+           "w4a16_matmul", "lut4_matmul", "lut_mul4")
 
 #: every flag that reaches nvcc (``-Xptxas -v`` only adds the report)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

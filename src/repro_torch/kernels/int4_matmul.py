@@ -1,12 +1,15 @@
-"""W4A4 GEMM with the activation quantize fused in: the CUDA kernel
-(``csrc/int4_matmul.cu``) and its plain PyTorch version.
+"""W4A4 GEMM, with the activation quantize fused in or on activations
+quantized beforehand: the CUDA kernel (``csrc/int4_matmul.cu``, one source
+for both) and the plain PyTorch versions.
 
-Ports ``repro/kernels/int4_matmul.py::int4_matmul_fused``.  Weights are
+Ports ``repro/kernels/int4_matmul.py::int4_matmul_fused`` and
+``::int4_matmul``.  Weights are
 planar K-major uint8 ``[ceil(K/2), N]`` (``kernels/packing.py``), scales
 ``[1, N]`` f32.  The per-row activation scale ``max(|x|, 1e-8) / 7`` is a
 reduction computed before the kernel, as in the JAX package; the kernel
 quantizes, unpacks, accumulates in int32 and applies
-``(acc * a_scale) * w_scale``.
+``(acc * a_scale) * w_scale``.  The unfused pair takes int8 ``a_q``
+[M, K] and f32 ``a_scale`` [M, 1] from the caller.
 
 Both versions divide with IEEE round-to-nearest and round half to even, so
 on the card they agree bit for bit.  ``kernels.ops`` picks one by the
@@ -40,37 +43,60 @@ def int4_matmul_fused_plain(x: torch.Tensor, w_kmajor: torch.Tensor,
     return acc * a_scale * w_scale
 
 
+def int4_matmul_plain(a_q: torch.Tensor, a_scale: torch.Tensor,
+                      w_kmajor: torch.Tensor,
+                      w_scale: torch.Tensor) -> torch.Tensor:
+    """Plain version of the unfused kernel (the XLA branch of
+    ``ops.int4_matmul_kmajor``): exact integer dot as an f32 matmul (see
+    `int4_matmul_fused_plain`), then ``(acc * a_scale) * w_scale``."""
+    w_q = unpack_kmajor(w_kmajor)[: a_q.shape[1]]
+    acc = torch.matmul(a_q.to(torch.float32), w_q.to(torch.float32))
+    return acc * a_scale * w_scale
+
+
 def _bind(lib: ctypes.CDLL) -> None:
-    lib.w4a4_fused_launch.argtypes = [ctypes.c_void_p] * 5 \
-        + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    lib.w4a4_fused_launch.restype = ctypes.c_int
+    for fn in (lib.w4a4_fused_launch, lib.w4a4_launch):
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+
+def check_w4a4_operands(what: str, a: torch.Tensor, a_dtype: torch.dtype,
+                        w_kmajor: torch.Tensor, w_scale: torch.Tensor,
+                        a_scale: torch.Tensor = None) -> None:
+    """Raise unless a [M, K] of `a_dtype`, planar w_kmajor [ceil(K/2), N]
+    uint8, w_scale [1, N] f32 (and a_scale [M, 1] f32) are contiguous and
+    on one CUDA device: what the W4A4 and table-lookup kernels take."""
+    ops_ = [a, w_kmajor, w_scale] + ([a_scale] if a_scale is not None else [])
+    if not (a.is_cuda and all(t.device == a.device for t in ops_)):
+        raise ValueError(f"{what}: all operands must be on one CUDA device")
+    want = [a_dtype, torch.uint8, torch.float32] \
+        + ([torch.float32] if a_scale is not None else [])
+    if [t.dtype for t in ops_] != want:
+        raise TypeError(f"{what}: dtypes {[t.dtype for t in ops_]}; want "
+                        f"{want}")
+    if a.ndim != 2 or w_kmajor.ndim != 2:
+        raise ValueError(f"{what}: shapes {tuple(a.shape)}, "
+                         f"{tuple(w_kmajor.shape)}")
+    M, K = a.shape
+    Kh, N = w_kmajor.shape
+    if 2 * Kh not in (K, K + 1) or w_scale.numel() != N \
+            or (a_scale is not None and a_scale.numel() != M):
+        raise ValueError(f"{what}: activations {tuple(a.shape)} do not match "
+                         f"weight {tuple(w_kmajor.shape)} / scale "
+                         f"{tuple(w_scale.shape)}")
+    if not all(t.is_contiguous() for t in ops_):
+        raise ValueError(f"{what}: operands must be contiguous")
 
 
 def int4_matmul_fused_cuda(x: torch.Tensor, w_kmajor: torch.Tensor,
                            w_scale: torch.Tensor) -> torch.Tensor:
     """Launch the W4A4 kernel on CUDA tensors: x [M, K] f32, w_kmajor
     [ceil(K/2), N] uint8, w_scale [1, N] f32 -> [M, N] f32."""
-    if not (x.is_cuda and w_kmajor.device == x.device
-            and w_scale.device == x.device):
-        raise ValueError("int4_matmul_fused_cuda: all operands must be on "
-                         "one CUDA device")
-    if x.dtype != torch.float32 or w_kmajor.dtype != torch.uint8 \
-            or w_scale.dtype != torch.float32:
-        raise TypeError(f"int4_matmul_fused_cuda: dtypes {x.dtype}, "
-                        f"{w_kmajor.dtype}, {w_scale.dtype}; want f32, "
-                        f"uint8, f32")
-    if x.ndim != 2 or w_kmajor.ndim != 2:
-        raise ValueError(f"int4_matmul_fused_cuda: shapes {tuple(x.shape)}, "
-                         f"{tuple(w_kmajor.shape)}")
+    check_w4a4_operands("int4_matmul_fused_cuda", x, torch.float32,
+                        w_kmajor, w_scale)
     M, K = x.shape
     Kh, N = w_kmajor.shape
-    if 2 * Kh not in (K, K + 1) or w_scale.numel() != N:
-        raise ValueError(f"int4_matmul_fused_cuda: x {tuple(x.shape)} does "
-                         f"not match weight {tuple(w_kmajor.shape)} / scale "
-                         f"{tuple(w_scale.shape)}")
-    if not (x.is_contiguous() and w_kmajor.is_contiguous()
-            and w_scale.is_contiguous()):
-        raise ValueError("int4_matmul_fused_cuda: operands must be contiguous")
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     if M == 0 or N == 0:
         return out
@@ -86,3 +112,29 @@ def int4_matmul_fused_cuda(x: torch.Tensor, w_kmajor: torch.Tensor,
 
 
 int4_matmul_fused_cuda.launches = 0
+
+
+def int4_matmul_cuda(a_q: torch.Tensor, a_scale: torch.Tensor,
+                     w_kmajor: torch.Tensor,
+                     w_scale: torch.Tensor) -> torch.Tensor:
+    """Launch the unfused W4A4 kernel on CUDA tensors: a_q [M, K] int8,
+    a_scale [M, 1] f32, w_kmajor [ceil(K/2), N] uint8, w_scale [1, N] f32
+    -> [M, N] f32."""
+    check_w4a4_operands("int4_matmul_cuda", a_q, torch.int8, w_kmajor,
+                        w_scale, a_scale)
+    M, K = a_q.shape
+    Kh, N = w_kmajor.shape
+    out = torch.empty((M, N), dtype=torch.float32, device=a_q.device)
+    if M == 0 or N == 0:
+        return out
+    lib = _build.load("int4_matmul", _bind)
+    code = lib.w4a4_launch(
+        _build.ptr(a_q), _build.ptr(a_scale), _build.ptr(w_kmajor),
+        _build.ptr(w_scale), _build.ptr(out), M, K, N, Kh,
+        _build.stream_of(a_q))
+    _build.check(lib, code, "int4_matmul")
+    int4_matmul_cuda.launches += 1
+    return out
+
+
+int4_matmul_cuda.launches = 0

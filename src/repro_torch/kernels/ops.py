@@ -19,7 +19,11 @@ from typing import Dict
 import torch
 
 from . import autotune
-from .int4_matmul import int4_matmul_fused_cuda, int4_matmul_fused_plain
+from .int4_matmul import (int4_matmul_cuda, int4_matmul_fused_cuda,
+                          int4_matmul_fused_plain, int4_matmul_plain)
+from .lut4_matmul import lut4_matmul_cuda, lut4_matmul_plain
+from .lut_mul4 import lut_mul4_cuda, lut_mul4_plain
+from .packing import nmajor_to_kmajor
 from .paged_attention import (
     flash_prefill_cuda,
     flash_prefill_plain,
@@ -30,6 +34,7 @@ from .ragged_attention import (
     ragged_decode_attention_cuda,
     ragged_decode_attention_plain,
 )
+from .w4a16_matmul import w4a16_matmul_cuda, w4a16_matmul_plain
 
 #: kernel name -> its CUDA wrapper (the holder of the launch count)
 CUDA_WRAPPERS = {
@@ -37,6 +42,10 @@ CUDA_WRAPPERS = {
     "flash_prefill": flash_prefill_cuda,
     "paged_decode_attention": paged_decode_attention_cuda,
     "ragged_decode_attention": ragged_decode_attention_cuda,
+    "int4_matmul": int4_matmul_cuda,
+    "w4a16_matmul": w4a16_matmul_cuda,
+    "lut4_matmul": lut4_matmul_cuda,
+    "lut_mul4": lut_mul4_cuda,
 }
 
 
@@ -64,6 +73,65 @@ def int4_matmul_fused_kmajor(x, w_kmajor, w_scale):
         return int4_matmul_fused_cuda(x.to(torch.float32).contiguous(),
                                       w_kmajor, w_scale)
     return int4_matmul_fused_plain(x, w_kmajor, w_scale)
+
+
+def int4_matmul(a_q, a_scale, w_packed, w_scale):
+    """W4A4 GEMM on pre-quantized activations: a_q [M, K] int8, a_scale
+    [M, 1] f32, the serialized interleaved weight [K, N/2] uint8
+    (``core.quant.pack_int4``), w_scale [1, N] -> f32 [M, N]."""
+    return int4_matmul_kmajor(a_q, a_scale,
+                              nmajor_to_kmajor(w_packed).contiguous(),
+                              w_scale)
+
+
+def int4_matmul_kmajor(a_q, a_scale, w_kmajor, w_scale):
+    """W4A4 GEMM on pre-quantized activations and planar K-major weights
+    ([ceil(K/2), N] uint8)."""
+    if _on_cuda(a_q, "int4_matmul"):
+        return int4_matmul_cuda(a_q, a_scale, w_kmajor, w_scale)
+    return int4_matmul_plain(a_q, a_scale, w_kmajor, w_scale)
+
+
+def lut4_matmul(a_q, a_scale, w_packed, w_scale):
+    """Table-lookup W4A4 GEMM; operands as `int4_matmul` (serialized
+    interleaved weight)."""
+    return lut4_matmul_kmajor(a_q, a_scale,
+                              nmajor_to_kmajor(w_packed).contiguous(),
+                              w_scale)
+
+
+def lut4_matmul_kmajor(a_q, a_scale, w_kmajor, w_scale):
+    """Table-lookup W4A4 GEMM on planar K-major weights."""
+    if _on_cuda(a_q, "lut4_matmul"):
+        return lut4_matmul_cuda(a_q, a_scale, w_kmajor, w_scale)
+    return lut4_matmul_plain(a_q, a_scale, w_kmajor, w_scale)
+
+
+def w4a16_matmul(x, w_packed, w_scale, group_size: int):
+    """Weight-only int4 GEMM: x [M, K] bf16/f32, the serialized interleaved
+    weight [K, N/2], scales [1, N] or [K // G, 1, N] -> f32 [M, N].  Grouped
+    weights are repacked with K padded to a multiple of 2G."""
+    row_mult = 2 * group_size if w_scale.ndim == 3 else 2
+    return w4a16_matmul_kmajor(
+        x, nmajor_to_kmajor(w_packed, row_mult).contiguous(), w_scale,
+        group_size)
+
+
+def w4a16_matmul_kmajor(x, w_kmajor, w_scale, group_size: int):
+    """Weight-only int4 GEMM on planar K-major weights ([Kh, N] uint8)."""
+    if _on_cuda(x, "w4a16_matmul"):
+        return w4a16_matmul_cuda(x.contiguous(), w_kmajor,
+                                 w_scale.contiguous(), group_size)
+    return w4a16_matmul_plain(x, w_kmajor, w_scale, group_size)
+
+
+def mul4(a_q, b_q, strategy: str = "onehot"):
+    """Elementwise exact int4 x int4 -> int8 product through the 256-entry
+    product table; `strategy` ("onehot" | "take") names the JAX package's
+    two lookups, which give the same integers."""
+    if _on_cuda(a_q, "lut_mul4"):
+        return lut_mul4_cuda(a_q, b_q, strategy)
+    return lut_mul4_plain(a_q, b_q, strategy)
 
 
 def paged_decode_attention(q, k_pool, v_pool, tbl, last_pos, k_scale=None,

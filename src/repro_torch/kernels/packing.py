@@ -11,12 +11,15 @@ Two storage layouts for int4 tensors (two values per uint8 byte):
     planes with a shift and a mask.
 
 Both layouts are byte for byte those of the JAX package, so packed weights
-are the same bytes in both.
+are the same bytes in both.  The 16x256 per-nibble product tables
+(``nibble_product_tables``) index a planar byte directly; the table-lookup
+GEMM (``csrc/lut4_matmul.cu``) reads its products from them.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import Dict, Tuple
 
 import torch
 
@@ -72,3 +75,62 @@ def unpack_kmajor(p: torch.Tensor) -> torch.Tensor:
 def nmajor_to_kmajor(w_packed: torch.Tensor, row_mult: int = 2) -> torch.Tensor:
     """Serialized interleaved [..., K, N//2] -> kernel planar [..., K'/2, N]."""
     return pack_kmajor(unpack_interleaved(w_packed), row_mult)
+
+
+def nmajor_to_kmajor_grouped(w_packed: torch.Tensor, scale: torch.Tensor
+                             ) -> torch.Tensor:
+    """`nmajor_to_kmajor` with the row multiple a weight's scales need:
+    grouped scales [..., K//G, 1, N] (one rank deeper than the packed
+    weight) need planar halves that cover whole groups (2G); per-channel
+    ones 2."""
+    rm = 2
+    if scale.ndim == w_packed.ndim + 1:
+        rm = 2 * (w_packed.shape[-2] // scale.shape[-3])
+    return nmajor_to_kmajor(w_packed, rm)
+
+
+# ------------------------------------------- per-nibble product tables -----
+@functools.lru_cache(maxsize=None)
+def nibble_product_tables() -> Tuple[torch.Tensor, torch.Tensor]:
+    """The exact 4x4-bit product table tiled for GEMM lookup: ``(t_lo,
+    t_hi)``, each [16, 256] int8 on the CPU, with
+
+        t_lo[a, byte] = sext4(a) * sext4(byte & 0xF)
+        t_hi[a, byte] = sext4(a) * sext4(byte >> 4)
+
+    Row = the activation's unsigned nibble code, column = a packed planar
+    weight byte, so a kernel holding packed weights reads each signed
+    product without unpacking.  Products of int4 values fit int8."""
+    s = (torch.arange(16, dtype=torch.int32) ^ 8) - 8       # sext4 of 0..15
+    byte = torch.arange(256, dtype=torch.int32)
+    t_lo = s[:, None] * s[byte & 0xF][None, :]
+    t_hi = s[:, None] * s[byte >> 4][None, :]
+    return t_lo.to(torch.int8), t_hi.to(torch.int8)
+
+
+_LUT4_TABLES: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def lut4_tables(device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
+    """``nibble_product_tables()`` on `device`, copied there once and kept
+    for the life of the process (8 KiB per device)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    hit = _LUT4_TABLES.get(dev)
+    if hit is None:
+        hit = tuple(t.to(dev).contiguous() for t in nibble_product_tables())
+        _LUT4_TABLES[dev] = hit
+    return hit
+
+
+def flatten_to_tiles(x: torch.Tensor, rows_mult: int, cols: int
+                     ) -> Tuple[torch.Tensor, int]:
+    """Flatten any-shape x into a [rows, cols] grid, rows padded with zeros
+    to a multiple of `rows_mult`.  Returns (tiles, n), n the element count;
+    undo with ``tiles.reshape(-1)[:n].reshape(shape)``."""
+    n = x.numel()
+    rows = -(-n // cols)
+    rows_padded = -(-rows // rows_mult) * rows_mult
+    flat = torch.nn.functional.pad(x.reshape(-1), (0, rows_padded * cols - n))
+    return flat.reshape(rows_padded, cols), n

@@ -1,17 +1,21 @@
 """Continuous-batching serving driver for the PyTorch port.
 
 Serves synthetic traffic (Poisson arrivals, or the mixed and bursty
-scenarios) with W4A4-packed weights (every attention and FFN projection
-through the fused int4 GEMM) and a paged KV pool (bf16, or int8/int4 with
-per-token scales) with the prefix cache, and prints a JSON report with
-tokens/s and p50/p95 request latency.  ``--step bucketed`` runs flash
-prefill and fused paged decode; ``--step ragged`` packs prefill chunks and
-decode tokens into one ragged step a token budget wide.  Runs on ``cuda``
-unless ``--device cpu`` is given.
+scenarios) under a quantization plan (``--quant``, a uniform backend,
+default W4A4-packed weights through the fused int4 GEMM; or
+``--quant-plan``, a preset, JSON file or inline rules, which takes
+precedence) and a paged KV pool (bf16, or int8/int4 with per-token scales)
+with the prefix cache, and prints a JSON report with tokens/s and p50/p95
+request latency.  ``--step bucketed`` runs flash prefill and fused paged
+decode; ``--step ragged`` packs prefill chunks and decode tokens into one
+ragged step a token budget wide.  Runs on ``cuda`` unless ``--device cpu``
+is given.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b --full
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
         --full --step ragged --cache-dtype int8 --scenario mixed
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
+        --full --quant-plan "*=w4a16_packed/g128;lm_head=float"
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
         --reduced --device cpu --requests 4 --prompt-lens 8,16 --gen-lens 4
 """
@@ -39,14 +43,16 @@ def serve(arch: str, *, reduced=True, layers=None, max_batch=4,
           page_size=16, num_pages=48, max_ctx=128, requests=8, rate=0.5,
           prompt_lens=(8, 16, 32), gen_lens=(8, 16), prefix_cache=True,
           scenario="poisson", step="bucketed",
-          token_budget=0, cache_dtype="bfloat16", seed=0, device="cuda"):
+          token_budget=0, cache_dtype="bfloat16", quant="w4a4_packed",
+          quant_plan=None, seed=0, device="cuda"):
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced(**({"n_layers": layers} if layers else {}))
     elif layers:
         cfg = dataclasses.replace(cfg, n_layers=layers)
     rt = Runtime(attn_impl="flash", attn_chunk_q=min(512, max_ctx),
-                 quant_backend="w4a4_packed", cache_dtype=cache_dtype)
+                 quant_backend=None if quant_plan else quant,
+                 quant_plan=quant_plan, cache_dtype=cache_dtype)
     sv = ServingConfig(layout="paged", max_batch=max_batch,
                        page_size=page_size, num_pages=num_pages,
                        max_ctx=max_ctx, prefix_cache=prefix_cache, step=step,
@@ -68,7 +74,7 @@ def serve(arch: str, *, reduced=True, layers=None, max_batch=4,
     ops.reset_launch_counts()
     stats, _ = run_trace(engine, trace)
     report = {"arch": arch, "reduced": reduced, "n_layers": cfg.n_layers,
-              "quant": "w4a4_packed", "cache_dtype": cache_dtype,
+              "quant": quant_plan or quant, "cache_dtype": cache_dtype,
               "step": step, "scenario": scenario,
               "device": str(engine.device),
               "device_name": (torch.cuda.get_device_name(engine.device)
@@ -115,6 +121,14 @@ def main():
     ap.add_argument("--cache-dtype", default="bfloat16",
                     choices=["bfloat16", "int8", "int4"],
                     help="KV pool: bf16, or int8/int4 with per-token scales")
+    ap.add_argument("--quant", default="w4a4_packed",
+                    help="uniform backend for every projection (lm_head "
+                         "stays float): w4a4_packed, w4a16_packed, int_sim, "
+                         "lut4, w4a16, fake_quant or float")
+    ap.add_argument("--quant-plan", default=None,
+                    help="quantization plan, taking precedence over --quant: "
+                         "a preset name, a JSON path, or inline "
+                         "pattern=backend[/g<G>][;...] rules")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
@@ -132,7 +146,7 @@ def main():
         prefix_cache=args.prefix_cache == "on", scenario=args.scenario,
         step=args.step,
         token_budget=args.token_budget, cache_dtype=args.cache_dtype,
-        seed=args.seed,
+        quant=args.quant, quant_plan=args.quant_plan, seed=args.seed,
         device=args.device)
     text = json.dumps(out, indent=1)
     print(text)

@@ -7,7 +7,9 @@ every leaf of the repeated block stacked over layers on axis 0, so weights
 carried across with ``convert.params_from_jax`` and the plan packer's size
 rule (counted over the stacked leaf) agree with the reference.  Where the
 JAX package scans over that axis, `forward` loops over layers in Python on
-per-layer views (``layer_params``).  Paged KV pools are stacked the same
+per-layer views (``layer_params``); a quant plan that packs layers
+differently leaves ``params["layers"]`` a list of per-layer trees, which
+the loop walks the same way.  Paged KV pools are stacked the same
 way and updated in place.
 """
 
@@ -18,6 +20,7 @@ from typing import Dict, List, Optional
 import torch
 
 from ..core.qlinear import qdense
+from ..core.quant_plan import layer_slice
 from .attention import apply_attention, init_attention
 from .common import normal_init, rms_norm
 from .ffn import apply_ffn, init_ffn
@@ -74,15 +77,12 @@ def init_model(gen: torch.Generator, cfg) -> Dict:
     return params
 
 
-def _index(tree, r: int):
-    if isinstance(tree, dict):
-        return {k: _index(v, r) for k, v in tree.items()}
-    return tree[r]
-
-
 def layer_params(params: Dict, n_layers: int) -> List[Dict]:
-    """Per-layer views of the stacked block parameters."""
-    return [_index(params["layers"]["u0"], r) for r in range(n_layers)]
+    """Per-layer views of the stacked block parameters, or the per-layer
+    trees of a plan that packs layers differently (``plan_pack_tree``)."""
+    if isinstance(params["layers"], list):
+        return params["layers"]
+    return [layer_slice(params["layers"]["u0"], r) for r in range(n_layers)]
 
 
 def with_layer_views(params: Dict, cfg) -> Dict:

@@ -55,9 +55,11 @@ def resolve_device(device) -> torch.device:
 
 
 def build_params(cfg, rt, seed: int = 0, device="cuda"):
-    """Init random serving weights from a seeded ``torch.Generator`` on
-    `device` and, for the pre-packing sites of the active plan, pack them
-    (int4 nibbles + scales + the kernel's planar K-major twin)."""
+    """Init random f32 serving weights from a seeded ``torch.Generator`` on
+    `device` and, for the pre-packing sites of the active plan (any plan:
+    ``Runtime.quant_plan`` or ``quant_backend``), pack them (int4 nibbles +
+    scales + the kernel's planar K-major twin).  Every other site keeps its
+    f32 master, which the on-the-fly backends quantize per call."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     return pack_for_serving(init_model(gen, cfg), cfg, rt)

@@ -4,11 +4,16 @@ it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -q
 
-Without a GPU every test here skips.  Tolerances: the W4A4 kernel must
-equal its plain version bit for bit (both divide with IEEE round-to-nearest
-and round half to even); the attention kernels run a single-pass online
-softmax against the plain versions' blocked sums and are held to atol 2e-2
-in bf16, the bound the JAX package holds its Pallas kernels to, on bf16,
+Without a GPU every test here skips.  Tolerances: the W4A4 kernels (fused
+and unfused) and the table-lookup kernel must equal their plain versions
+bit for bit (integer dots; the fused one divides with IEEE round-to-nearest
+and rounds half to even), and the table-lookup kernel the unfused W4A4
+kernel; the elementwise table product is exact; the W4A16 kernel is held
+to chip_smoke.W4A16_RTOL of the output's largest magnitude (f32 sums in
+another order than its plain version's); the attention kernels run a
+single-pass online softmax against the plain versions' blocked sums and
+are held to atol 2e-2 in bf16, the bound the JAX package holds its Pallas
+kernels to, on bf16,
 int8 and int4 pools alike (both dequantize as bf16(q * scale)).  The ragged
 kernel shares the paged decode kernel's body, so a decode-only pack must
 give the paged decode kernel's output bit for bit.
@@ -283,4 +288,154 @@ def test_ragged_int8_card_vs_cpu_catches_a_planted_fault(cuda, monkeypatch,
     print(f"int8 ragged card vs CPU: max |logit diff| sound {err:.6g}, "
           f"{fault} {err_planted:.6g} (limit {cs.CPU_ATOL})")
     assert launches["ragged_decode_attention"] > 0, launches
+    assert err <= cs.CPU_ATOL < err_planted
+
+
+# ------------------------------------------------ the third slice's GEMMs --
+#: (K, N) of qwen2-0.5b's projections and the serving paths' rows
+MAIN_KN = [(896, 896), (896, 128), (896, 4864), (4864, 896)]
+MAIN_M = [1, 8, 64, 256]
+
+
+def _w4a16_check(cuda, M, K, N, G):
+    from repro_torch.core.quant import group_quantize, pack_int4
+    from repro_torch.kernels.packing import nmajor_to_kmajor_grouped
+    from repro_torch.kernels.w4a16_matmul import (w4a16_matmul_cuda,
+                                                  w4a16_matmul_plain)
+
+    gen = torch.Generator(device=cuda).manual_seed(M * 7 + K + N + G)
+    w = torch.randn((K, N), generator=gen, device=cuda) * 0.02
+    w_q, w_scale = group_quantize(w, G)
+    w_km = nmajor_to_kmajor_grouped(pack_int4(w_q), w_scale)
+    x32 = torch.randn((M, K), generator=gen, device=cuda)
+    for dt in (torch.bfloat16, torch.float32):
+        x = x32.to(dt)
+        got = w4a16_matmul_cuda(x, w_km, w_scale, G)
+        want = w4a16_matmul_plain(x, w_km, w_scale, G)
+        err = (got - want).abs().max().item()
+        assert err <= _chip_smoke().W4A16_RTOL * want.abs().max().item(), \
+            (dt, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", MAIN_M)
+@pytest.mark.parametrize("K,N", MAIN_KN)
+def test_w4a16_kernel_matches_plain(cuda, M, K, N):
+    """Per channel and grouped (G = 128: at K = 896 the repack pads K to
+    1024 and the high plane carries a group of zeros), bf16 and f32 x."""
+    for G in (K, 128):
+        _w4a16_check(cuda, M, K, N, G)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,G", [(9, 130, 50, 130), (1, 77, 24, 77),
+                                     (16, 192, 32, 64), (100, 512, 130, 128),
+                                     (33, 96, 40, 32)])
+def test_w4a16_kernel_odd_shapes(cuda, M, K, N, G):
+    _w4a16_check(cuda, M, K, N, G)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(m, k, n) for m in MAIN_M
+                                   for k, n in MAIN_KN]
+                         + [(1, 2, 2), (3, 5, 2), (7, 13, 10), (33, 57, 34),
+                            (129, 511, 130)])
+def test_lut4_and_unfused_int4_kernels_exact(cuda, M, K, N):
+    from repro_torch.kernels.int4_matmul import (int4_matmul_cuda,
+                                                 int4_matmul_plain)
+    from repro_torch.kernels.lut4_matmul import lut4_matmul_cuda
+
+    gen = torch.Generator(device=cuda).manual_seed(M + K + N)
+    a_q = torch.randint(-8, 8, (M, K), generator=gen, device=cuda,
+                        dtype=torch.int8)
+    a_s = torch.rand((M, 1), generator=gen, device=cuda) + 0.05
+    w_km = pack_kmajor(torch.randint(-8, 8, (K, N), generator=gen,
+                                     device=cuda, dtype=torch.int8))
+    w_s = torch.rand((1, N), generator=gen, device=cuda) + 0.05
+    want = int4_matmul_plain(a_q, a_s, w_km, w_s)
+    got_lut = lut4_matmul_cuda(a_q, a_s, w_km, w_s)
+    got_int = int4_matmul_cuda(a_q, a_s, w_km, w_s)
+    assert torch.equal(got_lut, want)
+    assert torch.equal(got_int, want)
+    assert torch.equal(got_lut, got_int)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ["onehot", "take"])
+def test_lut_mul4_kernel_exact(cuda, strategy):
+    from repro_torch.kernels.lut_mul4 import lut_mul4_cuda
+
+    vals = torch.arange(-8, 8, dtype=torch.int8, device=cuda)
+    a, b = vals.repeat_interleave(16), vals.repeat(16)
+    assert torch.equal(lut_mul4_cuda(a, b, strategy),
+                       (a.int() * b.int()).to(torch.int8))
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    for shape in ((1 << 20,), (5, 33), (2, 3, 130), (1, 1, 1, 257)):
+        a, b = (torch.randint(-8, 8, shape, generator=gen, device=cuda,
+                              dtype=torch.int8) for _ in range(2))
+        got = lut_mul4_cuda(a, b, strategy)
+        assert got.shape == a.shape
+        assert torch.equal(got, (a.int() * b.int()).to(torch.int8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan,gemm", [
+    ("*=w4a16_packed/g32;lm_head=float", "w4a16_matmul"),
+    ("*=lut4;lm_head=float", "lut4_matmul"),
+    ("mixed_sensitive", "w4a16_matmul")])
+def test_engine_plan_paths(cuda, plan, gemm):
+    """A 2-layer, head-dim-64 engine under a plan: every request retires ok
+    through the plan's GEMM kernel; the W4A4-only plans never launch the
+    fused W4A4 kernel."""
+    from repro_torch.configs import Runtime, ServingConfig, get_config
+    from repro_torch.serving.api import poisson_trace, run_trace
+    from repro_torch.serving.engine import InferenceEngine
+
+    cfg = get_config("qwen2-0.5b").reduced(n_layers=2, head_dim=64)
+    rt = Runtime(attn_impl="flash", quant_plan=plan, cache_dtype="bfloat16")
+    sv = ServingConfig(max_batch=4, page_size=16, num_pages=32, max_ctx=64)
+    engine = InferenceEngine(cfg, rt, sv, device=cuda)
+    ops.reset_launch_counts()
+    _, fin = run_trace(engine, poisson_trace(6, 1.0, (8, 20), (4, 8),
+                                             cfg.vocab, seed=1))
+    assert all(r.outcome == "ok" and len(r.tokens) == r.max_new for r in fin)
+    n = ops.launch_counts()
+    assert n[gemm] > 0, n
+    if plan != "mixed_sensitive":
+        assert n["int4_matmul_fused"] == 0, n
+    else:
+        assert n["int4_matmul_fused"] > 0, n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", ["w4a16_packed", "*=w4a16_packed/g128"])
+def test_w4a16_card_vs_cpu_catches_a_planted_fault(cuda, monkeypatch, plan):
+    """chip_smoke.py's W4A16 card-vs-CPU run (2 layers at full width, bf16,
+    per channel or grouped G = 128) holds the card within CPU_ATOL of the
+    CPU, and the same run fails that limit once the card's kernel gets one
+    group's scale doubled: group 0 of every weight (per channel, a weight's
+    one group is all of K; grouped, a seventh of K = 896 and 1/38 of
+    K = 4864)."""
+    from repro_torch.configs import Runtime
+
+    cs = _chip_smoke()
+    kw = ({"quant_backend": plan} if "=" not in plan
+          else {"quant_plan": plan + ";lm_head=float"})
+    rt = Runtime(attn_impl="flash", **kw)
+    sound, _ = cs._two_devices(torch, rt)
+    err = (sound["cuda"] - sound["cpu"]).abs().max().item()
+
+    kernel = ops.w4a16_matmul_cuda
+
+    def broken(x, w_km, w_scale, group_size):
+        w_scale = w_scale.clone()
+        w_scale[0] *= 2
+        return kernel(x, w_km, w_scale, group_size)
+
+    monkeypatch.setattr(ops, "w4a16_matmul_cuda", broken)
+    planted, launches = cs._two_devices(torch, rt)
+    err_planted = (planted["cuda"] - planted["cpu"]).abs().max().item()
+    print(f"W4A16 {plan} card vs CPU: max |logit diff| sound {err:.6g}, "
+          f"group 0 scale x2 {err_planted:.6g} (limit {cs.CPU_ATOL})")
+    assert launches["w4a16_matmul"] > 0, launches
     assert err <= cs.CPU_ATOL < err_planted

@@ -37,6 +37,29 @@ def test_port_imports_neither_jax_nor_the_reference():
     # the slice's modules, mirroring the reference's paths
     for name in ("repro_torch.kernels.paged_attention",
                  "repro_torch.kernels.int4_matmul",
+                 "repro_torch.kernels.w4a16_matmul",
+                 "repro_torch.kernels.lut4_matmul",
+                 "repro_torch.kernels.lut_mul4",
+                 "repro_torch.kernels.ref",
+                 "repro_torch.core.backends",
+                 "repro_torch.core.quant_plan",
                  "repro_torch.serving.engine",
                  "repro_torch.launch.serve"):
         assert name in report["modules"]
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_reference():
+    """Every import statement of chip_smoke.py, at any depth, names torch,
+    the port or the standard library: never jax or the JAX package."""
+    import ast
+
+    tree = ast.parse((SRC.parent / "chip_smoke.py").read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module or "")
+    roots = {n.split(".")[0] for n in names}
+    assert "repro_torch" in roots and "torch" in roots
+    assert not roots & {"jax", "jaxlib", "repro"}, sorted(names)

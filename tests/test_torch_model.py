@@ -72,7 +72,7 @@ def _run_both(quant, dtype, impl, paged_attn):
     cfg = get_config("qwen2-0.5b").reduced(n_layers=2)
     jrt, rt = _runtimes(quant, dtype, impl, paged_attn)
     jp = j_build_params(jcfg, jrt, seed=1)
-    tp = prepack_tree(params_from_jax(jax.tree.map(np.asarray, jp)))
+    tp = prepack_tree(params_from_jax(jax.tree.map(np.asarray, jp), "cpu"))
     valid = POSITIONS >= 0
 
     out_j = [np.asarray(jt.forward(jp, jnp.asarray(TOKENS), jcfg, jrt,

@@ -109,7 +109,7 @@ def test_plan_pack_tree_same_bytes_and_scales(masters):
     j_packed = j_plan_pack_tree(jax.tree.map(jnp.asarray, np_params), jcfg,
                                 j_active_plan(jcfg, JRuntime(**kw)))
     cfg = get_config("qwen2-0.5b").reduced(n_layers=2)
-    t_packed = plan_pack_tree(params_from_jax(np_params), cfg,
+    t_packed = plan_pack_tree(params_from_jax(np_params, "cpu"), cfg,
                               active_plan(cfg, Runtime(**kw)))
     j_leaves = dict(_leaves(jax.tree.map(np.asarray, j_packed)))
     t_leaves = dict(_leaves(t_packed))
@@ -124,7 +124,7 @@ def test_plan_pack_tree_same_bytes_and_scales(masters):
 def test_pack_for_serving_adds_kernel_layout(masters):
     jcfg, np_params = masters
     cfg = get_config("qwen2-0.5b").reduced(n_layers=2)
-    served = pack_for_serving(params_from_jax(np_params), cfg,
+    served = pack_for_serving(params_from_jax(np_params, "cpu"), cfg,
                               Runtime(quant_backend="w4a4_packed"))
     w = served["layers"]["u0"]["ffn"]["w_in"]
     np.testing.assert_array_equal(

@@ -323,7 +323,7 @@ def jax_params():
                            loss_chunk=0)
     jparams = j_build_params(jcfg, jrt, seed=0)
     return jcfg, jparams, prepack_tree(params_from_jax(
-        jax.tree.map(np.asarray, jparams)))
+        jax.tree.map(np.asarray, jparams), "cpu"))
 
 
 @pytest.mark.parametrize("token_budget", [0, 6], ids=["auto", "budget6"])

@@ -152,7 +152,7 @@ def test_engine_greedy_tokens_identical_to_jax_engine():
     te = InferenceEngine(cfg, tconfigs.Runtime(**kw),
                          tconfigs.ServingConfig(**ENGINE_SV),
                          params=prepack_tree(params_from_jax(
-                             jax.tree.map(np.asarray, jparams))),
+                             jax.tree.map(np.asarray, jparams), "cpu")),
                          device="cpu")
     tstats, tfin = run_trace(te, poisson_trace(vocab=cfg.vocab, **TRACE))
     assert [r.tokens for r in tfin] == [r.tokens for r in jfin]
