@@ -15,7 +15,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
                  padding rows exactly 0, and a decode-only pack through the
                  ragged kernel bit for bit equal to the paged decode
                  kernel; the W4A16 GEMM per channel and grouped (G = 128),
-                 on bf16 and f32 activations, within W4A16_RTOL; the
+                 on bf16 and f32 activations, within W4A16_RTOL (M <= 16
+                 through the split-K kernel and its reduce, each shape's
+                 plan printed, two calls at M = 8 bit-equal; M > 16
+                 through the tiled kernel; both rows reported); the
                  table-lookup GEMM and the unfused W4A4 GEMM bit for bit,
                  and equal to each other; the elementwise table product
                  exactly, both strategies.  Times (CUDA events, L2 flushed
@@ -39,7 +42,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
                  attention kernels or the other plans' GEMMs.  After each
                  run a few steps at full batch run under torch.profiler:
                  step time, launches per step (the run's GEMM 7 per layer),
-                 the card's busy share and the largest kernels.  Then the
+                 the card's busy share, the run's GEMM kernels' device
+                 time and the largest kernels.  Then the
                  public entry points no serving path reaches (ops.mul4,
                  ops.int4_matmul), called as the JAX package's quickstart
                  and benchmarks call theirs.
@@ -297,13 +301,18 @@ def check_w4a16(torch, timer):
     """The W4A16 kernel against its plain version at every main-path (K, N)
     and M, per-channel and grouped (G = 128: K = 896 pads to 1024, so the
     high plane carries a group of zeros), on bf16 and f32 activations.
-    Timed in bf16, the serving path's type; the yardstick is torch.matmul
-    of the bf16 activations with a pre-dequantized bf16 weight."""
+    M <= 16 runs the split-K kernel and its reduce (each shape's plan and
+    load width printed; two calls at M = MAX_BATCH must give the same
+    bits), M > 16 the tiled kernel.  Timed in bf16, the serving path's
+    type; the yardstick is torch.matmul of the bf16 activations with a
+    pre-dequantized bf16 weight.  The result's top level is the M <= 16
+    path at M = MAX_BATCH, grouped; `m_le16` and `m_gt16` hold each path's
+    row (M = MAX_BATCH and M = PROMPT_BUCKET, grouped and per channel)."""
     from repro_torch.core.quant import group_quantize, pack_int4
     from repro_torch.kernels.ops import w4a16_matmul
     from repro_torch.kernels.packing import nmajor_to_kmajor_grouped
-    from repro_torch.kernels.w4a16_matmul import (w4a16_matmul_cuda,
-                                                  w4a16_matmul_plain)
+    from repro_torch.kernels.w4a16_matmul import (
+        SPLITK_MAX_M, splitk_plan, w4a16_matmul_cuda, w4a16_matmul_plain)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
     rows = {"channel": {}, "g128": {}}
@@ -317,6 +326,14 @@ def check_w4a16(torch, timer):
                      * w_scale.reshape(-1, 1, N)).reshape(K, N)
             w_bf = w_deq.to(torch.bfloat16)
             for M in (1, MAX_BATCH, BUDGET, PROMPT_BUCKET):
+                if M <= SPLITK_MAX_M:
+                    p = splitk_plan(M, N, w_km.shape[0],
+                                    G if w_scale.ndim == 3 else 0,
+                                    w_km.data_ptr() % 16 == 0)
+                    say(f"w4a16 {form:7s} M={M:4d} K={K:5d} N={N:5d}: "
+                        f"split K, {p.vec}-byte loads, {p.splits} splits of "
+                        f"{p.rows} packed rows, {p.bn} columns x {p.mt} rows "
+                        f"a CTA, {p.ctas} CTAs")
                 x32 = torch.randn((M, K), generator=gen, device="cuda")
                 for dt in ("bfloat16", "float32"):
                     x = x32.to(getattr(torch, dt))
@@ -329,6 +346,10 @@ def check_w4a16(torch, timer):
                     if not err <= W4A16_RTOL * scale:
                         fail(f"w4a16_matmul {form} {dt} M={M} K={K} N={N}: "
                              f"max |diff| {err} > {W4A16_RTOL} x {scale}")
+                    if M == MAX_BATCH and not torch.equal(
+                            got, w4a16_matmul_cuda(x, w_km, w_scale, G)):
+                        fail(f"w4a16_matmul {form} {dt} M={M} K={K} N={N}: "
+                             "two calls on the same inputs differ")
                     if dt == "float32":
                         continue
                     n_bytes = (x.numel() * x.element_size() + w_km.numel()
@@ -347,6 +368,8 @@ def check_w4a16(torch, timer):
                     rows[form][(M, K, N)] = {
                         "ms": t, "plain_ms": tp, "bound_ms": b_ms,
                         "library_ms": lib, "bytes": n_bytes, "ops": n_ops}
+    say(f"w4a16: two calls at M={MAX_BATCH} bit-equal at every shape, both "
+        "forms and activation types")
     # the public entry point repacks a serialized weight the same way
     x = torch.randn((3, 896), generator=gen, device="cuda").to(torch.bfloat16)
     w_q, w_scale = group_quantize(torch.randn((896, 64), generator=gen,
@@ -357,16 +380,17 @@ def check_w4a16(torch, timer):
         fail("ops.w4a16_matmul differs from the kernel on its repacked "
              "weight")
     peak = BF16_OPS_PER_S
-    return {"shape": f"one layer's 7 projections at M={MAX_BATCH}, grouped "
-                     "G=128, bf16 x (per-channel and M=256 under 'forms')",
-            "max_abs_err": worst_abs, "max_rel_err": worst_rel,
-            **_layer_sum(rows["g128"], MAX_BATCH, peak),
-            "forms": {"g128_M256": _layer_sum(rows["g128"], PROMPT_BUCKET,
-                                              peak),
-                      "channel_M8": _layer_sum(rows["channel"], MAX_BATCH,
-                                               peak),
-                      "channel_M256": _layer_sum(rows["channel"],
-                                                 PROMPT_BUCKET, peak)}}
+    paths = {}
+    for path, M, what in (("m_le16", MAX_BATCH, "split K"),
+                          ("m_gt16", PROMPT_BUCKET, "tiled")):
+        paths[path] = {
+            "shape": f"one layer's 7 projections at M={M}, grouped G=128, "
+                     f"bf16 x ({what}; per channel under 'channel')",
+            **_layer_sum(rows["g128"], M, peak),
+            "channel": _layer_sum(rows["channel"], M, peak)}
+    top = {k: v for k, v in paths["m_le16"].items() if k != "channel"}
+    return {**top, "max_abs_err": worst_abs, "max_rel_err": worst_rel,
+            **paths}
 
 
 def check_lut4_int4(torch, timer):
@@ -788,6 +812,10 @@ SERVE_RUNS = {
 #: per forward
 RUN_GEMM = {"bucketed": "int4_matmul_fused", "ragged": "int4_matmul_fused",
             "w4a16": "w4a16_matmul", "lut4": "lut4_matmul"}
+#: the device kernels behind each GEMM wrapper, by a prefix of their name
+#: (the W4A16 wrapper's M <= 16 path launches two: split K, then reduce)
+GEMM_KERNELS = {"int4_matmul_fused": "w4a4_kernel",
+                "w4a16_matmul": "w4a16_", "lut4_matmul": "lut4_kernel"}
 
 
 def serve_run(torch, params, run: str, trace, prompt_lens):
@@ -1024,6 +1052,10 @@ def profile_steps(torch, engine, vocab: int, run: str, steps: int = 4):
         + (f"{busy / wall_us:.3f} of wall time" if busy else "not measured "
            "(the profiler saw no device time)")
         + f"; kernel launches per step {json.dumps(per_step)}")
+    mine = [e for e in kernels if GEMM_KERNELS[gemm] in e.key]
+    say(f"profile ({run}): the {gemm} kernels: "
+        f"{sum(dev_us(e) for e in mine) / steps / 1e3:.3f} ms/step of device "
+        f"time, {sum(e.count for e in mine) / steps:.0f} launches/step")
     for e in kernels[:8]:
         say(f"profile ({run}):   {dev_us(e) / steps / 1e3:8.3f} ms/step "
             f"{e.count // steps:5d}x/step  {e.key[:90]}")

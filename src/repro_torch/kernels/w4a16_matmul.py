@@ -14,11 +14,18 @@ off the TPU): the weight dequantized in f32 (``q * scale``), x widened to
 f32, one f32 matmul.  The kernel sums ``x * q`` in f32 and scales each
 group's partial sum (or, per channel, the whole sum) at the end, so the two
 differ by f32 rounding in the order of the sums.
+
+At M <= 16 the kernel splits K across CTAs by the plan ``splitk_plan``
+returns (column tile, rows of x per CTA, packed rows per split, number of
+splits) and sums the splits' partials in a second kernel, in split order;
+at M > 16 it runs one tiled kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -39,9 +46,70 @@ def w4a16_matmul_plain(x: torch.Tensor, w_kmajor: torch.Tensor,
     return torch.matmul(x.to(torch.float32), w)
 
 
+#: the largest M that runs the split-K path
+SPLITK_MAX_M = 16
+#: the CTAs a split-K launch aims at: one per SM of an H100 (132 SMs)
+SPLITK_TARGET_CTAS = 132
+# the split-K kernel's geometry (csrc/w4a16_matmul.cu): 128 threads; a
+# row of the column tile is read by 8 threads of 16 bytes or a warp of 1
+# byte, so the CTA covers 16 or 4 packed rows at once; at most 128 packed
+# rows a split (the x slice in shared memory; on the card, 256 was no
+# faster and fewer, longer splits beat more CTAs)
+_SPLITK_THREADS = 128
+_SPLITK_BN = {16: 128, 1: 32}
+_SPLITK_MAX_ROWS = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitKPlan:
+    """How the M <= 16 path cuts one call: CTA (column tile, split, chunk
+    of x rows), grid (N / bn) x splits x (M / mt)."""
+    vec: int        # bytes per weight load: 16 (one uint4) or 1
+    bn: int         # output columns per CTA
+    mt: int         # rows of x per CTA
+    rows: int       # packed weight rows per split (both planes)
+    splits: int     # splits of [0, Kh): split s holds rows [s*rows, ...)
+    ctas: int
+
+
+@functools.lru_cache(maxsize=None)
+def splitk_plan(M: int, N: int, Kh: int, group_size: int,
+                aligned: bool = True) -> SplitKPlan:
+    """The split-K plan for x [M, K] times a planar weight [Kh, N]
+    (group_size 0 = per channel).  16-byte loads where every row starts
+    16-byte aligned (N % 16 == 0 and an `aligned` weight), else 1-byte.
+    Rows per split: grouped, a divisor of G, so a split lies inside one
+    group of each plane (Kh is a multiple of G); per channel, the row
+    lanes times a power of two.  The most rows per split that still
+    launches SPLITK_TARGET_CTAS; where none does, the fewest rows that
+    keep every row lane of the CTA busy."""
+    if not 0 < M <= SPLITK_MAX_M:
+        raise ValueError(f"splitk_plan: M = {M} outside 1..{SPLITK_MAX_M}")
+    vec = 16 if aligned and N % 16 == 0 else 1
+    bn = _SPLITK_BN[vec]
+    lanes = _SPLITK_THREADS // 32 * (32 // (bn // vec))
+    grouped = group_size > 0
+    # rows of x per CTA: 16-byte loads keep 16 columns a thread, so at most
+    # 2 (64 sums a thread grouped, 32 per channel: 4 was slower on the card
+    # at every M = 8 shape, fewer CTAs fitting an SM); 1-byte loads 8
+    mt = min(1 << (M - 1).bit_length(), 2 if vec == 16 else 8)
+    tiles = -(-N // bn) * -(-M // mt)
+    if grouped:
+        cands = [d for d in range(min(group_size, _SPLITK_MAX_ROWS), 0, -1)
+                 if group_size % d == 0]
+    else:
+        cands = [r for r in (128, 64, 32, 16, 8, 4) if r >= lanes]
+    floor = min(lanes, cands[0])
+    rows = next((r for r in cands if r >= floor
+                 and tiles * -(-Kh // r) >= SPLITK_TARGET_CTAS),
+                min(r for r in cands if r >= floor))
+    splits = max(1, -(-Kh // rows))
+    return SplitKPlan(vec, bn, mt, rows, splits, tiles * splits)
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     lib.w4a16_launch.argtypes = [ctypes.c_void_p, ctypes.c_int] \
-        + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     lib.w4a16_launch.restype = ctypes.c_int
 
 
@@ -49,7 +117,8 @@ def w4a16_matmul_cuda(x: torch.Tensor, w_kmajor: torch.Tensor,
                       w_scale: torch.Tensor, group_size: int) -> torch.Tensor:
     """Launch the W4A16 kernel on CUDA tensors: x [M, K] bf16 or f32,
     w_kmajor [Kh, N] uint8, w_scale [1, N] or [K // G, 1, N] f32 ->
-    [M, N] f32."""
+    [M, N] f32.  At M <= 16 the split-K kernel and its reduce, with an f32
+    workspace [splits, M, N]; one launch count a call either way."""
     ops_ = (x, w_kmajor, w_scale)
     if not (x.is_cuda and all(t.device == x.device for t in ops_)):
         raise ValueError("w4a16_matmul_cuda: all operands must be on one "
@@ -84,10 +153,16 @@ def w4a16_matmul_cuda(x: torch.Tensor, w_kmajor: torch.Tensor,
     if M == 0 or N == 0:
         return out
     lib = _build.load("w4a16_matmul", _bind)
+    ws, plan = None, (0, 0, 0, 0)
+    if M <= SPLITK_MAX_M:
+        p = splitk_plan(M, N, Kh, G, w_kmajor.data_ptr() % 16 == 0)
+        ws = torch.empty((p.splits, M, N), dtype=torch.float32,
+                         device=x.device)
+        plan = (p.vec, p.mt, p.rows, p.splits)
     code = lib.w4a16_launch(
         _build.ptr(x), int(x.dtype == torch.bfloat16), _build.ptr(w_kmajor),
-        _build.ptr(w_scale), _build.ptr(out), M, K, N, Kh, G, n_groups,
-        _build.stream_of(x))
+        _build.ptr(w_scale), _build.ptr(out), _build.ptr(ws), M, K, N, Kh, G,
+        n_groups, *plan, _build.stream_of(x))
     _build.check(lib, code, "w4a16_matmul")
     w4a16_matmul_cuda.launches += 1
     return out

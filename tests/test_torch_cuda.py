@@ -10,7 +10,8 @@ bit for bit (integer dots; the fused one divides with IEEE round-to-nearest
 and rounds half to even), and the table-lookup kernel the unfused W4A4
 kernel; the elementwise table product is exact; the W4A16 kernel is held
 to chip_smoke.W4A16_RTOL of the output's largest magnitude (f32 sums in
-another order than its plain version's); the attention kernels run a
+another order than its plain version's) and, having no atomics, gives the
+same bits call after call; the attention kernels run a
 single-pass online softmax against the plain versions' blocked sums and
 are held to atol 2e-2 in bf16, the bound the JAX package holds its Pallas
 kernels to, on bf16,
@@ -333,6 +334,78 @@ def test_w4a16_kernel_matches_plain(cuda, M, K, N):
                                      (33, 96, 40, 32)])
 def test_w4a16_kernel_odd_shapes(cuda, M, K, N, G):
     _w4a16_check(cuda, M, K, N, G)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", range(1, 17))
+@pytest.mark.parametrize("K,N", [(4864, 896), (896, 128)])
+def test_w4a16_splitk_every_decode_row_count(cuda, M, K, N):
+    """The split-K path at every M it takes, on the largest and the
+    smallest projection: per channel and grouped, bf16 and f32 x."""
+    for G in (K, 128):
+        _w4a16_check(cuda, M, K, N, G)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,G", [(8, 256, 50, 64), (16, 896, 130, 128),
+                                     (3, 512, 24, 128), (5, 77, 6, 77)])
+def test_w4a16_splitk_one_byte_loads(cuda, M, K, N, G):
+    """N % 16 != 0: the split-K kernel's 1-byte-load instantiation, grouped
+    and per channel."""
+    from repro_torch.kernels.w4a16_matmul import splitk_plan
+
+    assert splitk_plan(M, N, 1, 0).vec == 1
+    _w4a16_check(cuda, M, K, N, G)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [896, 128])
+def test_w4a16_splitk_unaligned_weight(cuda, G):
+    """A weight whose rows are not 16-byte aligned (N % 16 == 0, storage
+    offset 1) takes the 1-byte loads: within W4A16_RTOL of the plain
+    version, as the aligned copy's 16-byte loads are (the two sum the
+    rows in other orders)."""
+    from repro_torch.core.quant import group_quantize, pack_int4
+    from repro_torch.kernels.packing import nmajor_to_kmajor_grouped
+    from repro_torch.kernels.w4a16_matmul import (w4a16_matmul_cuda,
+                                                  w4a16_matmul_plain)
+
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    w_q, w_scale = group_quantize(
+        torch.randn((896, 896), generator=gen, device=cuda), G)
+    w_km = nmajor_to_kmajor_grouped(pack_int4(w_q), w_scale)
+    buf = torch.empty(w_km.numel() + 1, dtype=torch.uint8, device=cuda)
+    shifted = buf[1:].view(w_km.shape)
+    shifted.copy_(w_km)
+    assert shifted.data_ptr() % 16 != 0 and shifted.is_contiguous()
+    x = torch.randn((8, 896), generator=gen, device=cuda).to(torch.bfloat16)
+    want = w4a16_matmul_plain(x, w_km, w_scale, G)
+    limit = _chip_smoke().W4A16_RTOL * want.abs().max().item()
+    for weight in (shifted, w_km):
+        got = w4a16_matmul_cuda(x, weight, w_scale, G)
+        assert (got - want).abs().max().item() <= limit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 8, 16, 64])
+def test_w4a16_two_calls_bit_equal(cuda, M):
+    """No atomics: the same inputs give the same bits, call after call."""
+    from repro_torch.core.quant import group_quantize, pack_int4
+    from repro_torch.kernels.packing import nmajor_to_kmajor_grouped
+    from repro_torch.kernels.w4a16_matmul import w4a16_matmul_cuda
+
+    gen = torch.Generator(device=cuda).manual_seed(M)
+    for K, N in MAIN_KN:
+        w = torch.randn((K, N), generator=gen, device=cuda) * 0.02
+        x = torch.randn((M, K), generator=gen, device=cuda)
+        for G in (K, 128):
+            w_q, w_scale = group_quantize(w, G)
+            w_km = nmajor_to_kmajor_grouped(pack_int4(w_q), w_scale)
+            for dt in (torch.bfloat16, torch.float32):
+                first = w4a16_matmul_cuda(x.to(dt), w_km, w_scale, G)
+                for _ in range(3):
+                    again = w4a16_matmul_cuda(x.to(dt), w_km, w_scale, G)
+                    assert torch.equal(first, again), (K, N, G, dt)
 
 
 @pytest.mark.cuda
