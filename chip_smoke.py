@@ -17,8 +17,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
                  kernel; the W4A16 GEMM per channel and grouped (G = 128),
                  on bf16 and f32 activations, within W4A16_RTOL (M <= 16
                  through the split-K kernel and its reduce, each shape's
-                 plan printed, two calls at M = 8 bit-equal; M > 16
-                 through the tiled kernel; both rows reported); the
+                 plan printed; M > 16 through the tensor-core kernel for
+                 bf16 x and the FFMA kernel for f32 x, each shape's
+                 kernel printed, with the tensor-core kernel's ptxas
+                 registers, spill and shared memory; two calls bit-equal
+                 at M = 8, 64 and 256; both rows reported); the
                  table-lookup GEMM and the unfused W4A4 GEMM bit for bit,
                  and equal to each other; the elementwise table product
                  exactly, both strategies.  Times (CUDA events, L2 flushed
@@ -297,23 +300,69 @@ def _layer_sum(rows, M, peak):
             "library_ms": out["library_ms"]}
 
 
+def ptxas_report(log: str, entry: str):
+    """{mangled kernel name: (registers, spill bytes, shared-memory bytes)}
+    from nvcc's ``-Xptxas -v`` output, for every entry function whose name
+    holds `entry`."""
+    import re
+
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1) if entry in m.group(1) else None
+            continue
+        if name is None:
+            continue
+        regs, spill, smem = out.get(name, (0, 0, 0))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            regs = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            smem = int(sm.group(1)) if sm else 0
+        out[name] = (regs, spill, smem)
+    return out
+
+
+#: the rows the W4A16 kernel is checked and timed at: decode (split K),
+#: the prefill buckets 32 and 128, the ragged budget and the largest bucket
+W4A16_ROWS = (1, MAX_BATCH, 32, BUDGET, 128, PROMPT_BUCKET)
+
+
 def check_w4a16(torch, timer):
     """The W4A16 kernel against its plain version at every main-path (K, N)
-    and M, per-channel and grouped (G = 128: K = 896 pads to 1024, so the
-    high plane carries a group of zeros), on bf16 and f32 activations.
-    M <= 16 runs the split-K kernel and its reduce (each shape's plan and
-    load width printed; two calls at M = MAX_BATCH must give the same
-    bits), M > 16 the tiled kernel.  Timed in bf16, the serving path's
-    type; the yardstick is torch.matmul of the bf16 activations with a
-    pre-dequantized bf16 weight.  The result's top level is the M <= 16
+    and every M of W4A16_ROWS, per-channel and grouped (G = 128: K = 896
+    pads to 1024, so the high plane carries a group of zeros), on bf16 and
+    f32 activations.  M <= 16 runs the split-K kernel and its reduce (each
+    shape's plan and load width printed), M > 16 the kernel
+    `prefill_plan` picks (printed per shape: the tensor cores for bf16 x,
+    FFMA for f32 x); two calls must give the same bits at M = MAX_BATCH,
+    BUDGET and PROMPT_BUCKET.  The tensor-core kernel's ptxas registers,
+    spill and shared memory are printed.  Timed in bf16, the serving
+    path's type; the yardstick is torch.matmul of the bf16 activations with
+    a pre-dequantized bf16 weight.  The result's top level is the M <= 16
     path at M = MAX_BATCH, grouped; `m_le16` and `m_gt16` hold each path's
-    row (M = MAX_BATCH and M = PROMPT_BUCKET, grouped and per channel)."""
+    row (M = MAX_BATCH and M = PROMPT_BUCKET, grouped and per channel);
+    `m_gt16` also holds the layer sums at the other prefill rows."""
     from repro_torch.core.quant import group_quantize, pack_int4
+    from repro_torch.kernels import _build
     from repro_torch.kernels.ops import w4a16_matmul
     from repro_torch.kernels.packing import nmajor_to_kmajor_grouped
     from repro_torch.kernels.w4a16_matmul import (
-        SPLITK_MAX_M, splitk_plan, w4a16_matmul_cuda, w4a16_matmul_plain)
+        SPLITK_MAX_M, prefill_plan, splitk_plan, w4a16_matmul_cuda,
+        w4a16_matmul_plain)
 
+    ptxas = ptxas_report(_build.build_all(["w4a16_matmul"])["w4a16_matmul"][1],
+                         "w4a16_mma_kernel")
+    if not ptxas:
+        fail("w4a16: no ptxas report of w4a16_mma_kernel in the build log")
+    for name, (regs, spill, smem) in sorted(ptxas.items()):
+        say(f"ptxas {name}: {regs} registers, {spill} bytes spill, "
+            f"{smem} bytes smem")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
     rows = {"channel": {}, "g128": {}}
     worst_abs = worst_rel = 0.0
@@ -325,16 +374,26 @@ def check_w4a16(torch, timer):
             w_deq = (w_q.float().reshape(K // min(G, K), -1, N)
                      * w_scale.reshape(-1, 1, N)).reshape(K, N)
             w_bf = w_deq.to(torch.bfloat16)
-            for M in (1, MAX_BATCH, BUDGET, PROMPT_BUCKET):
-                if M <= SPLITK_MAX_M:
-                    p = splitk_plan(M, N, w_km.shape[0],
-                                    G if w_scale.ndim == 3 else 0,
-                                    w_km.data_ptr() % 16 == 0)
-                    say(f"w4a16 {form:7s} M={M:4d} K={K:5d} N={N:5d}: "
-                        f"split K, {p.vec}-byte loads, {p.splits} splits of "
-                        f"{p.rows} packed rows, {p.bn} columns x {p.mt} rows "
-                        f"a CTA, {p.ctas} CTAs")
+            g = G if w_scale.ndim == 3 else 0
+            for M in W4A16_ROWS:
                 x32 = torch.randn((M, K), generator=gen, device="cuda")
+                if M <= SPLITK_MAX_M:
+                    p = splitk_plan(M, N, w_km.shape[0], g,
+                                    w_km.data_ptr() % 16 == 0)
+                    path = (f"split K, {p.vec}-byte loads, {p.splits} splits "
+                            f"of {p.rows} packed rows, {p.bn} columns x "
+                            f"{p.mt} rows a CTA, {p.ctas} CTAs")
+                else:
+                    q = prefill_plan(M, K, N, w_km.shape[0], g, True,
+                                     x32.data_ptr() % 16 == 0,
+                                     w_km.data_ptr() % 16 == 0)
+                    q32 = prefill_plan(M, K, N, w_km.shape[0], g, False)
+                    what = {"mma": "tensor cores (w4a16_mma_kernel)",
+                            "ffma": "FFMA (w4a16_kernel)"}
+                    path = (f"bf16 x: {what[q.kernel]}, {q.bm} x 64 CTA "
+                            f"tiles, {q.x_vec}-byte x / {q.w_vec}-byte weight "
+                            f"loads; f32 x: {what[q32.kernel]}")
+                say(f"w4a16 {form:7s} M={M:4d} K={K:5d} N={N:5d}: {path}")
                 for dt in ("bfloat16", "float32"):
                     x = x32.to(getattr(torch, dt))
                     got = w4a16_matmul_cuda(x, w_km, w_scale, G)
@@ -346,8 +405,9 @@ def check_w4a16(torch, timer):
                     if not err <= W4A16_RTOL * scale:
                         fail(f"w4a16_matmul {form} {dt} M={M} K={K} N={N}: "
                              f"max |diff| {err} > {W4A16_RTOL} x {scale}")
-                    if M == MAX_BATCH and not torch.equal(
-                            got, w4a16_matmul_cuda(x, w_km, w_scale, G)):
+                    if M in (MAX_BATCH, BUDGET, PROMPT_BUCKET) \
+                            and not torch.equal(got, w4a16_matmul_cuda(
+                                x, w_km, w_scale, G)):
                         fail(f"w4a16_matmul {form} {dt} M={M} K={K} N={N}: "
                              "two calls on the same inputs differ")
                     if dt == "float32":
@@ -368,8 +428,8 @@ def check_w4a16(torch, timer):
                     rows[form][(M, K, N)] = {
                         "ms": t, "plain_ms": tp, "bound_ms": b_ms,
                         "library_ms": lib, "bytes": n_bytes, "ops": n_ops}
-    say(f"w4a16: two calls at M={MAX_BATCH} bit-equal at every shape, both "
-        "forms and activation types")
+    say(f"w4a16: two calls bit-equal at M={MAX_BATCH}, {BUDGET} and "
+        f"{PROMPT_BUCKET}, every shape, both forms and activation types")
     # the public entry point repacks a serialized weight the same way
     x = torch.randn((3, 896), generator=gen, device="cuda").to(torch.bfloat16)
     w_q, w_scale = group_quantize(torch.randn((896, 64), generator=gen,
@@ -382,12 +442,20 @@ def check_w4a16(torch, timer):
     peak = BF16_OPS_PER_S
     paths = {}
     for path, M, what in (("m_le16", MAX_BATCH, "split K"),
-                          ("m_gt16", PROMPT_BUCKET, "tiled")):
+                          ("m_gt16", PROMPT_BUCKET, "tensor cores")):
         paths[path] = {
             "shape": f"one layer's 7 projections at M={M}, grouped G=128, "
                      f"bf16 x ({what}; per channel under 'channel')",
             **_layer_sum(rows["g128"], M, peak),
             "channel": _layer_sum(rows["channel"], M, peak)}
+    for M in W4A16_ROWS:
+        if SPLITK_MAX_M < M < PROMPT_BUCKET:
+            paths["m_gt16"][f"at_m{M}"] = {
+                form: _layer_sum(rows[form], M, peak)
+                for form in ("g128", "channel")}
+    paths["m_gt16"]["ptxas"] = {
+        name: {"registers": r, "spill_bytes": sp, "smem_bytes": sm}
+        for name, (r, sp, sm) in sorted(ptxas.items())}
     top = {k: v for k, v in paths["m_le16"].items() if k != "channel"}
     return {**top, "max_abs_err": worst_abs, "max_rel_err": worst_rel,
             **paths}

@@ -17,8 +17,11 @@ differ by f32 rounding in the order of the sums.
 
 At M <= 16 the kernel splits K across CTAs by the plan ``splitk_plan``
 returns (column tile, rows of x per CTA, packed rows per split, number of
-splits) and sums the splits' partials in a second kernel, in split order;
-at M > 16 it runs one tiled kernel.
+splits) and sums the splits' partials in a second kernel, in split order.
+At M > 16 ``prefill_plan`` picks one tiled kernel: bf16 x on the tensor
+cores (bf16 ``mma.sync``, f32 sums: x * q is exact in f32, so it computes
+what the Pallas kernel and its XLA twin compute, up to f32 rounding), f32
+x, or bf16 x grouped with G % 16 != 0, on the first port's FFMA kernel.
 """
 
 from __future__ import annotations
@@ -107,9 +110,50 @@ def splitk_plan(M: int, N: int, Kh: int, group_size: int,
     return SplitKPlan(vec, bn, mt, rows, splits, tiles * splits)
 
 
+#: the tensor-core kernel's contraction depth (mma.sync.m16n8k16): a
+#: grouped weight takes it only where a 16-row step stays inside a group
+MMA_K = 16
+#: the kernel of each path, as ``csrc/w4a16_matmul.cu`` numbers them
+_PATHS = {"splitk": 0, "ffma": 1, "mma": 2}
+
+
+@dataclasses.dataclass(frozen=True)
+class PrefillPlan:
+    """Which kernel the M > 16 path runs and how it cuts and loads."""
+    kernel: str     # "mma" (bf16 tensor cores) or "ffma" (f32 CUDA cores)
+    bm: int         # rows of x per CTA (64 columns): 64 or 32; FFMA 64
+    x_vec: int      # bytes per x load: 16 (cp.async) or 2; FFMA: x's size
+    w_vec: int      # bytes per weight load: 16 (cp.async) or 1
+
+
+@functools.lru_cache(maxsize=None)
+def prefill_plan(M: int, K: int, N: int, Kh: int, group_size: int,
+                 x_bf16: bool = True, x_aligned: bool = True,
+                 w_aligned: bool = True) -> PrefillPlan:
+    """The kernel for x [M, K] (M > 16) times a planar weight [Kh, N]
+    (group_size 0 = per channel), by shape and type alone: the tensor
+    cores for bf16 x per channel or with G % MMA_K == 0, else FFMA.  The
+    tensor-core kernel takes 64 rows of x a CTA, or 32 where 64-row tiles
+    would launch fewer than SPLITK_TARGET_CTAS CTAs (one per SM: each
+    CTA's k-steps cost the same whatever its rows, so more, smaller CTAs
+    finish sooner there); it loads x 16 bytes at a time where every row
+    starts 16-byte aligned (an `x_aligned` pointer, K and Kh multiples of
+    8), else 2; the weight 16 bytes where N % 16 == 0 and `w_aligned`,
+    else 1."""
+    if M <= SPLITK_MAX_M:
+        raise ValueError(f"prefill_plan: M = {M} <= {SPLITK_MAX_M} takes "
+                         "the split-K path")
+    if not x_bf16 or group_size % MMA_K != 0:
+        return PrefillPlan("ffma", 64, 2 if x_bf16 else 4, 1)
+    bm = 64 if -(-M // 64) * -(-N // 64) >= SPLITK_TARGET_CTAS else 32
+    x_vec = 16 if x_aligned and K % 8 == 0 and Kh % 8 == 0 else 2
+    w_vec = 16 if w_aligned and N % 16 == 0 else 1
+    return PrefillPlan("mma", bm, x_vec, w_vec)
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     lib.w4a16_launch.argtypes = [ctypes.c_void_p, ctypes.c_int] \
-        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
     lib.w4a16_launch.restype = ctypes.c_int
 
 
@@ -118,7 +162,8 @@ def w4a16_matmul_cuda(x: torch.Tensor, w_kmajor: torch.Tensor,
     """Launch the W4A16 kernel on CUDA tensors: x [M, K] bf16 or f32,
     w_kmajor [Kh, N] uint8, w_scale [1, N] or [K // G, 1, N] f32 ->
     [M, N] f32.  At M <= 16 the split-K kernel and its reduce, with an f32
-    workspace [splits, M, N]; one launch count a call either way."""
+    workspace [splits, M, N]; at M > 16 the kernel ``prefill_plan`` picks;
+    one launch count a call either way."""
     ops_ = (x, w_kmajor, w_scale)
     if not (x.is_cuda and all(t.device == x.device for t in ops_)):
         raise ValueError("w4a16_matmul_cuda: all operands must be on one "
@@ -153,14 +198,20 @@ def w4a16_matmul_cuda(x: torch.Tensor, w_kmajor: torch.Tensor,
     if M == 0 or N == 0:
         return out
     lib = _build.load("w4a16_matmul", _bind)
-    ws, plan = None, (0, 0, 0, 0)
+    x_bf16 = x.dtype == torch.bfloat16
+    w_aligned = w_kmajor.data_ptr() % 16 == 0
+    ws = None
     if M <= SPLITK_MAX_M:
-        p = splitk_plan(M, N, Kh, G, w_kmajor.data_ptr() % 16 == 0)
+        p = splitk_plan(M, N, Kh, G, w_aligned)
         ws = torch.empty((p.splits, M, N), dtype=torch.float32,
                          device=x.device)
-        plan = (p.vec, p.mt, p.rows, p.splits)
+        plan = (_PATHS["splitk"], p.vec, 0, p.mt, p.rows, p.splits)
+    else:
+        q = prefill_plan(M, K, N, Kh, G, x_bf16, x.data_ptr() % 16 == 0,
+                         w_aligned)
+        plan = (_PATHS[q.kernel], q.w_vec, q.x_vec, q.bm, 0, 0)
     code = lib.w4a16_launch(
-        _build.ptr(x), int(x.dtype == torch.bfloat16), _build.ptr(w_kmajor),
+        _build.ptr(x), int(x_bf16), _build.ptr(w_kmajor),
         _build.ptr(w_scale), _build.ptr(out), _build.ptr(ws), M, K, N, Kh, G,
         n_groups, *plan, _build.stream_of(x))
     _build.check(lib, code, "w4a16_matmul")

@@ -387,7 +387,7 @@ def test_w4a16_splitk_unaligned_weight(cuda, G):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [1, 8, 16, 64])
+@pytest.mark.parametrize("M", [1, 8, 16, 64, 256])
 def test_w4a16_two_calls_bit_equal(cuda, M):
     """No atomics: the same inputs give the same bits, call after call."""
     from repro_torch.core.quant import group_quantize, pack_int4
@@ -406,6 +406,81 @@ def test_w4a16_two_calls_bit_equal(cuda, M):
                 for _ in range(3):
                     again = w4a16_matmul_cuda(x.to(dt), w_km, w_scale, G)
                     assert torch.equal(first, again), (K, N, G, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [17, 32, 33, 100, 128, 255, 256, 300])
+@pytest.mark.parametrize("K,N", MAIN_KN)
+def test_w4a16_tensor_cores_every_prefill_row_count(cuda, M, K, N):
+    """M > 16 at the main shapes: bf16 x on the tensor-core kernel (f32 x
+    on FFMA), per channel and grouped, within W4A16_RTOL."""
+    from repro_torch.kernels.w4a16_matmul import prefill_plan
+
+    for G in (K, 128):
+        g, Kh = (0, K // 2) if G == K else (G, -(-K // (2 * G)) * G)
+        assert prefill_plan(M, K, N, Kh, g).kernel == "mma"
+        _w4a16_check(cuda, M, K, N, G)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,G", [
+    (33, 896, 6, 896), (64, 192, 24, 64), (100, 130, 50, 130),
+    (17, 77, 130, 77), (255, 96, 40, 32), (64, 512, 130, 64),
+    (300, 192, 24, 32), (40, 192, 96, 48), (64, 904, 896, 904)])
+def test_w4a16_tensor_cores_odd_shapes(cuda, M, K, N, G):
+    """N = 6, 24, 50, 130 (1-byte weight loads), odd K per channel and K/2
+    not a multiple of 8 (2-byte x loads), G = 32, 64 and 48 (16-row
+    k-steps): the tensor-core kernel masks its edges."""
+    _w4a16_check(cuda, M, K, N, G)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [896, 128])
+def test_w4a16_tensor_cores_unaligned_operands(cuda, G):
+    """At M = 64, an x and a weight whose rows are not 16-byte aligned
+    (storage offsets of one element) take the 2-byte and 1-byte loads:
+    within W4A16_RTOL of the plain version, alone and together."""
+    from repro_torch.core.quant import group_quantize, pack_int4
+    from repro_torch.kernels.packing import nmajor_to_kmajor_grouped
+    from repro_torch.kernels.w4a16_matmul import (prefill_plan,
+                                                  w4a16_matmul_cuda,
+                                                  w4a16_matmul_plain)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        assert out.data_ptr() % 16 != 0 and out.is_contiguous()
+        return out
+
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    w_q, w_scale = group_quantize(
+        torch.randn((896, 896), generator=gen, device=cuda), G)
+    w_km = nmajor_to_kmajor_grouped(pack_int4(w_q), w_scale)
+    x = torch.randn((64, 896), generator=gen, device=cuda).to(torch.bfloat16)
+    want = w4a16_matmul_plain(x, w_km, w_scale, G)
+    limit = _chip_smoke().W4A16_RTOL * want.abs().max().item()
+    g = 0 if G == 896 else G
+    for xx, ww, vecs in ((shifted(x), w_km, (2, 16)),
+                         (x, shifted(w_km), (16, 1)),
+                         (shifted(x), shifted(w_km), (2, 1)),
+                         (x, w_km, (16, 16))):
+        plan = prefill_plan(64, 896, 896, w_km.shape[0], g, True,
+                            xx.data_ptr() % 16 == 0, ww.data_ptr() % 16 == 0)
+        assert (plan.kernel, plan.x_vec, plan.w_vec) == ("mma", *vecs)
+        got = w4a16_matmul_cuda(xx, ww, w_scale, G)
+        assert (got - want).abs().max().item() <= limit, vecs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,G", [(64, 192, 96, 24), (33, 120, 50, 40)])
+def test_w4a16_group_not_a_multiple_of_16_takes_ffma(cuda, M, K, N, G):
+    """Grouped with G % 16 != 0: a 16-deep MMA step would cross a group,
+    so bf16 x runs the FFMA kernel, within W4A16_RTOL."""
+    from repro_torch.kernels.w4a16_matmul import prefill_plan
+
+    assert prefill_plan(M, K, N, -(-K // (2 * G)) * G, G).kernel == "ffma"
+    _w4a16_check(cuda, M, K, N, G)
 
 
 @pytest.mark.cuda
