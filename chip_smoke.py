@@ -23,12 +23,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
                  registers, spill and shared memory; two calls bit-equal
                  at M = 8, 64 and 256; both rows reported); the
                  table-lookup GEMM and the unfused W4A4 GEMM bit for bit,
-                 and equal to each other; the elementwise table product
-                 exactly, both strategies.  Times (CUDA events, L2 flushed
+                 and equal to each other, at M = 1, 8, 16, 17, 32, 64,
+                 128 and 256 (the table-lookup kernel's `lut4_plan`
+                 printed per shape, two calls bit-equal at M = 8, 64 and
+                 256, its kernels' ptxas registers and spill, its
+                 method's floor, and a method gate: `cuobjdump -sass`
+                 shows no IDP, IMMA or HMMA in any lut4_ kernel); the
+                 elementwise table product exactly, both strategies.
+                 Times (CUDA events, L2 flushed
                  before each call) for the kernel, the plain version and a
                  PyTorch yardstick, beside the least time the card could
                  take (bytes over 3.35 TB/s or operations over the
-                 int8/bf16 peak, whichever is larger).
+                 int8/bf16 peak, whichever is larger); the integer GEMMs'
+                 yardstick at M <= 16, where torch._int_mm does not run,
+                 is a float32 torch.matmul on the int values (exact while
+                 |acc| < 2^24).
   4. serve    -- full-width qwen2-0.5b (24 layers, random weights from a
                  seed) serves through InferenceEngine on cuda: with
                  W4A4-packed projections, a Poisson trace on the bucketed
@@ -461,19 +470,94 @@ def check_w4a16(torch, timer):
             **paths}
 
 
+#: the rows the table-lookup and unfused W4A4 kernels are checked and timed
+#: at: decode rows, the path boundary (M = 16 / 17), the prefill buckets 32
+#: and 128, the ragged budget and the largest prompt bucket
+LUT4_ROWS = (1, MAX_BATCH, 16, 17, 32, BUDGET, 128, PROMPT_BUCKET)
+#: instructions that would compute a product instead of reading it
+LUT4_FORBIDDEN = ("IDP", "IMMA", "HMMA")
+#: the register lookup's inner loop: 11 instructions for 8 products (two
+#: planes' 2 PRMT + 1 LOP3 for 4 products each, one add, two PRMT and two
+#: adds to widen), at the 32-bit integer rate of compute capability 9.0,
+#: 64 a clock per SM (CUDA C++ Programming Guide, arithmetic instructions)
+LUT4_INSTR_PER_PRODUCT = 11 / 8
+INT_OPS_PER_CLOCK_SM = 64
+SMS = 132
+
+
+def lut4_method_floor_ms(products: float) -> float:
+    """The lookup method's own floor: products x instructions a product
+    over the card's integer instruction rate at its highest SM clock
+    (nvidia-smi clocks.max.sm)."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.split()[0])
+    rate = INT_OPS_PER_CLOCK_SM * SMS * mhz * 1e6
+    return products * LUT4_INSTR_PER_PRODUCT / rate * 1e3
+
+
+def lut4_sass_gate():
+    """The method gate: ``cuobjdump -sass`` of the built table-lookup
+    library; every ``lut4_`` kernel must read its products, so none may hold
+    an IDP (dp4a), IMMA or HMMA instruction.  Returns the kernels checked."""
+    import os
+    import re
+
+    from repro_torch.kernels import _build
+
+    _build.build_all(["lut4_matmul"])
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build.library_path(
+        "lut4_matmul"))], capture_output=True, text=True, timeout=300)
+    if sass.returncode != 0:
+        fail(f"lut4: cuobjdump -sass failed: {sass.stderr[-2000:]}")
+    checked = 0
+    for body in re.split(r"\n\s*Function : ", sass.stdout)[1:]:
+        name = body.split("\n", 1)[0].strip()
+        if "lut4_" not in name:
+            continue
+        checked += 1
+        bad = sorted({op for op in LUT4_FORBIDDEN
+                      if re.search(rf"\b{op}(\.|\s)", body)})
+        if bad:
+            fail(f"lut4: kernel {name} holds {bad}: a product is computed, "
+                 "not read from the table")
+    if not checked:
+        fail("lut4: cuobjdump -sass shows no lut4_ kernel")
+    say(f"lut4: SASS of {checked} lut4_ kernels holds no "
+        f"{'/'.join(LUT4_FORBIDDEN)}: every product is a table read")
+    return checked
+
+
 def check_lut4_int4(torch, timer):
     """The table-lookup kernel and the unfused W4A4 kernel against their
     plain version (exact integer dot) and against each other, bit for bit,
-    at every main-path (K, N) and M.  Yardstick: torch._int_mm on int8
-    operands where M > 16 (its minimum)."""
+    at every main-path (K, N) and every M of LUT4_ROWS (each shape's
+    `lut4_plan` printed), and two calls bit-equal at M = 8, 64 and 256.
+    The ptxas registers and spill of every lut4 kernel, the SASS method
+    gate, and the method's floor (printed only: it is computed, not
+    measured).  Yardsticks:
+    torch._int_mm on int8 operands where M > 16 (its minimum); at M <= 16
+    torch.matmul in float32 on the int values (one call, exact while
+    |acc| < 2^24; TF32 is off)."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels.int4_matmul import (int4_matmul_cuda,
                                                  int4_matmul_plain)
-    from repro_torch.kernels.lut4_matmul import lut4_matmul_cuda
+    from repro_torch.kernels.lut4_matmul import lut4_matmul_cuda, lut4_plan
     from repro_torch.kernels.packing import pack_kmajor
 
+    ptxas = ptxas_report(_build.build_all(["lut4_matmul"])["lut4_matmul"][1],
+                         "lut4_")
+    if not ptxas:
+        fail("lut4: no ptxas report of a lut4_ kernel in the build log")
+    for name, (regs, spill, smem) in sorted(ptxas.items()):
+        say(f"ptxas {name}: {regs} registers, {spill} bytes spill, "
+            f"{smem} bytes smem")
+    n_sass = lut4_sass_gate()
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
     rows = {"lut4": {}, "int4": {}}
-    for M in (1, MAX_BATCH, BUDGET, PROMPT_BUCKET):
+    for M in LUT4_ROWS:
         for (K, N), _ in GEMM_SHAPES:
             a_q = torch.randint(-8, 8, (M, K), generator=gen, device="cuda",
                                 dtype=torch.int8)
@@ -483,6 +567,12 @@ def check_lut4_int4(torch, timer):
             w_km = pack_kmajor(w_q).contiguous()
             w_s = (torch.rand((1, N), generator=gen, device="cuda") * 0.01
                    + 1e-3)
+            p = lut4_plan(M, K, N, w_km.shape[0],
+                          w_km.data_ptr() % 16 == 0)
+            say(f"lut4 plan M={M:4d} K={K:5d} N={N:5d}: "
+                f"{p.bm} x 128 CTA tiles, {p.vec}-byte weight loads, "
+                f"{p.splits} splits of {p.rows} packed rows, {p.ctas} CTAs"
+                + (", then the reduce" if p.splits > 1 else ""))
             want = int4_matmul_plain(a_q, a_s, w_km, w_s)
             got_lut = lut4_matmul_cuda(a_q, a_s, w_km, w_s)
             got_int = int4_matmul_cuda(a_q, a_s, w_km, w_s)
@@ -495,6 +585,10 @@ def check_lut4_int4(torch, timer):
             if not torch.equal(got_lut, got_int):
                 fail(f"lut4_matmul M={M} K={K} N={N}: differs from the "
                      "unfused W4A4 kernel")
+            if M in (MAX_BATCH, BUDGET, PROMPT_BUCKET) and not torch.equal(
+                    got_lut, lut4_matmul_cuda(a_q, a_s, w_km, w_s)):
+                fail(f"lut4_matmul M={M} K={K} N={N}: two calls on the same "
+                     "inputs differ")
             n_bytes = M * K + M * 4 + w_km.numel() + N * 4 + M * N * 4
             n_ops = 2.0 * M * K * N
             b_ms, b_by = bound_ms(n_bytes, n_ops, INT8_OPS_PER_S)
@@ -502,25 +596,48 @@ def check_lut4_int4(torch, timer):
             t_int = timer.ms(lambda: int4_matmul_cuda(a_q, a_s, w_km, w_s))
             tp = timer.ms(lambda: int4_matmul_plain(a_q, a_s, w_km, w_s),
                           reps=5)
-            lib = (timer.ms(lambda: torch._int_mm(a_q, w_q)) if M > 16
-                   else None)
+            if M > 16:
+                lib = timer.ms(lambda: torch._int_mm(a_q, w_q))
+            else:
+                a_f, w_f = a_q.float(), w_q.float()
+                lib = timer.ms(lambda: torch.matmul(a_f, w_f))
             say(f"lut4/int4 M={M:4d} K={K:5d} N={N:5d}: both bit-exact and "
                 f"equal; lut4 {t_lut:.4f} ms, int4 {t_int:.4f} ms, plain "
-                f"{tp:.4f} ms, bound {b_ms:.5f} ms ({b_by}), _int_mm "
-                f"{lib if lib is None else round(lib, 4)}")
+                f"{tp:.4f} ms, bound "
+                f"{b_ms:.5f} ms ({b_by}), "
+                + (f"_int_mm {lib:.4f}" if M > 16 else
+                   f"f32 matmul (exact, |acc| < 2^24) {lib:.4f}"))
+            base = {"plain_ms": tp, "bound_ms": b_ms, "library_ms": lib,
+                    "bytes": n_bytes, "ops": n_ops}
             for name, t in (("lut4", t_lut), ("int4", t_int)):
-                rows[name][(M, K, N)] = {
-                    "ms": t, "plain_ms": tp, "bound_ms": b_ms,
-                    "library_ms": lib, "bytes": n_bytes, "ops": n_ops}
+                rows[name][(M, K, N)] = {"ms": t, **base}
+    say(f"lut4: two calls bit-equal at M={MAX_BATCH}, {BUDGET} and "
+        f"{PROMPT_BUCKET}, every shape")
     out = {}
     for name in ("lut4", "int4"):
         out[name] = {"shape": f"one layer's 7 projections at "
                               f"M={PROMPT_BUCKET} (M={MAX_BATCH} under "
-                              "'at_decode')",
+                              f"'at_decode', M={BUDGET} under 'at_budget'; "
+                              "yardstick _int_mm, at M <= 16 a float32 "
+                              "torch.matmul on the int values)",
                      "max_abs_err": 0.0,
                      **_layer_sum(rows[name], PROMPT_BUCKET, INT8_OPS_PER_S),
                      "at_decode": _layer_sum(rows[name], MAX_BATCH,
+                                             INT8_OPS_PER_S),
+                     "at_budget": _layer_sum(rows[name], BUDGET,
                                              INT8_OPS_PER_S)}
+    floor = {f"m{M}": lut4_method_floor_ms(M * sum(n * K * N for (K, N), n
+                                                    in GEMM_SHAPES))
+             for M in (MAX_BATCH, BUDGET, PROMPT_BUCKET)}
+    out["lut4"]["per_shape_ms"] = {
+        f"M={M} K={K} N={N}": r["ms"]
+        for (M, K, N), r in sorted(rows["lut4"].items())}
+    out["lut4"]["ptxas"] = {
+        name: {"registers": r, "spill_bytes": sp, "smem_bytes": sm}
+        for name, (r, sp, sm) in sorted(ptxas.items())}
+    out["lut4"]["sass_kernels_checked"] = n_sass
+    say("lut4: one layer's method floor, computed, not measured (products "
+        f"x 11/8 instructions over 64 a clock per SM), ms {json.dumps(floor)}")
     return out["lut4"], out["int4"]
 
 
@@ -881,9 +998,10 @@ SERVE_RUNS = {
 RUN_GEMM = {"bucketed": "int4_matmul_fused", "ragged": "int4_matmul_fused",
             "w4a16": "w4a16_matmul", "lut4": "lut4_matmul"}
 #: the device kernels behind each GEMM wrapper, by a prefix of their name
-#: (the W4A16 wrapper's M <= 16 path launches two: split K, then reduce)
+#: (the W4A16 wrapper's M <= 16 path and the lut4 wrapper's split calls
+#: launch two: split K, then reduce)
 GEMM_KERNELS = {"int4_matmul_fused": "w4a4_kernel",
-                "w4a16_matmul": "w4a16_", "lut4_matmul": "lut4_kernel"}
+                "w4a16_matmul": "w4a16_", "lut4_matmul": "lut4_"}
 
 
 def serve_run(torch, params, run: str, trace, prompt_lens):

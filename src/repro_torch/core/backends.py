@@ -73,7 +73,7 @@ def _fake_quant_backend(w, x2, cfg, tag):
 def _lut4_backend(w, x2, cfg, tag):
     """W4A4 through the table-lookup GEMM: the weight is quantized per
     output channel and packed K-major per call, the activations per row,
-    and every product is read from the per-nibble tables.  The lookup-sum
+    and every product is read from the 4x4-bit product table.  The lookup-sum
     is the integer dot, so this equals ``int_sim`` bit for bit."""
     from .qlinear import check_int4
 

@@ -12,17 +12,13 @@ both and the argument is checked and kept for the API's sake.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
 
 import torch
 
 from . import _build
-from .ref import make_product_lut
+from .ref import product_lut_on
 
 STRATEGIES = ("onehot", "take")
-
-_LUT: Dict[torch.device, torch.Tensor] = {}
-
 
 def _check_strategy(strategy: str) -> None:
     if strategy not in STRATEGIES:
@@ -41,13 +37,6 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.lut_mul4_launch.argtypes = [ctypes.c_void_p] * 4 \
         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
     lib.lut_mul4_launch.restype = ctypes.c_int
-
-
-def _lut_on(device: torch.device) -> torch.Tensor:
-    lut = _LUT.get(device)
-    if lut is None:
-        lut = _LUT[device] = make_product_lut().to(device)
-    return lut
 
 
 def lut_mul4_cuda(a_q: torch.Tensor, b_q: torch.Tensor,
@@ -69,7 +58,7 @@ def lut_mul4_cuda(a_q: torch.Tensor, b_q: torch.Tensor,
     n = a.numel()
     if n == 0:
         return out
-    lut = _lut_on(a.device)
+    lut = product_lut_on(a.device)
     n_blocks = min(-(-n // 256), 132 * 16)
     lib = _build.load("lut_mul4", _bind)
     code = lib.lut_mul4_launch(_build.ptr(a), _build.ptr(b), _build.ptr(lut),

@@ -12,14 +12,16 @@ Two storage layouts for int4 tensors (two values per uint8 byte):
 
 Both layouts are byte for byte those of the JAX package, so packed weights
 are the same bytes in both.  The 16x256 per-nibble product tables
-(``nibble_product_tables``) index a planar byte directly; the table-lookup
-GEMM (``csrc/lut4_matmul.cu``) reads its products from them.
+(``nibble_product_tables``) index a planar byte directly: they are the
+Pallas table-lookup kernel's layout, and the source of the 256-byte truth
+table ``ref.make_product_lut``, which the table-lookup GEMM
+(``csrc/lut4_matmul.cu``) reads.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 
@@ -106,22 +108,6 @@ def nibble_product_tables() -> Tuple[torch.Tensor, torch.Tensor]:
     t_lo = s[:, None] * s[byte & 0xF][None, :]
     t_hi = s[:, None] * s[byte >> 4][None, :]
     return t_lo.to(torch.int8), t_hi.to(torch.int8)
-
-
-_LUT4_TABLES: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
-
-
-def lut4_tables(device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
-    """``nibble_product_tables()`` on `device`, copied there once and kept
-    for the life of the process (8 KiB per device)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    hit = _LUT4_TABLES.get(dev)
-    if hit is None:
-        hit = tuple(t.to(dev).contiguous() for t in nibble_product_tables())
-        _LUT4_TABLES[dev] = hit
-    return hit
 
 
 def flatten_to_tiles(x: torch.Tensor, rows_mult: int, cols: int

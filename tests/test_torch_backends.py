@@ -56,13 +56,12 @@ def test_product_tables_equal():
     assert t_lo.dtype == torch.int8 and tuple(t_lo.shape) == (16, 256)
     np.testing.assert_array_equal(t_lo.numpy(), j_lo)
     np.testing.assert_array_equal(t_hi.numpy(), j_hi)
-    d_lo, d_hi = tp.lut4_tables("cpu")
-    assert d_lo is tp.lut4_tables(torch.device("cpu"))[0]     # cached
-    np.testing.assert_array_equal(d_lo.numpy(), j_lo)
-    np.testing.assert_array_equal(d_hi.numpy(), j_hi)
     lut = tref.make_product_lut()
     assert lut.dtype == torch.int8 and tuple(lut.shape) == (256,)
     np.testing.assert_array_equal(lut.numpy(), jref.make_product_lut())
+    on = tref.product_lut_on("cpu")
+    assert on is tref.product_lut_on(torch.device("cpu"))     # cached
+    np.testing.assert_array_equal(on.numpy(), jref.make_product_lut())
 
 
 @pytest.mark.parametrize("shape,rows_mult,cols",

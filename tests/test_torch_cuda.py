@@ -508,6 +508,68 @@ def test_lut4_and_unfused_int4_kernels_exact(cuda, M, K, N):
     assert torch.equal(got_lut, got_int)
 
 
+def _lut4_case(dev, M, K, N, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    a_q = torch.randint(-8, 8, (M, K), generator=gen, device=dev,
+                        dtype=torch.int8)
+    a_s = torch.rand((M, 1), generator=gen, device=dev) + 0.05
+    w_km = pack_kmajor(torch.randint(-8, 8, (K, N), generator=gen,
+                                     device=dev, dtype=torch.int8))
+    w_s = torch.rand((1, N), generator=gen, device=dev) + 0.05
+    return a_q, a_s, w_km, w_s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(16, 896, 896), (17, 896, 896),
+                                   (8, 896, 4864), (256, 896, 4864),
+                                   (1, 4864, 896), (64, 4864, 128),
+                                   (2, 301, 40), (16, 77, 130),
+                                   (17, 511, 34), (300, 1001, 250)])
+def test_lut4_both_paths_and_split_counts(cuda, M, K, N):
+    """Both paths (M <= 16 and M > 16), with one split and with many (plan
+    printed in the assertion), M = 16 / 17 at the path boundary, odd K and
+    N not a multiple of 16: bit-equal to the plain version and to the
+    unfused W4A4 kernel."""
+    from repro_torch.kernels.int4_matmul import (int4_matmul_cuda,
+                                                 int4_matmul_plain)
+    from repro_torch.kernels.lut4_matmul import lut4_matmul_cuda, lut4_plan
+
+    a_q, a_s, w_km, w_s = _lut4_case(cuda, M, K, N, M * K + N)
+    plan = lut4_plan(M, K, N, w_km.shape[0], w_km.data_ptr() % 16 == 0)
+    got = lut4_matmul_cuda(a_q, a_s, w_km, w_s)
+    assert torch.equal(got, int4_matmul_plain(a_q, a_s, w_km, w_s)), plan
+    assert torch.equal(got, int4_matmul_cuda(a_q, a_s, w_km, w_s)), plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [8, 64, 256])
+def test_lut4_two_calls_bit_equal(cuda, M):
+    """No atomics across CTAs and integer sums: the same bits call after
+    call, at every main-path shape."""
+    from repro_torch.kernels.lut4_matmul import lut4_matmul_cuda
+
+    for K, N in MAIN_KN:
+        a_q, a_s, w_km, w_s = _lut4_case(cuda, M, K, N, M + N)
+        first = lut4_matmul_cuda(a_q, a_s, w_km, w_s)
+        assert torch.equal(first, lut4_matmul_cuda(a_q, a_s, w_km, w_s))
+
+
+@pytest.mark.cuda
+def test_lut4_unaligned_weight_takes_byte_loads(cuda):
+    """A weight view that starts off a 16-byte boundary (N % 16 == 0) runs
+    the 1-byte loads, still bit-exact."""
+    from repro_torch.kernels.int4_matmul import int4_matmul_plain
+    from repro_torch.kernels.lut4_matmul import lut4_matmul_cuda, lut4_plan
+
+    a_q, a_s, w_km, w_s = _lut4_case(cuda, 8, 896, 896, 5)
+    buf = torch.empty(w_km.numel() + 1, dtype=torch.uint8, device=cuda)
+    ww = buf[1:].view(w_km.shape)
+    ww.copy_(w_km)
+    assert lut4_plan(8, 896, 896, 448, ww.data_ptr() % 16 == 0).vec == 1
+    assert torch.equal(lut4_matmul_cuda(a_q, a_s, ww, w_s),
+                       int4_matmul_plain(a_q, a_s, w_km, w_s))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("strategy", ["onehot", "take"])
 def test_lut_mul4_kernel_exact(cuda, strategy):
