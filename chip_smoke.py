@@ -12,7 +12,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
                  inputs at the serving paths' shapes: the W4A4 GEMM bit for
                  bit (M = 1, 8, 64 and 256 rows), the attention kernels
                  within atol 2e-2 (bf16) on bf16, int8 and int4 pools with
-                 padding rows exactly 0, and a decode-only pack through the
+                 padding rows exactly 0 (flash prefill at the prompt
+                 buckets 32, 128 and 256, a prefix-hit tail and qwen3-4b's
+                 hd 128, each with and without a window, two calls
+                 bit-equal, each shape's plan printed, its ptxas report,
+                 and a method gate: `cuobjdump -sass` shows HMMA in every
+                 flash kernel), and a decode-only pack through the
                  ragged kernel bit for bit equal to the paged decode
                  kernel; the W4A16 GEMM per channel and grouped (G = 128),
                  on bf16 and f32 activations, within W4A16_RTOL (M <= 16
@@ -497,37 +502,46 @@ def lut4_method_floor_ms(products: float) -> float:
     return products * LUT4_INSTR_PER_PRODUCT / rate * 1e3
 
 
-def lut4_sass_gate():
-    """The method gate: ``cuobjdump -sass`` of the built table-lookup
-    library; every ``lut4_`` kernel must read its products, so none may hold
-    an IDP (dp4a), IMMA or HMMA instruction.  Returns the kernels checked."""
+def sass_functions(library: str, entry: str):
+    """{kernel name: SASS} of every function of a built library whose name
+    holds `entry`, from ``cuobjdump -sass``; fails if there is none."""
     import os
     import re
 
     from repro_torch.kernels import _build
 
-    _build.build_all(["lut4_matmul"])
+    _build.build_all([library])
     tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(_build.library_path(
-        "lut4_matmul"))], capture_output=True, text=True, timeout=300)
+    sass = subprocess.run([tool, "-sass", str(_build.library_path(library))],
+                          capture_output=True, text=True, timeout=300)
     if sass.returncode != 0:
-        fail(f"lut4: cuobjdump -sass failed: {sass.stderr[-2000:]}")
-    checked = 0
+        fail(f"{library}: cuobjdump -sass failed: {sass.stderr[-2000:]}")
+    out = {}
     for body in re.split(r"\n\s*Function : ", sass.stdout)[1:]:
         name = body.split("\n", 1)[0].strip()
-        if "lut4_" not in name:
-            continue
-        checked += 1
+        if entry in name:
+            out[name] = body
+    if not out:
+        fail(f"{library}: cuobjdump -sass shows no {entry} kernel")
+    return out
+
+
+def lut4_sass_gate():
+    """The method gate: ``cuobjdump -sass`` of the built table-lookup
+    library; every ``lut4_`` kernel must read its products, so none may hold
+    an IDP (dp4a), IMMA or HMMA instruction.  Returns the kernels checked."""
+    import re
+
+    kernels = sass_functions("lut4_matmul", "lut4_")
+    for name, body in kernels.items():
         bad = sorted({op for op in LUT4_FORBIDDEN
                       if re.search(rf"\b{op}(\.|\s)", body)})
         if bad:
             fail(f"lut4: kernel {name} holds {bad}: a product is computed, "
                  "not read from the table")
-    if not checked:
-        fail("lut4: cuobjdump -sass shows no lut4_ kernel")
-    say(f"lut4: SASS of {checked} lut4_ kernels holds no "
+    say(f"lut4: SASS of {len(kernels)} lut4_ kernels holds no "
         f"{'/'.join(LUT4_FORBIDDEN)}: every product is a table read")
-    return checked
+    return len(kernels)
 
 
 def check_lut4_int4(torch, timer):
@@ -887,58 +901,118 @@ def check_ragged(torch, timer):
             "pools": {dt: res[dt] for dt in ("bfloat16", "int4")}}
 
 
+#: flash prefill's timed shapes: (Sq, Skv, real queries, prefix hit, heads,
+#: KV heads, head dim).  The fresh prefills are the Poisson trace's prompt
+#: buckets (32, 128, 256 holding 32, 96 and 200 real tokens, left-padded);
+#: the tail is 64 suffix queries over a gathered 512-slot cache after a
+#: 160-token prefix hit; hd128 is qwen3-4b's attention (32 heads over 8 KV
+#: heads) on the 256 bucket
+FLASH_CASES = {"fresh32": (32, 32, 32, 0, H, KV, HD),
+               "fresh128": (128, 128, 96, 0, H, KV, HD),
+               "fresh256": (PROMPT_BUCKET, PROMPT_BUCKET, 200, 0, H, KV, HD),
+               "tail": (64, 512, 50, 160, H, KV, HD),
+               "hd128": (PROMPT_BUCKET, PROMPT_BUCKET, 200, 0, 32, 8, 128)}
+#: the window every shape is also checked at
+FLASH_WINDOW = 48
+
+
+def flash_sass_gate():
+    """The method gate: every ``flash_prefill_kernel`` instantiation's SASS
+    must hold HMMA (QK and PV on the tensor cores).  Returns the kernels
+    checked."""
+    import re
+
+    kernels = sass_functions("flash_prefill", "flash_prefill_kernel")
+    for name, body in sorted(kernels.items()):
+        n = len(re.findall(r"\bHMMA\.", body))
+        if not n:
+            fail(f"flash: kernel {name} holds no HMMA: QK and PV are not on "
+                 "the tensor cores")
+        say(f"flash: SASS of {name} holds {n} HMMA")
+    return len(kernels)
+
+
+def _flash_inputs(torch, gen, Sq, Skv, n_real, hit, nh, nkv, hd):
+    """Seeded q/k/v and positions of one FLASH_CASES shape (B = 1): the
+    queries are the last n_real of Sq (left padding -1) at positions
+    hit, hit + 1, ...; the keys are the cache's slots, live up to the last
+    query's position."""
+    q = torch.randn((1, Sq, nh, hd), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    k = torch.randn((1, Skv, nkv, hd), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    v = torch.randn((1, Skv, nkv, hd), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    base = torch.arange(Sq, device="cuda") - (Sq - n_real)
+    qpos = torch.where(base >= 0, base + hit, -1).to(torch.int32)[None]
+    if Skv == Sq and not hit:
+        kpos = qpos
+    else:
+        j = torch.arange(Skv, device="cuda")
+        kpos = torch.where(j <= hit + n_real - 1, j, -1).to(
+            torch.int32)[None]
+    return q, k, v, qpos, kpos
+
+
 def check_flash(torch, timer):
-    from repro_torch.kernels.paged_attention import (
-        flash_prefill_cuda, flash_prefill_plain)
+    """Flash prefill against its plain version at every FLASH_CASES shape,
+    with and without a window: within ATTN_ATOL, padding rows exactly zero,
+    two calls bit-equal.  Prints each shape's `flash_plan`, the ptxas
+    registers, spill and static shared memory of each instantiation, and
+    runs the SASS gate (HMMA in every flash kernel).  Times the kernel, the
+    plain version and SDPA (GQA expanded) at every shape.  The result's
+    top level is fresh256, the main path's largest prefill; `shapes` holds
+    every shape's row."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels.autotune import attn_default_blocks
+    from repro_torch.kernels.paged_attention import (
+        flash_plan, flash_prefill_cuda, flash_prefill_plain)
+
+    ptxas = ptxas_report(
+        _build.build_all(["flash_prefill"])["flash_prefill"][1],
+        "flash_prefill_kernel")
+    if not ptxas:
+        fail("flash: no ptxas report of flash_prefill_kernel in the build log")
+    for name, (regs, spill, smem) in sorted(ptxas.items()):
+        say(f"flash ptxas {name}: {regs} registers, {spill} bytes spill, "
+            f"{smem} bytes static smem")
+    n_sass = flash_sass_gate()
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    hd = HD
-    G = H // KV
     out = {}
-    # fresh prefill: a 200-token prompt left-padded to the 256 bucket; tail
-    # prefill: 64 suffix queries over a gathered 512-slot cache
-    for case, Sq, Skv, n_real, hit in (("fresh", PROMPT_BUCKET, PROMPT_BUCKET,
-                                        200, 0),
-                                       ("tail", 64, 512, 50, 160)):
-        q = torch.randn((1, Sq, H, hd), generator=gen, device="cuda").to(
-            torch.bfloat16)
-        k = torch.randn((1, Skv, KV, hd), generator=gen, device="cuda").to(
-            torch.bfloat16)
-        v = torch.randn((1, Skv, KV, hd), generator=gen, device="cuda").to(
-            torch.bfloat16)
-        base = torch.arange(Sq, device="cuda") - (Sq - n_real)
-        qpos = torch.where(base >= 0, base + hit, -1).to(torch.int32)[None]
-        if case == "fresh":
-            kpos = qpos
-        else:
-            j = torch.arange(Skv, device="cuda")
-            kpos = torch.where(j <= hit + n_real - 1, j, -1).to(
-                torch.int32)[None]
-        bk = attn_default_blocks("attn.prefill", Sq, Skv, H * hd)["bk"]
-        got = flash_prefill_cuda(q, k, v, qpos, kpos)
-        want = flash_prefill_plain(q, k, v, qpos, kpos, bk=bk)
-        err = (got.float() - want.float()).abs().max().item()
-        pad_rows = (qpos[0] < 0)
-        if err > ATTN_ATOL or not torch.all(got[0, pad_rows] == 0):
-            fail(f"flash_prefill ({case}): max |diff| {err} > {ATTN_ATOL} or "
-                 "a padding row is not zero")
-        got_w = flash_prefill_cuda(q, k, v, qpos, kpos, window=48)
-        want_w = flash_prefill_plain(q, k, v, qpos, kpos, window=48, bk=bk)
-        err_w = (got_w.float() - want_w.float()).abs().max().item()
-        if err_w > ATTN_ATOL:
-            fail(f"flash_prefill ({case}) window=48: max |diff| {err_w}")
+    for case, (Sq, Skv, n_real, hit, nh, nkv, hd) in FLASH_CASES.items():
+        q, k, v, qpos, kpos = _flash_inputs(torch, gen, Sq, Skv, n_real, hit,
+                                            nh, nkv, hd)
+        G = nh // nkv
+        plan = flash_plan(1, Sq, Skv, nh, nkv, hd)
+        say(f"flash plan {case}: {plan}")
+        bk = attn_default_blocks("attn.prefill", Sq, Skv, nh * hd)["bk"]
+        pad_rows = qpos[0] < 0
+        errs = []
+        for window in (0, FLASH_WINDOW):
+            got = flash_prefill_cuda(q, k, v, qpos, kpos, window=window)
+            again = flash_prefill_cuda(q, k, v, qpos, kpos, window=window)
+            want = flash_prefill_plain(q, k, v, qpos, kpos, window=window,
+                                       bk=bk)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            if err > ATTN_ATOL or not torch.all(got[0, pad_rows] == 0):
+                fail(f"flash_prefill ({case}, window {window}): max |diff| "
+                     f"{err} > {ATTN_ATOL} or a padding row is not zero")
+            if not torch.equal(got, again):
+                fail(f"flash_prefill ({case}, window {window}): two calls "
+                     "differ")
+            errs.append(err)
         qp, kp = qpos[0].long(), kpos[0].long()
-        pairs = int(((qp[:, None] >= kp[None, :]) & (kp[None, :] >= 0)
-                     & (qp[:, None] >= 0)).sum().item())
+        allowed = ((qp[:, None] >= kp[None, :]) & (kp[None, :] >= 0))
+        pairs = int((allowed & (qp[:, None] >= 0)).sum().item())
         n_bytes = (q.numel() * 2 * 2 + k.numel() * 2 * 2 + (Sq + Skv) * 4)
-        n_ops = 4.0 * H * hd * pairs
+        n_ops = 4.0 * nh * hd * pairs
         b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
         t = timer.ms(lambda: flash_prefill_cuda(q, k, v, qpos, kpos))
         tp = timer.ms(lambda: flash_prefill_plain(q, k, v, qpos, kpos, bk=bk),
                       reps=5)
         F = torch.nn.functional
-        allowed = ((qp[:, None] >= kp[None, :]) & (kp[None, :] >= 0))
         # padding queries see no key; give them one so SDPA stays finite
         allowed[:, 0] |= ~allowed.any(dim=1)
         mask = allowed[None, None]
@@ -947,15 +1021,21 @@ def check_flash(torch, timer):
         vt = v.repeat_interleave(G, dim=2).transpose(1, 2)
         lib = timer.ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask))
-        say(f"flash prefill {case} Sq={Sq} Skv={Skv} H={H} KV={KV} hd={hd}: "
-            f"max |diff| {err:.3g} (window {err_w:.3g}); kernel {t:.4f} ms, "
-            f"plain {tp:.4f} ms, bound {b_ms:.5f} ms ({b_by}), SDPA "
-            f"{lib:.4f} ms")
-        out[case] = {"shape": f"{case}: B=1, Sq={Sq}, Skv={Skv}, H={H}, "
-                              f"KV={KV}, hd={hd}, {n_real} real queries",
-                     "max_abs_err": max(err, err_w), "ms": t, "plain_ms": tp,
-                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
-    return out["fresh"]
+        say(f"flash prefill {case} Sq={Sq} Skv={Skv} H={nh} KV={nkv} "
+            f"hd={hd}: max |diff| {errs[0]:.3g} (window {errs[1]:.3g}); "
+            f"kernel {t:.4f} ms, plain {tp:.4f} ms, bound {b_ms:.5f} ms "
+            f"({b_by}), SDPA {lib:.4f} ms, {plan.ctas} CTAs of "
+            f"{plan.warps} warps")
+        out[case] = {"shape": f"{case}: B=1, Sq={Sq}, Skv={Skv}, H={nh}, "
+                              f"KV={nkv}, hd={hd}, {n_real} real queries",
+                     "max_abs_err": max(errs), "ms": t, "plain_ms": tp,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+                     "ctas": plan.ctas, "warps": plan.warps}
+    top = out["fresh256"]
+    return {"max_abs_err": max(r["max_abs_err"] for r in out.values()),
+            **{key: top[key] for key in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")},
+            "sass_kernels_checked": n_sass, "shapes": out}
 
 
 # ------------------------------------------------------------ phase 4 ----

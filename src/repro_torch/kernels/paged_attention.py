@@ -24,7 +24,10 @@ Ports ``repro/kernels/paged_attention.py``:
 ``flash_prefill``
     Tiled causal GQA attention over the in-flight prompt, masks from the
     explicit position vectors (-1 = padding), online softmax in f32.  The
-    plain version copies ``flash_prefill_xla`` with its kv tile.
+    plain version copies ``flash_prefill_xla`` with its kv tile.  The
+    kernel runs QK and PV on bf16 tensor cores over the (query, head) rows
+    of one KV head, several warps a 16-row tile each taking a slice of
+    every K/V tile, cut into CTAs by ``flash_plan``.
 
 With bf16 activations the QK scores are rounded to bf16 before the scale,
 as the dense path's bf16 einsum rounds them.  ``kernels.ops`` picks the
@@ -34,6 +37,8 @@ plain version for CPU tensors and the kernel for CUDA tensors.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
 
 import torch
@@ -276,16 +281,98 @@ def flash_prefill_plain(q, k, v, q_positions, k_positions, window: int = 0,
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
 
 
+#: the CTAs a launch aims at: one per SM of an H100 (132 SMs)
+FLASH_TARGET_CTAS = 132
+#: (query, head) rows a CTA may take, 16 a row tile, largest first
+FLASH_ROWS = (128, 64, 32, 16)
+#: warps sharing a row tile, each taking FLASH_BK / key_split keys of a
+#: K/V tile (csrc/flash_prefill.cu instantiates these)
+FLASH_KEY_SPLITS = (1, 2, 4)
+#: warps a CTA may hold (csrc/flash_prefill.cu MAX_WARPS)
+FLASH_MAX_WARPS = 8
+#: keys per K/V tile and tiles in the shared-memory ring
+#: (csrc/flash_prefill.cu BK, STAGES)
+FLASH_BK = 64
+FLASH_STAGES = 2
+#: the head dims the kernel is instantiated for
+FLASH_HEAD_DIMS = (64, 128)
+#: dynamic shared memory a block may use on an H100
+MAX_SMEM_BYTES = 232_448
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashPlan:
+    """How one flash prefill launch is cut: grid (row tiles, KV, B), each
+    CTA taking `rows` consecutive (query, head) rows of one KV head, each
+    16-row tile shared by `key_split` warps that take 64 / key_split keys
+    of every K/V tile apiece."""
+    rows: int       # (query, head) rows per CTA: 16 a row tile
+    key_split: int  # warps a row tile
+    keys: int       # keys per K/V tile
+    warps: int      # rows / 16 * key_split
+    grid: tuple     # (ceil(G * Sq / rows), KV, B)
+    ctas: int
+    kv_tiles: int   # K/V tiles over Skv (a CTA walks those it can see)
+    smem: int       # dynamic shared-memory bytes a CTA
+
+
+def flash_smem(hd: int, rows: int, warps: int) -> int:
+    """A CTA's dynamic shared memory (csrc/flash_prefill.cu Smem::bytes):
+    the FLASH_STAGES-deep K and V rings of FLASH_BK rows of hd + 8 bf16,
+    their positions and the CTA's Q tile; or, if larger, the merge's
+    partials (16 rows of hd + 8 f32, a row max and a row sum, a warp)."""
+    ld = hd + 8
+    tiles = FLASH_STAGES * (2 * FLASH_BK * ld * 2 + FLASH_BK * 4) \
+        + rows * ld * 2
+    return max(tiles, warps * 16 * (ld * 4 + 8))
+
+
+@functools.lru_cache(maxsize=None)
+def flash_plan(B: int, Sq: int, Skv: int, H: int, KV: int,
+               hd: int) -> FlashPlan:
+    """The plan for q [B, Sq, H, hd] over k/v [B, Skv, KV, hd], from shape
+    alone.  Each KV head has G * Sq rows (G = H / KV), query-major; a CTA
+    takes the largest row tile of FLASH_ROWS whose grid still holds
+    FLASH_TARGET_CTAS CTAs (larger tiles share each staged K/V tile among
+    more rows), else the smallest, 16 rows (the most CTAs, since the kernel
+    is bound by each warp's latency, not by the card's rates).  Each 16-row
+    tile is shared by key_split warps, each taking hd / 4 keys of every K/V
+    tile: 16 at hd 64, 32 at hd 128 (more warps a tile shorten each warp's
+    chain of MMAs and exponentials; an hd 128 warp holds twice the
+    accumulators, 170 to 220 registers, so half as many fit an SM, and four
+    a tile would run qwen3-4b's 256-token grid in two waves); the split is
+    halved until the CTA holds at most FLASH_MAX_WARPS warps."""
+    if B < 1 or Sq < 1 or KV < 1 or H % KV or hd not in FLASH_HEAD_DIMS:
+        raise ValueError(f"flash_plan: B = {B}, Sq = {Sq}, H = {H}, "
+                         f"KV = {KV}, hd = {hd}")
+    R = H // KV * Sq
+    rows = FLASH_ROWS[-1]
+    for r in FLASH_ROWS:
+        if -(-R // r) * KV * B >= FLASH_TARGET_CTAS:
+            rows = r
+            break
+    key_split = FLASH_BK // (hd // 4)
+    while rows // 16 * key_split > FLASH_MAX_WARPS:
+        key_split //= 2
+    warps = rows // 16 * key_split
+    grid = (-(-R // rows), KV, B)
+    return FlashPlan(rows, key_split, FLASH_BK, warps, grid,
+                     grid[0] * KV * B, -(-Skv // FLASH_BK),
+                     flash_smem(hd, rows, warps))
+
+
 def _bind_flash(lib: ctypes.CDLL) -> None:
     lib.flash_prefill_launch.argtypes = [ctypes.c_void_p] * 6 \
-        + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+        + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                ctypes.c_void_p]
     lib.flash_prefill_launch.restype = ctypes.c_int
 
 
 def flash_prefill_cuda(q, k, v, q_positions, k_positions,
                        window: int = 0) -> torch.Tensor:
     """Launch the flash prefill kernel: q [B, Sq, H, hd] bf16, k/v
-    [B, Skv, KV, hd] bf16, positions [B, S] int32 (-1 = padding)."""
+    [B, Skv, KV, hd] bf16 (hd 64 or 128, 16-byte aligned), positions
+    [B, S] int32 (-1 = padding); cut by `flash_plan`."""
     bf, i32 = torch.bfloat16, torch.int32
     _check_cuda("flash_prefill_cuda", (q, k, v, q_positions, k_positions),
                 (bf, bf, bf, i32, i32))
@@ -297,17 +384,25 @@ def flash_prefill_cuda(q, k, v, q_positions, k_positions,
             f"flash_prefill_cuda: q {tuple(q.shape)}, k {tuple(k.shape)}, "
             f"positions {tuple(q_positions.shape)} / "
             f"{tuple(k_positions.shape)}")
-    if hd != 64 or H // KV > 128:
-        raise ValueError(f"flash_prefill_cuda: head dim {hd} with "
-                         f"{H // KV} query heads per KV head is not supported")
+    if hd not in FLASH_HEAD_DIMS or KV > 65535 or B > 65535 or any(
+            t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(
+            f"flash_prefill_cuda: head dim {hd}, KV = {KV}, B = {B}: the "
+            f"kernel is latency-bound and built for head dims "
+            f"{FLASH_HEAD_DIMS} only (its QK and PV fragments, bf16 "
+            "mma.sync, live in registers sized by the head dim), reads "
+            "q/k/v by 16-byte cp.async (so 16-byte aligned), and puts KV "
+            "and B on the grid's y and z (<= 65535)")
     out = torch.empty_like(q)
     if B == 0 or Sq == 0:
         return out
+    plan = flash_plan(B, Sq, Skv, H, KV, hd)
     lib = _build.load("flash_prefill", _bind_flash)
     code = lib.flash_prefill_launch(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(q_positions),
         _build.ptr(k_positions), _build.ptr(out), B, Sq, Skv, H, KV, hd,
-        int(window), 1.0 / math.sqrt(hd), _build.stream_of(q))
+        int(window), 1.0 / math.sqrt(hd), plan.warps, plan.key_split,
+        _build.stream_of(q))
     _build.check(lib, code, "flash_prefill")
     flash_prefill_cuda.launches += 1
     return out

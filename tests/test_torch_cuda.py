@@ -15,7 +15,9 @@ same bits call after call; the attention kernels run a
 single-pass online softmax against the plain versions' blocked sums and
 are held to atol 2e-2 in bf16, the bound the JAX package holds its Pallas
 kernels to, on bf16,
-int8 and int4 pools alike (both dequantize as bf16(q * scale)).  The ragged
+int8 and int4 pools alike (both dequantize as bf16(q * scale)); flash
+prefill, whose sums have no atomics, also gives the same bits call after
+call, at every group size, head dim and tail shape of FLASH_SHAPES.  The ragged
 kernel shares the paged decode kernel's body, so a decode-only pack must
 give the paged decode kernel's output bit for bit.
 """
@@ -195,6 +197,67 @@ def test_flash_kernel_matches_plain(cuda, window):
     want = flash_prefill_plain(q, k, v, pos, pos, window=window)
     assert (got.float() - want.float()).abs().max().item() <= ATOL
     assert not got[1, :6].float().any()                  # left padding
+
+
+def _flash_positions(B, Sq, Skv, pads, hit):
+    """Query positions (row b left-padded by pads[b], its first real query
+    at `hit`) and key positions: the same vector for a fresh prefill
+    (Skv == Sq, no hit), else cache slots live up to the row's last query."""
+    base = np.arange(Sq, dtype=np.int32)[None] \
+        - np.asarray(pads, np.int32)[:, None]
+    qpos = np.where(base >= 0, base + hit, -1).astype(np.int32)
+    if Skv == Sq and not hit:
+        return qpos, qpos
+    j = np.arange(Skv, dtype=np.int32)[None]
+    last = hit + Sq - np.asarray(pads, np.int32)[:, None] - 1
+    return qpos, np.where(j <= last, j, -1).astype(np.int32)
+
+
+#: (B, Sq, Skv, H, KV, hd, left paddings, prefix hit, window): G = 1, 2, 7
+#: and 8, hd 64 and 128, one query, 17 and 70 queries over a longer cache
+#: (a prefix hit), the 256 bucket fresh and over a 512-slot cache, rows of a
+#: batch padded differently
+FLASH_SHAPES = {
+    "g1": (2, 70, 70, 4, 4, 64, (0, 6), 0, 0),
+    "g2_window": (2, 70, 70, 4, 2, 64, (0, 6), 0, 24),
+    "g7_hd128": (2, 70, 70, 14, 2, 128, (3, 11), 0, 0),
+    "g8_window": (2, 70, 70, 16, 2, 64, (0, 9), 0, 24),
+    "sq1_tail": (2, 1, 96, 14, 2, 64, (0, 0), 40, 0),
+    "sq17_tail": (2, 17, 100, 14, 2, 64, (0, 5), 30, 0),
+    "sq70_tail_hd128_window": (2, 70, 200, 14, 2, 128, (2, 8), 64, 24),
+    "sq256": (1, 256, 256, 14, 2, 64, (56,), 0, 0),
+    "sq256_tail": (2, 256, 512, 14, 2, 64, (0, 40), 100, 0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(FLASH_SHAPES))
+def test_flash_kernel_shapes(cuda, shape):
+    """The tensor-core kernel against its plain version over the plan's row
+    and K/V tiles: within ATOL, padding rows exactly zero, two calls
+    bit-equal (no atomics in the sums)."""
+    B, Sq, Skv, H, KV, hd, pads, hit, window = FLASH_SHAPES[shape]
+    q = _bf(RNG.standard_normal((B, Sq, H, hd)).astype(np.float32), cuda)
+    k = _bf(RNG.standard_normal((B, Skv, KV, hd)).astype(np.float32), cuda)
+    v = _bf(RNG.standard_normal((B, Skv, KV, hd)).astype(np.float32), cuda)
+    qpos, kpos = (torch.from_numpy(p).to(cuda)
+                  for p in _flash_positions(B, Sq, Skv, pads, hit))
+    got = flash_prefill_cuda(q, k, v, qpos, kpos, window=window)
+    again = flash_prefill_cuda(q, k, v, qpos, kpos, window=window)
+    want = flash_prefill_plain(q, k, v, qpos, kpos, window=window)
+    assert (got.float() - want.float()).abs().max().item() <= ATOL
+    assert torch.equal(got, again)
+    for b, pad in enumerate(pads):
+        assert not got[b, :pad].float().any()            # left padding
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_unbuilt_head_dim(cuda):
+    q = torch.zeros((1, 8, 4, 32), dtype=torch.bfloat16, device=cuda)
+    k = torch.zeros((1, 8, 2, 32), dtype=torch.bfloat16, device=cuda)
+    pos = torch.arange(8, dtype=torch.int32, device=cuda)[None]
+    with pytest.raises(ValueError):
+        flash_prefill_cuda(q, k, k, pos, pos)
 
 
 @pytest.mark.cuda
