@@ -9,8 +9,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
   2. build    -- compiles every CUDA kernel under src/repro_torch/csrc, one
                  nvcc per source, all started together.
   3. kernels  -- each kernel against its plain PyTorch version on the same
-                 inputs at the serving paths' shapes: the W4A4 GEMM bit for
-                 bit (M = 1, 8, 64 and 256 rows), the attention kernels
+                 inputs at the serving paths' shapes: the fused W4A4 GEMM
+                 bit for bit at M = 1, 8, 16, 17, 32, 64, 128 and 256 rows
+                 (each shape's `w4a4_plan` printed, two calls bit-equal at
+                 M = 8, 64 and 256, its kernels' ptxas registers and spill,
+                 and a method gate: `cuobjdump -sass` shows IMMA in every
+                 w4a4_ kernel), the attention kernels
                  within atol 2e-2 (bf16) on bf16, int8 and int4 pools with
                  padding rows exactly 0 (flash prefill at the prompt
                  buckets 32, 128 and 256, a prefix-hit tail and qwen3-4b's
@@ -30,8 +34,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
                  table-lookup GEMM and the unfused W4A4 GEMM bit for bit,
                  and equal to each other, at M = 1, 8, 16, 17, 32, 64,
                  128 and 256 (the table-lookup kernel's `lut4_plan`
-                 printed per shape, two calls bit-equal at M = 8, 64 and
-                 256, its kernels' ptxas registers and spill, its
+                 printed per shape, both two calls bit-equal at M = 8, 64
+                 and 256, its kernels' ptxas registers and spill, its
                  method's floor, and a method gate: `cuobjdump -sass`
                  shows no IDP, IMMA or HMMA in any lut4_ kernel); the
                  elementwise table product exactly, both strategies.
@@ -240,21 +244,54 @@ def _gemm_inputs(torch, gen, M, K, N):
     return x, w_q, pack_kmajor(w_q).contiguous(), w_scale
 
 
-def check_gemm(torch, timer):
-    from repro_torch.kernels.int4_matmul import (
-        int4_matmul_fused_cuda, int4_matmul_fused_plain)
+def _int_yardstick_ms(torch, timer, a_q, w_q):
+    """One PyTorch call computing the integer GEMM of int8 a_q [M, K] and
+    w_q [K, N]: torch._int_mm where M > 16 (its minimum), else
+    torch.matmul in float32 on the int values (exact while |acc| < 2^24;
+    TF32 is off)."""
+    if a_q.shape[0] > 16:
+        return timer.ms(lambda: torch._int_mm(a_q, w_q))
+    a_f, w_f = a_q.float(), w_q.float()
+    return timer.ms(lambda: torch.matmul(a_f, w_f))
 
+
+#: the rows both W4A4 entries are checked at: decode rows, the 16 / 17 tile
+#: boundary, the prefill buckets 32 and 128, the ragged budget and the
+#: largest prompt bucket (the same as the table-lookup kernel's)
+GEMM_ROWS = (1, MAX_BATCH, 16, 17, 32, BUDGET, 128, PROMPT_BUCKET)
+
+
+def check_gemm(torch, timer):
+    """The fused W4A4 kernel against its plain version, bit for bit, at
+    every main-path (K, N) and every M of GEMM_ROWS (each shape's
+    `w4a4_plan` printed), two calls bit-equal at M = 8, 64 and 256; the
+    ptxas registers and spill of every w4a4_ kernel and the SASS gate (IMMA
+    in each).  Yardsticks: torch._int_mm on int8 operands where M > 16 (its
+    minimum); at M <= 16 torch.matmul in float32 on the int values (one
+    call, exact while |acc| < 2^24; TF32 is off).  The result's top level
+    is one layer at M = 256; `at_budget` and `at_decode` hold M = 64 and
+    M = 8, `per_shape_ms` every timed shape."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.int4_matmul import (
+        int4_matmul_fused_cuda, int4_matmul_fused_plain, w4a4_plan)
+
+    ptxas = ptxas_report(_build.build_all(["int4_matmul"])["int4_matmul"][1],
+                         "w4a4_")
+    if not ptxas:
+        fail("w4a4: no ptxas report of a w4a4_ kernel in the build log")
+    for name, (regs, spill, smem) in sorted(ptxas.items()):
+        say(f"ptxas {name}: {regs} registers, {spill} bytes spill")
+    n_sass = w4a4_sass_gate()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-             "bytes": 0.0, "ops": 0.0}
-    at_budget = {"shape": f"one layer's 7 projections at M={BUDGET} (the "
-                          "ragged step's rows)",
-                 "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                 "library_ms": 0.0}
+    rows = {}
     worst = 0.0
-    for M in (1, MAX_BATCH, BUDGET, PROMPT_BUCKET):
+    for M in GEMM_ROWS:
         for (K, N), per_layer in GEMM_SHAPES:
             x, w_q, w_km, w_scale = _gemm_inputs(torch, gen, M, K, N)
+            p = w4a4_plan(M, K, N, w_km.shape[0], w_km.data_ptr() % 16 == 0)
+            say(f"w4a4 plan M={M:4d} K={K:5d} N={N:5d}: {p.bm} x {p.bn} CTA "
+                f"tiles, {p.vec}-byte weight loads, {p.splits} splits of "
+                f"{p.rows} packed rows (one cluster a tile), {p.ctas} CTAs")
             got = int4_matmul_fused_cuda(x, w_km, w_scale)
             want = int4_matmul_fused_plain(x, w_km, w_scale)
             err = (got - want).abs().max().item()
@@ -262,38 +299,43 @@ def check_gemm(torch, timer):
             if not torch.equal(got, want):
                 fail(f"int4_matmul_fused M={M} K={K} N={N}: kernel differs "
                      f"from the plain version (max |diff| {err})")
+            if M in (MAX_BATCH, BUDGET, PROMPT_BUCKET) and not torch.equal(
+                    got, int4_matmul_fused_cuda(x, w_km, w_scale)):
+                fail(f"int4_matmul_fused M={M} K={K} N={N}: two calls on the "
+                     "same inputs differ")
             n_bytes = M * K * 4 + w_km.numel() + N * 4 + M * N * 4
             n_ops = 2.0 * M * K * N
             b_ms, b_by = bound_ms(n_bytes, n_ops, INT8_OPS_PER_S)
             t = timer.ms(lambda: int4_matmul_fused_cuda(x, w_km, w_scale))
             tp = timer.ms(lambda: int4_matmul_fused_plain(x, w_km, w_scale),
                           reps=5)
-            lib = None
-            if M > 16:
-                a8 = torch.clamp(torch.round(x * 7.0 / x.abs().amax()), -8,
-                                 7).to(torch.int8)
-                lib = timer.ms(lambda: torch._int_mm(a8, w_q))
+            a8 = torch.clamp(torch.round(x * 7.0 / x.abs().amax()), -8,
+                             7).to(torch.int8)
+            lib = _int_yardstick_ms(torch, timer, a8, w_q)
             say(f"gemm M={M:4d} K={K:5d} N={N:5d}: bit-exact; kernel "
                 f"{t:.4f} ms, plain {tp:.4f} ms, bound {b_ms:.5f} ms "
-                f"({b_by}), _int_mm {lib if lib is None else round(lib, 4)}")
-            if M == BUDGET:
-                for key, val in (("ms", t), ("plain_ms", tp),
-                                 ("bound_ms", b_ms), ("library_ms", lib)):
-                    at_budget[key] += per_layer * val
-            if M == PROMPT_BUCKET:
-                total["ms"] += per_layer * t
-                total["plain_ms"] += per_layer * tp
-                total["bound_ms"] += per_layer * b_ms
-                total["library_ms"] += per_layer * lib
-                total["bytes"] += per_layer * n_bytes
-                total["ops"] += per_layer * n_ops
-    by = ("bytes" if total["bytes"] / HBM_BYTES_PER_S
-          >= total["ops"] / INT8_OPS_PER_S else "operations")
-    return {"shape": f"one layer's 7 projections at M={PROMPT_BUCKET}",
-            "max_abs_err": worst, "ms": total["ms"],
-            "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
-            "bound_by": by, "library_ms": total["library_ms"],
-            "at_budget": at_budget}
+                f"({b_by}), "
+                + (f"_int_mm {lib:.4f}" if M > 16 else
+                   f"f32 matmul (exact, |acc| < 2^24) {lib:.4f}"))
+            rows[(M, K, N)] = {"ms": t, "plain_ms": tp, "bound_ms": b_ms,
+                               "library_ms": lib, "bytes": n_bytes,
+                               "ops": n_ops}
+    say(f"w4a4: fused kernel bit-exact at M={list(GEMM_ROWS)}, two calls "
+        f"bit-equal at M={MAX_BATCH}, {BUDGET} and {PROMPT_BUCKET}, every "
+        "shape")
+    return {"shape": f"one layer's 7 projections at M={PROMPT_BUCKET} "
+                     f"(M={MAX_BATCH} under 'at_decode', M={BUDGET} under "
+                     "'at_budget'; yardstick _int_mm, at M <= 16 a float32 "
+                     "torch.matmul on the int values)",
+            "max_abs_err": worst,
+            **_layer_sum(rows, PROMPT_BUCKET, INT8_OPS_PER_S),
+            "at_decode": _layer_sum(rows, MAX_BATCH, INT8_OPS_PER_S),
+            "at_budget": _layer_sum(rows, BUDGET, INT8_OPS_PER_S),
+            "per_shape_ms": {f"M={M} K={K} N={N}": r["ms"]
+                             for (M, K, N), r in sorted(rows.items())},
+            "ptxas": {name: {"registers": r, "spill_bytes": sp}
+                      for name, (r, sp, _) in sorted(ptxas.items())},
+            "sass_kernels_checked": n_sass}
 
 
 def _layer_sum(rows, M, peak):
@@ -548,7 +590,8 @@ def check_lut4_int4(torch, timer):
     """The table-lookup kernel and the unfused W4A4 kernel against their
     plain version (exact integer dot) and against each other, bit for bit,
     at every main-path (K, N) and every M of LUT4_ROWS (each shape's
-    `lut4_plan` printed), and two calls bit-equal at M = 8, 64 and 256.
+    `lut4_plan` printed), and each two calls bit-equal at M = 8, 64 and
+    256.
     The ptxas registers and spill of every lut4 kernel, the SASS method
     gate, and the method's floor (printed only: it is computed, not
     measured).  Yardsticks:
@@ -599,10 +642,14 @@ def check_lut4_int4(torch, timer):
             if not torch.equal(got_lut, got_int):
                 fail(f"lut4_matmul M={M} K={K} N={N}: differs from the "
                      "unfused W4A4 kernel")
-            if M in (MAX_BATCH, BUDGET, PROMPT_BUCKET) and not torch.equal(
-                    got_lut, lut4_matmul_cuda(a_q, a_s, w_km, w_s)):
-                fail(f"lut4_matmul M={M} K={K} N={N}: two calls on the same "
-                     "inputs differ")
+            if M in (MAX_BATCH, BUDGET, PROMPT_BUCKET):
+                for name, got, fn in (("lut4_matmul", got_lut,
+                                       lut4_matmul_cuda),
+                                      ("int4_matmul", got_int,
+                                       int4_matmul_cuda)):
+                    if not torch.equal(got, fn(a_q, a_s, w_km, w_s)):
+                        fail(f"{name} M={M} K={K} N={N}: two calls on the "
+                             "same inputs differ")
             n_bytes = M * K + M * 4 + w_km.numel() + N * 4 + M * N * 4
             n_ops = 2.0 * M * K * N
             b_ms, b_by = bound_ms(n_bytes, n_ops, INT8_OPS_PER_S)
@@ -610,11 +657,7 @@ def check_lut4_int4(torch, timer):
             t_int = timer.ms(lambda: int4_matmul_cuda(a_q, a_s, w_km, w_s))
             tp = timer.ms(lambda: int4_matmul_plain(a_q, a_s, w_km, w_s),
                           reps=5)
-            if M > 16:
-                lib = timer.ms(lambda: torch._int_mm(a_q, w_q))
-            else:
-                a_f, w_f = a_q.float(), w_q.float()
-                lib = timer.ms(lambda: torch.matmul(a_f, w_f))
+            lib = _int_yardstick_ms(torch, timer, a_q, w_q)
             say(f"lut4/int4 M={M:4d} K={K:5d} N={N:5d}: both bit-exact and "
                 f"equal; lut4 {t_lut:.4f} ms, int4 {t_int:.4f} ms, plain "
                 f"{tp:.4f} ms, bound "
@@ -625,7 +668,7 @@ def check_lut4_int4(torch, timer):
                     "bytes": n_bytes, "ops": n_ops}
             for name, t in (("lut4", t_lut), ("int4", t_int)):
                 rows[name][(M, K, N)] = {"ms": t, **base}
-    say(f"lut4: two calls bit-equal at M={MAX_BATCH}, {BUDGET} and "
+    say(f"lut4, int4: two calls bit-equal at M={MAX_BATCH}, {BUDGET} and "
         f"{PROMPT_BUCKET}, every shape")
     out = {}
     for name in ("lut4", "int4"):
@@ -932,6 +975,21 @@ def flash_sass_gate():
     return len(kernels)
 
 
+def w4a4_sass_gate():
+    """The method gate: every ``w4a4_`` kernel's SASS must hold IMMA (the
+    int8 tensor cores).  Returns the kernels checked."""
+    import re
+
+    kernels = sass_functions("int4_matmul", "w4a4_")
+    for name, body in sorted(kernels.items()):
+        n = len(re.findall(r"\bIMMA\.", body))
+        if not n:
+            fail(f"w4a4: kernel {name} holds no IMMA: the dot is not on the "
+                 "tensor cores")
+        say(f"w4a4: SASS of {name} holds {n} IMMA")
+    return len(kernels)
+
+
 def _flash_inputs(torch, gen, Sq, Skv, n_real, hit, nh, nkv, hd):
     """Seeded q/k/v and positions of one FLASH_CASES shape (B = 1): the
     queries are the last n_real of Sq (left padding -1) at positions
@@ -1080,7 +1138,7 @@ RUN_GEMM = {"bucketed": "int4_matmul_fused", "ragged": "int4_matmul_fused",
 #: the device kernels behind each GEMM wrapper, by a prefix of their name
 #: (the W4A16 wrapper's M <= 16 path and the lut4 wrapper's split calls
 #: launch two: split K, then reduce)
-GEMM_KERNELS = {"int4_matmul_fused": "w4a4_kernel",
+GEMM_KERNELS = {"int4_matmul_fused": "w4a4_",
                 "w4a16_matmul": "w4a16_", "lut4_matmul": "lut4_"}
 
 

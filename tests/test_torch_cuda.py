@@ -79,9 +79,20 @@ def _table(B, pps, P, ps, last):
     return tbl
 
 
+#: the W4A4 tensor-core kernel's rows: decode, the 16 / 17 tile boundary,
+#: the prefill buckets, the ragged budget
+W4A4_M = [1, 8, 16, 17, 32, 64, 128, 256]
+#: qwen2-0.5b's projections (K, N)
+W4A4_KN = [(896, 896), (896, 128), (896, 4864), (4864, 896)]
+#: beside them: odd K and N % 16 != 0 (1-byte loads), a split plan of odd
+#: rows, and the widest plan (64 x 128 tiles, one split)
+W4A4_ODD = [(9, 71, 130), (33, 895, 4864), (2, 301, 40), (70, 1001, 72),
+            (5, 2048, 96), (256, 896, 4864)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,K,N", [(1, 896, 128), (9, 71, 130),
-                                   (256, 4864, 896), (33, 895, 4864)])
+@pytest.mark.parametrize("M,K,N", [(m, k, n) for m in W4A4_M
+                                   for k, n in W4A4_KN] + W4A4_ODD)
 def test_int4_kernel_bit_exact(cuda, M, K, N):
     gen = torch.Generator(device=cuda).manual_seed(M + K + N)
     x = torch.randn((M, K), generator=gen, device=cuda)
@@ -547,10 +558,10 @@ def test_w4a16_group_not_a_multiple_of_16_takes_ffma(cuda, M, K, N, G):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,K,N", [(m, k, n) for m in MAIN_M
-                                   for k, n in MAIN_KN]
+@pytest.mark.parametrize("M,K,N", [(m, k, n) for m in W4A4_M
+                                   for k, n in W4A4_KN]
                          + [(1, 2, 2), (3, 5, 2), (7, 13, 10), (33, 57, 34),
-                            (129, 511, 130)])
+                            (129, 511, 130)] + W4A4_ODD)
 def test_lut4_and_unfused_int4_kernels_exact(cuda, M, K, N):
     from repro_torch.kernels.int4_matmul import (int4_matmul_cuda,
                                                  int4_matmul_plain)
@@ -569,6 +580,64 @@ def test_lut4_and_unfused_int4_kernels_exact(cuda, M, K, N):
     assert torch.equal(got_lut, want)
     assert torch.equal(got_int, want)
     assert torch.equal(got_lut, got_int)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,splits,bn", [(8, 4864, 896, 8, 64),
+                                             (64, 896, 896, 7, 64),
+                                             (256, 4864, 896, 4, 128),
+                                             (256, 896, 4864, 1, 128)])
+def test_w4a4_entries_split_and_widest_plans(cuda, M, K, N, splits, bn):
+    """Each entry under split plans (one cluster of `splits` CTAs a tile,
+    64- and 128-column tiles) and under the widest (64 x 128 tiles, one
+    split): bit-exact against the plain
+    versions, fused and unfused bit-equal on the same a_q and a_scale, and
+    two calls bit-equal."""
+    from repro_torch.core.quant import quant_scale, quantize
+    from repro_torch.kernels.int4_matmul import (int4_matmul_cuda,
+                                                 int4_matmul_plain, w4a4_plan)
+
+    plan = w4a4_plan(M, K, N, K // 2)
+    assert (plan.splits, plan.bn) == (splits, bn), plan
+    gen = torch.Generator(device=cuda).manual_seed(M * N + K)
+    x = torch.randn((M, K), generator=gen, device=cuda).to(
+        torch.bfloat16).to(torch.float32)
+    w_km = pack_kmajor(torch.randint(-8, 8, (K, N), generator=gen,
+                                     device=cuda, dtype=torch.int8))
+    w_s = torch.rand((1, N), generator=gen, device=cuda) + 0.05
+    a_s = quant_scale(x, axis=1, bits=4)
+    a_q = quantize(x, a_s, bits=4)
+    fused = int4_matmul_fused_cuda(x, w_km, w_s)
+    unfused = int4_matmul_cuda(a_q, a_s, w_km, w_s)
+    assert torch.equal(fused, int4_matmul_fused_plain(x, w_km, w_s))
+    assert torch.equal(unfused, int4_matmul_plain(a_q, a_s, w_km, w_s))
+    assert torch.equal(fused, unfused)
+    assert torch.equal(fused, int4_matmul_fused_cuda(x, w_km, w_s))
+    assert torch.equal(unfused, int4_matmul_cuda(a_q, a_s, w_km, w_s))
+
+
+@pytest.mark.cuda
+def test_w4a4_unaligned_operands_take_narrow_loads(cuda):
+    """Operands one element off 16-byte alignment: the plan takes 1-byte
+    weight loads and the kernel narrow activation loads, bit-exact."""
+    from repro_torch.kernels.int4_matmul import (int4_matmul_cuda,
+                                                 int4_matmul_plain, w4a4_plan)
+
+    M, K, N = 8, 896, 896
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((M * K + 1,), generator=gen, device=cuda)[1:].view(M, K)
+    a_q = torch.randint(-8, 8, (M * K + 1,), generator=gen, device=cuda,
+                        dtype=torch.int8)[1:].view(M, K)
+    a_s = torch.rand((M, 1), generator=gen, device=cuda) + 0.05
+    w_buf = torch.randint(0, 256, (K // 2 * N + 1,), generator=gen,
+                          device=cuda, dtype=torch.uint8)
+    w_km = w_buf[1:].view(K // 2, N)
+    w_s = torch.rand((1, N), generator=gen, device=cuda) + 0.05
+    assert w4a4_plan(M, K, N, K // 2, w_km.data_ptr() % 16 == 0).vec == 1
+    assert torch.equal(int4_matmul_fused_cuda(x, w_km, w_s),
+                       int4_matmul_fused_plain(x, w_km, w_s))
+    assert torch.equal(int4_matmul_cuda(a_q, a_s, w_km, w_s),
+                       int4_matmul_plain(a_q, a_s, w_km, w_s))
 
 
 def _lut4_case(dev, M, K, N, seed):

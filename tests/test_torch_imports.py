@@ -63,3 +63,27 @@ def test_chip_smoke_imports_neither_jax_nor_the_reference():
     roots = {n.split(".")[0] for n in names}
     assert "repro_torch" in roots and "torch" in roots
     assert not roots & {"jax", "jaxlib", "repro"}, sorted(names)
+
+
+@pytest.mark.parametrize("script", ["w4a4_ablation.py", "lut4_ablation.py",
+                                    "w4a16_ablation.py", "flash_ablation.py"])
+def test_ablation_scripts_import_neither_jax_nor_the_reference(script):
+    """The chip-side ablation scripts, their timing programs (run from a
+    string in a child process) included, import torch, the port and
+    chip_smoke, never jax or the JAX package."""
+    import ast
+    import re
+
+    text = (SRC.parent / script).read_text()
+    tree = ast.parse(text)
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module or "")
+    names.update(re.findall(r"^\s*(?:from|import)\s+([\w.]+)", text,
+                            re.MULTILINE))
+    roots = {n.split(".")[0] for n in names}
+    assert "torch" in roots and "repro_torch" in roots
+    assert not roots & {"jax", "jaxlib", "repro"}, sorted(names)
