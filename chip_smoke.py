@@ -21,10 +21,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
                  hd 128, each with and without a window, two calls
                  bit-equal, each shape's plan printed, its ptxas report,
                  and a method gate: `cuobjdump -sass` shows HMMA in every
-                 flash kernel), and a decode-only pack through the
-                 ragged kernel bit for bit equal to the paged decode
-                 kernel; the W4A16 GEMM per channel and grouped (G = 128),
-                 on bf16 and f32 activations, within W4A16_RTOL (M <= 16
+                 flash kernel), paged decode and the ragged kernel with
+                 and without a window, two calls bit-equal, each one's
+                 split plan, ptxas report (no spill) and floor (an empty
+                 launch of the same grid and cluster) printed, and a
+                 decode-only pack through the ragged kernel bit for bit
+                 equal to the paged decode kernel; the W4A16 GEMM per
+                 channel and grouped (G = 128), on bf16 and f32
+                 activations, within W4A16_RTOL (M <= 16
                  through the split-K kernel and its reduce, each shape's
                  plan printed; M > 16 through the tensor-core kernel for
                  bf16 x and the FFMA kernel for f32 x, each shape's
@@ -38,7 +42,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
                  and 256, its kernels' ptxas registers and spill, its
                  method's floor, and a method gate: `cuobjdump -sass`
                  shows no IDP, IMMA or HMMA in any lut4_ kernel); the
-                 elementwise table product exactly, both strategies.
+                 elementwise table product exactly, both strategies, on
+                 a tail and on operands off 16-byte alignment, its floor
+                 printed.
                  Times (CUDA events, L2 flushed
                  before each call) for the kernel, the plain version and a
                  PyTorch yardstick, beside the least time the card could
@@ -698,21 +704,41 @@ def check_lut4_int4(torch, timer):
     return out["lut4"], out["int4"]
 
 
+#: the elementwise table product's timed size and its odd cases: a tail
+#: past the last whole 16-element vector, and operands off 16-byte
+#: alignment (a[1:] and b[1:] share their offset, out does not)
+MUL4_N = 1 << 20
+MUL4_TAIL_N = (1 << 20) + 7
+
+
 def check_mul4(torch, timer):
-    """The elementwise table kernel, both strategies, on all 256 int4 pairs
-    and on a 1M-element tensor: exact.  Yardstick: torch.mul on the int8
-    tensors (every product fits int8)."""
-    from repro_torch.kernels.lut_mul4 import lut_mul4_cuda, lut_mul4_plain
+    """The elementwise table kernel, both strategies, on all 256 int4 pairs,
+    on a 1M-element tensor, on a tail (n = 2^20 + 7) and on operands off
+    16-byte alignment: exact.  Times the kernel, the plain version,
+    torch.mul on the int8 tensors (every product fits int8) and the floor
+    (an empty launch of the same grid)."""
+    from repro_torch.kernels.lut_mul4 import (
+        lut_mul4_cuda, lut_mul4_floor_cuda, lut_mul4_plain)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
     vals = torch.arange(-8, 8, dtype=torch.int8, device="cuda")
     pairs = (vals.repeat_interleave(16), vals.repeat(16))
-    n = 1 << 20
-    big = tuple(torch.randint(-8, 8, (n,), generator=gen, device="cuda",
-                              dtype=torch.int8) for _ in range(2))
+    n = MUL4_N
+
+    def rand(size):
+        return torch.randint(-8, 8, (size,), generator=gen, device="cuda",
+                             dtype=torch.int8)
+
+    big = (rand(n), rand(n))
+    tail = (rand(MUL4_TAIL_N), rand(MUL4_TAIL_N))
+    cases = {"all 256 pairs": pairs, "1M elements": big,
+             f"n = {MUL4_TAIL_N}": tail,
+             "a[1:], b[1:]": (tail[0][1:], tail[1][1:]),
+             "a[1:], b aligned": (tail[0][1:], tail[1][:-1]),
+             "a[3:1000]": (tail[0][3:1000], tail[1][5:1002])}
     exact = (pairs[0].int() * pairs[1].int()).to(torch.int8)
     for strategy in ("onehot", "take"):
-        for what, (a, b) in (("all 256 pairs", pairs), ("1M elements", big)):
+        for what, (a, b) in cases.items():
             got = lut_mul4_cuda(a, b, strategy)
             if not torch.equal(got, lut_mul4_plain(a, b, strategy)):
                 fail(f"lut_mul4 {strategy} on {what}: differs from the plain "
@@ -723,12 +749,18 @@ def check_mul4(torch, timer):
     t = timer.ms(lambda: lut_mul4_cuda(*big))
     tp = timer.ms(lambda: lut_mul4_plain(*big), reps=5)
     lib = timer.ms(lambda: torch.mul(*big))
-    say(f"lut_mul4 n={n} (both strategies, and all 256 pairs): exact; kernel "
-        f"{t:.4f} ms, plain {tp:.4f} ms, bound {b_ms:.6f} ms ({b_by}), "
-        f"torch.mul {lib:.4f} ms")
+    out = torch.empty_like(big[0])
+    floor = timer.ms(lambda: lut_mul4_floor_cuda(*big, out))
+    t_odd = timer.ms(lambda: lut_mul4_cuda(tail[0][1:], tail[1][1:]))
+    say(f"lut_mul4 n={n} (both strategies; all 256 pairs, a tail, unaligned "
+        f"operands): exact; kernel {t:.4f} ms, plain {tp:.4f} ms, bound "
+        f"{b_ms:.6f} ms ({b_by}), torch.mul {lib:.4f} ms, floor (empty "
+        f"launch, same grid) {floor:.4f} ms; a[1:] * b[1:] at "
+        f"{MUL4_TAIL_N - 1} elements (a 15-byte head, then 16-byte "
+        f"vectors) {t_odd:.4f} ms")
     return {"shape": f"{n} int8 elements", "max_abs_err": 0.0, "ms": t,
             "plain_ms": tp, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib}
+            "library_ms": lib, "floor_ms": floor, "unaligned_ms": t_odd}
 
 
 def _pools(torch, gen, P, ps):
@@ -782,22 +814,63 @@ def _sdpa(torch, q, kf, vf, mask):
         q[:, :, None], kt, vt, attn_mask=mask[:, None, None, :])
 
 
-def check_decode(torch, timer):
-    from repro_torch.kernels.autotune import attn_default_blocks
-    from repro_torch.kernels.paged_attention import (
-        paged_decode_attention_cuda, paged_decode_attention_plain)
+#: the paged decode check's live contexts: a serving batch with two idle
+#: rows (-1), a page boundary and the last token of the first split
+DECODE_LAST = [287, 15, -1, 140, 16, 319, -1, 63]
+#: pool pages, and the table's width in pages (max_ctx 512)
+DECODE_PAGES, DECODE_PPS = 256, 512 // PAGE_SIZE
 
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    ps = PAGE_SIZE
-    P, pps = 256, 512 // PAGE_SIZE
-    # live contexts of a serving batch: two idle rows (-1), a page boundary
-    last_pos = [287, 15, -1, 140, 16, 319, -1, 63]
-    B = len(last_pos)
+
+def decode_ptxas(lib: str, entry: str):
+    """Print the ptxas registers, spill and static shared memory of every
+    `entry` kernel of library `lib`; fail on spill or a missing report."""
+    from repro_torch.kernels import _build
+
+    report = ptxas_report(_build.build_all([lib])[lib][1], entry)
+    if not report:
+        fail(f"{lib}: no ptxas report of {entry} in the build log")
+    for name, (regs, spill, smem) in sorted(report.items()):
+        say(f"{lib} ptxas {name}: {regs} registers, {spill} bytes spill, "
+            f"{smem} bytes static smem")
+        if spill:
+            fail(f"{lib}: {name} spills {spill} bytes")
+    return {name: {"registers": r, "spill_bytes": sp, "smem": sm}
+            for name, (r, sp, sm) in sorted(report.items())}
+
+
+def decode_inputs(torch, gen):
+    """The paged decode check's operands at the serving shape: q [8, H, HD]
+    bf16, a table of DECODE_PPS pages a row over DECODE_PAGES pages, the
+    rows' last positions, and the pools of `_pools`."""
+    B = len(DECODE_LAST)
     q = torch.randn((B, H, HD), generator=gen, device="cuda").to(
         torch.bfloat16)
-    tbl = _table(torch, gen, B, P, pps, last_pos)
-    lp = torch.tensor(last_pos, dtype=torch.int32, device="cuda")
-    pools = _pools(torch, gen, P, ps)
+    tbl = _table(torch, gen, B, DECODE_PAGES, DECODE_PPS, DECODE_LAST)
+    lp = torch.tensor(DECODE_LAST, dtype=torch.int32, device="cuda")
+    return q, tbl, lp, _pools(torch, gen, DECODE_PAGES, PAGE_SIZE)
+
+
+def check_decode(torch, timer):
+    """The paged decode kernel against its plain version on bf16, int8 and
+    int4 pools at the serving shape, with and without a window: within
+    ATTN_ATOL, idle rows exactly zero, two calls bit-equal.  Prints the
+    split plan, the ptxas report of both decode kernels (fails on spill),
+    and times the kernel, the plain version, gather + SDPA and the floor
+    (an empty launch of the same grid and cluster)."""
+    from repro_torch.kernels.autotune import attn_default_blocks
+    from repro_torch.kernels.paged_attention import (
+        decode_floor_cuda, decode_plan, paged_decode_attention_cuda,
+        paged_decode_attention_plain)
+
+    ptxas = decode_ptxas("paged_decode", "paged_decode_kernel")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    ps, P, pps = PAGE_SIZE, DECODE_PAGES, DECODE_PPS
+    last_pos = DECODE_LAST
+    B = len(last_pos)
+    q, tbl, lp, pools = decode_inputs(torch, gen)
+    plan = decode_plan(pps * ps, ps)
+    say(f"paged decode plan (table {pps * ps} tokens, ps {ps}): {plan}, grid "
+        f"({B}, {KV}, {plan.nsplit}) = {B * KV * plan.nsplit} CTAs")
     pp = max(1, attn_default_blocks("attn.paged_decode", B, pps * ps, H * HD,
                                     group_size=ps)["bk"] // ps)
     idle = [b for b, x in enumerate(last_pos) if x < 0]
@@ -805,23 +878,28 @@ def check_decode(torch, timer):
     n_pages = sum(-(-(x + 1) // ps) for x in last_pos if x >= 0)
     S = pps * ps
     mask = torch.arange(S, device="cuda")[None, :] <= lp[:, None]
+    dev = torch.device("cuda")
+    floor = timer.ms(lambda: decode_floor_cuda(B, KV, ps, pps, dev))
     res = {}
     for dt in POOL_DTYPES:
         k, v, ks, vs = pools[dt]
-        got = paged_decode_attention_cuda(q, k, v, tbl, lp, ks, vs)
-        want = paged_decode_attention_plain(q, k, v, tbl, lp, ks, vs, pp=pp)
-        err = (got.float() - want.float()).abs().max().item()
-        if err > ATTN_ATOL or not torch.all(got[idle] == 0):
-            fail(f"paged_decode_attention ({dt} pool): max |diff| {err} > "
-                 f"{ATTN_ATOL} or an idle row is not zero")
-        got_w = paged_decode_attention_cuda(q, k, v, tbl, lp, ks, vs,
-                                            window=40)
-        want_w = paged_decode_attention_plain(q, k, v, tbl, lp, ks, vs,
-                                              window=40, pp=pp)
-        err_w = (got_w.float() - want_w.float()).abs().max().item()
-        if err_w > ATTN_ATOL:
-            fail(f"paged_decode_attention ({dt} pool) window=40: max |diff| "
-                 f"{err_w}")
+        errs = []
+        for window in (0, 40):
+            got = paged_decode_attention_cuda(q, k, v, tbl, lp, ks, vs,
+                                              window=window)
+            again = paged_decode_attention_cuda(q, k, v, tbl, lp, ks, vs,
+                                                window=window)
+            want = paged_decode_attention_plain(q, k, v, tbl, lp, ks, vs,
+                                                window=window, pp=pp)
+            err = (got.float() - want.float()).abs().max().item()
+            if err > ATTN_ATOL or not torch.all(got[idle] == 0):
+                fail(f"paged_decode_attention ({dt} pool, window {window}): "
+                     f"max |diff| {err} > {ATTN_ATOL} or an idle row is not "
+                     "zero")
+            if not torch.equal(got, again):
+                fail(f"paged_decode_attention ({dt} pool, window {window}): "
+                     "two calls differ")
+            errs.append(err)
         # q of the live rows in, every row out, the live pages' K/V, scales
         # and table entries, and last_pos: idle rows only write zeros
         elem, sbytes = POOL_BYTES[dt]
@@ -838,16 +916,19 @@ def check_decode(torch, timer):
             torch, q, _gather_dense(torch, k, ks, tbl, P),
             _gather_dense(torch, v, vs, tbl, P), mask))
         say(f"paged decode {dt} pool B={B} H={H} KV={KV} hd={HD} ps={ps}: "
-            f"max |diff| {err:.3g} (window {err_w:.3g}); kernel {t:.4f} ms, "
-            f"plain {tp:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
-            f"gather+SDPA {lib:.4f} ms")
-        res[dt] = {"max_abs_err": max(err, err_w), "ms": t, "plain_ms": tp,
+            f"max |diff| {errs[0]:.3g} (window {errs[1]:.3g}), two calls "
+            f"bit-equal; kernel {t:.4f} ms, plain {tp:.4f} ms, bound "
+            f"{b_ms:.5f} ms ({b_by}), gather+SDPA {lib:.4f} ms, floor "
+            f"{floor:.4f} ms")
+        res[dt] = {"max_abs_err": max(errs), "ms": t, "plain_ms": tp,
                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
     return {"shape": f"B={B}, H={H}, KV={KV}, hd={HD}, ps={ps}, "
                      f"{n_tok} live tokens, bf16 pool (int8/int4 under "
                      f"'pools')",
             **res["bfloat16"],
             "max_abs_err": max(r["max_abs_err"] for r in res.values()),
+            "floor_ms": floor,
+            "ptxas": ptxas,
             "pools": {dt: res[dt] for dt in ("int8", "int4")}}
 
 
@@ -866,16 +947,29 @@ def _ragged_pack(torch):
 
 
 def check_ragged(torch, timer):
+    """The ragged kernel against its plain version on the serving step's
+    pack (bf16, int8 and int4 pools): within ATTN_ATOL, padding rows
+    exactly zero, two calls bit-equal, and a decode-only pack bit-equal to
+    the paged decode kernel.  Prints the split plan and the ptxas report
+    (fails on spill); times the kernel, the plain version, gather + SDPA
+    and the floor (an empty launch of the same grid and cluster)."""
     from repro_torch.kernels.autotune import attn_default_blocks
-    from repro_torch.kernels.paged_attention import paged_decode_attention_cuda
+    from repro_torch.kernels.paged_attention import (
+        decode_floor_cuda, decode_plan, paged_decode_attention_cuda)
     from repro_torch.kernels.ragged_attention import (
         ragged_decode_attention_cuda, ragged_decode_attention_plain)
 
+    ptxas = decode_ptxas("ragged_decode", "ragged_decode_kernel")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     ps = PAGE_SIZE
     P, pps = 320, 512 // PAGE_SIZE
     slot, pos, row_last = _ragged_pack(torch)
     T = slot.shape[0]
+    plan = decode_plan(pps * ps, ps)
+    say(f"ragged plan (table {pps * ps} tokens, ps {ps}): {plan}, grid "
+        f"({T}, {KV}, {plan.nsplit}) = {T * KV * plan.nsplit} CTAs")
+    floor = timer.ms(lambda: decode_floor_cuda(T, KV, ps, pps,
+                                               torch.device("cuda")))
     tbl = _table(torch, gen, len(row_last), P, pps, row_last)
     q = torch.randn((T, H, HD), generator=gen, device="cuda").to(
         torch.bfloat16)
@@ -896,12 +990,15 @@ def check_ragged(torch, timer):
     for dt in POOL_DTYPES:
         k, v, ks, vs = pools[dt]
         got = ragged_decode_attention_cuda(q, k, v, tbl, slot, pos, ks, vs)
+        again = ragged_decode_attention_cuda(q, k, v, tbl, slot, pos, ks, vs)
         want = ragged_decode_attention_plain(q, k, v, tbl, slot, pos, ks, vs,
                                              pp=pp)
         err = (got.float() - want.float()).abs().max().item()
         if err > ATTN_ATOL or not torch.all(got[pad] == 0):
             fail(f"ragged_decode_attention ({dt} pool): max |diff| {err} > "
                  f"{ATTN_ATOL} or a padding row is not exactly zero")
+        if not torch.equal(got, again):
+            fail(f"ragged_decode_attention ({dt} pool): two calls differ")
         # a decode-only pack: the paged decode kernel's output, bit for bit
         dec_rows = ragged_decode_attention_cuda(
             q[:n_dec].contiguous(), k, v, tbl, slot[:n_dec].contiguous(),
@@ -931,9 +1028,9 @@ def check_ragged(torch, timer):
         say(f"ragged {dt} pool T={T} ({n_dec} decode rows, one "
             f"{int((slot == n_dec).sum())}-row chunk, {int(pad.sum())} "
             f"padding) H={H} KV={KV} hd={HD} ps={ps}: max |diff| {err:.3g}, "
-            f"decode-only pack == paged decode; kernel {t:.4f} ms, plain "
-            f"{tp:.4f} ms, bound {b_ms:.5f} ms ({b_by}), gather+SDPA "
-            f"{lib:.4f} ms")
+            f"two calls bit-equal, decode-only pack == paged decode; kernel "
+            f"{t:.4f} ms, plain {tp:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
+            f"gather+SDPA {lib:.4f} ms, floor {floor:.4f} ms")
         res[dt] = {"max_abs_err": err, "ms": t, "plain_ms": tp,
                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
     return {"shape": f"T={T}: {n_dec} decode rows, a 48-row prefill chunk, "
@@ -941,6 +1038,8 @@ def check_ragged(torch, timer):
                      f"ps={ps}, int8 pool (bf16/int4 under 'pools')",
             **res["int8"],
             "max_abs_err": max(r["max_abs_err"] for r in res.values()),
+            "floor_ms": floor,
+            "ptxas": ptxas,
             "pools": {dt: res[dt] for dt in ("bfloat16", "int4")}}
 
 
@@ -1309,10 +1408,11 @@ def profile_steps(torch, engine, vocab: int, run: str, steps: int = 4):
     requests of 200-token prompts) runs `steps` pure decode steps under
     torch.profiler, once every request decodes (ragged: 8 decode rows and
     BUDGET - 8 padding rows a step).  Prints the step wall time, the
-    device's busy share (kernel time over wall time), the launches per step
-    and the kernels that take the most device time, and checks that the
-    run's GEMM launched 7 times per layer per step.  Runs after the serve
-    run has read its launch counts."""
+    device's busy share (kernel time over wall time), the launches per step,
+    the run's GEMM and decode attention kernels' device time and the
+    kernels that take the most, and checks that the run's GEMM launched 7
+    times per layer per step and its decode attention kernel once.  Runs
+    after the serve run has read its launch counts."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import ops
@@ -1353,6 +1453,11 @@ def profile_steps(torch, engine, vocab: int, run: str, steps: int = 4):
                                       "lut4_matmul") if k != gemm):
         fail(f"profile ({run}): kernel launches per decode step {per_step}; "
              f"want {7 * LAYERS} of {gemm} and no other GEMM")
+    attn = ("paged_decode_attention" if step == "bucketed"
+            else "ragged_decode_attention")
+    if per_step.get(attn) != LAYERS:
+        fail(f"profile ({run}): kernel launches per decode step {per_step}; "
+             f"want {LAYERS} of {attn}, one a layer")
     engine.run_until_idle()
     engine.collect()
     events = prof.key_averages()
@@ -1378,6 +1483,11 @@ def profile_steps(torch, engine, vocab: int, run: str, steps: int = 4):
         + f"; kernel launches per step {json.dumps(per_step)}")
     mine = [e for e in kernels if GEMM_KERNELS[gemm] in e.key]
     say(f"profile ({run}): the {gemm} kernels: "
+        f"{sum(dev_us(e) for e in mine) / steps / 1e3:.3f} ms/step of device "
+        f"time, {sum(e.count for e in mine) / steps:.0f} launches/step")
+    mine = [e for e in kernels
+            if attn.replace("_attention", "_kernel") in e.key]
+    say(f"profile ({run}): the {attn} kernels: "
         f"{sum(dev_us(e) for e in mine) / steps / 1e3:.3f} ms/step of device "
         f"time, {sum(e.count for e in mine) / steps:.0f} launches/step")
     for e in kernels[:8]:

@@ -6,7 +6,9 @@ paper's mechanism: a precomputed truth table read per operand pair at
 ``(a & 0xF) << 4 | (b & 0xF)`` (``ref.make_product_lut``).  The JAX
 package's two strategies, ``"onehot"`` and ``"take"``, give the same
 integers; on the card both are one shared-memory read, so one kernel serves
-both and the argument is checked and kept for the API's sake.
+both and the argument is checked and kept for the API's sake.  The kernel
+moves 16 elements a thread as 16-byte vectors where a, b and the output
+share their address modulo 16, and the elements around them as bytes.
 """
 
 from __future__ import annotations
@@ -35,8 +37,24 @@ def lut_mul4_plain(a_q: torch.Tensor, b_q: torch.Tensor,
 
 def _bind(lib: ctypes.CDLL) -> None:
     lib.lut_mul4_launch.argtypes = [ctypes.c_void_p] * 4 \
-        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_longlong, ctypes.c_void_p]
     lib.lut_mul4_launch.restype = ctypes.c_int
+    lib.lut_mul4_floor_launch.argtypes = [ctypes.c_void_p] * 3 \
+        + [ctypes.c_longlong, ctypes.c_void_p]
+    lib.lut_mul4_floor_launch.restype = ctypes.c_int
+
+
+def _output_like(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """An int8 tensor of a's shape whose address shares a's offset within
+    16 bytes when b shares it too (a[1:] * b[1:]), so the kernel moves the
+    elements past the first 16-byte boundary as 16-byte vectors; else a
+    fresh tensor."""
+    r = a.data_ptr() % 16
+    if r == 0 or b.data_ptr() % 16 != r or a.numel() == 0:
+        return torch.empty_like(a)
+    buf = torch.empty(a.numel() + 16, dtype=torch.int8, device=a.device)
+    off = (r - buf.data_ptr()) % 16
+    return buf[off:off + a.numel()].view(a.shape)
 
 
 def lut_mul4_cuda(a_q: torch.Tensor, b_q: torch.Tensor,
@@ -54,19 +72,29 @@ def lut_mul4_cuda(a_q: torch.Tensor, b_q: torch.Tensor,
         raise ValueError(f"lut_mul4_cuda: shapes {tuple(a_q.shape)} and "
                          f"{tuple(b_q.shape)} differ")
     a, b = a_q.contiguous(), b_q.contiguous()
-    out = torch.empty_like(a)
     n = a.numel()
+    out = _output_like(a, b)
     if n == 0:
         return out
     lut = product_lut_on(a.device)
-    n_blocks = min(-(-n // 256), 132 * 16)
     lib = _build.load("lut_mul4", _bind)
     code = lib.lut_mul4_launch(_build.ptr(a), _build.ptr(b), _build.ptr(lut),
-                               _build.ptr(out), n, n_blocks,
-                               _build.stream_of(a))
+                               _build.ptr(out), n, _build.stream_of(a))
     _build.check(lib, code, "lut_mul4")
     lut_mul4_cuda.launches += 1
     return out
 
 
 lut_mul4_cuda.launches = 0
+
+
+def lut_mul4_floor_cuda(a_q: torch.Tensor, b_q: torch.Tensor,
+                        out: torch.Tensor) -> None:
+    """Launch an empty kernel on the grid `lut_mul4_cuda` takes for these
+    contiguous operands and output: the floor of a call, for measurement
+    only (not counted as a launch)."""
+    lib = _build.load("lut_mul4", _bind)
+    code = lib.lut_mul4_floor_launch(_build.ptr(a_q), _build.ptr(b_q),
+                                     _build.ptr(out), a_q.numel(),
+                                     _build.stream_of(a_q))
+    _build.check(lib, code, "lut_mul4 floor")

@@ -16,10 +16,12 @@ Ports ``repro/kernels/paged_attention.py``:
     ``models.attention.dequantize_kv``.  The plain version copies the JAX
     package's two-pass XLA twin (blocked QK into a score buffer, the exact
     softmax with the probabilities cast to the pool dtype, bf16 for a
-    quantized pool, blocked PV with f32 partial sums); the CUDA kernel runs
-    a single-pass online softmax and agrees with it to bf16 tolerance.  The
-    kernel takes bf16, int8 and int4 pools; the plain version f32 pools as
-    well.
+    quantized pool, blocked PV with f32 partial sums); the CUDA kernel
+    splits each row's context across the CTAs of a thread-block cluster
+    (``decode_plan``), runs an online softmax in each split, merges the
+    splits in a fixed order, and agrees with the plain version to bf16
+    tolerance.  The kernel takes bf16, int8 and int4 pools; the plain
+    version f32 pools as well.
 
 ``flash_prefill``
     Tiled causal GQA attention over the in-flight prompt, masks from the
@@ -138,10 +140,56 @@ def paged_decode_attention_plain(q, k_pool, v_pool, tbl, last_pos,
     return acc.reshape(B, H, hd).to(q.dtype)
 
 
+#: the decode kernels' split rule (csrc/decode_common.cuh MIN_SPLIT_TOK,
+#: MAX_SPLITS): a split holds at least this many tokens (or the whole table)
+DECODE_MIN_SPLIT_TOK = 64
+#: ... and a row takes at most this many CTAs, one cluster (the portable
+#: cluster size)
+DECODE_MAX_SPLITS = 8
+#: tokens a CTA stages in shared memory per round (decode_common.cuh CHUNK)
+DECODE_CHUNK = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodePlan:
+    """How the decode kernels cut a row's context: split r of nsplit holds
+    positions [r * split_tok, (r + 1) * split_tok) of the table, and the
+    nsplit CTAs of a (row, KV head) form one thread-block cluster."""
+    split_tok: int  # tokens a split: a multiple of ps
+    nsplit: int     # CTAs a row (grid z, the cluster size)
+    pages: int      # table entries a CTA loads: split_tok // ps
+
+
+@functools.lru_cache(maxsize=None)
+def decode_plan(width: int, ps: int) -> DecodePlan:
+    """The split of a block table `width` = pps * ps tokens wide (pages of
+    ps tokens), from the width alone, so the paged and ragged kernels cut a
+    table the same way and the wrapper needs nothing from the device: the
+    fewest tokens a split, rounded up to whole pages, with at most
+    DECODE_MAX_SPLITS splits of at least min(DECODE_MIN_SPLIT_TOK, width)
+    tokens.  At max_ctx 512 and ps 16: 8 splits of 64 tokens.  Mirrors
+    ``split_plan`` in csrc/decode_common.cuh, which refuses any other."""
+    if width < 1 or ps < 1 or width % ps:
+        raise ValueError(f"decode_plan: width {width}, page size {ps}")
+    lo = max(-(-width // DECODE_MAX_SPLITS), min(DECODE_MIN_SPLIT_TOK, width))
+    split_tok = -(-lo // ps) * ps
+    return DecodePlan(split_tok, -(-width // split_tok), split_tok // ps)
+
+
+def decode_plan_for(tbl: torch.Tensor, k_pool: torch.Tensor) -> DecodePlan:
+    """The plan of a launch over block table `tbl` [rows, pps] and pools of
+    page size ``k_pool.shape[1]``: both decode wrappers call it."""
+    ps = k_pool.shape[1]
+    return decode_plan(tbl.shape[1] * ps, ps)
+
+
 def _bind_decode(lib: ctypes.CDLL) -> None:
     lib.paged_decode_launch.argtypes = [ctypes.c_void_p] * 8 \
-        + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
+        + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                ctypes.c_void_p]
     lib.paged_decode_launch.restype = ctypes.c_int
+    lib.decode_floor_launch.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.decode_floor_launch.restype = ctypes.c_int
 
 
 def _check_cuda(name: str, tensors, dtypes) -> None:
@@ -165,8 +213,9 @@ def check_pools(name: str, q, k_pool, v_pool, k_scale, v_scale) -> int:
     """Validate the K/V pools (and scales) a decode kernel reads for
     queries q [rows, H, hd] bf16, and return the pool kind: bf16
     ``[P, ps, KV, hd]``, int8 the same shape, or int4 ``[P, ps, KV, hd // 2]``
-    uint8, the quantized ones with f32 scales ``[P, ps, KV, 1]``.  Raises
-    on anything else, and on shapes the kernels are not built for."""
+    uint8, the quantized ones with f32 scales ``[P, ps, KV, 1]``; the pools
+    16-byte aligned (the kernels read them by 16-byte loads).  Raises on
+    anything else, and on shapes the kernels are not built for."""
     kind = POOL_KINDS.get(k_pool.dtype)
     if kind is None:
         raise TypeError(f"{name}: no kernel for {k_pool.dtype} pools")
@@ -191,6 +240,8 @@ def check_pools(name: str, q, k_pool, v_pool, k_scale, v_scale) -> int:
     if hd != 64 or H // KV > 8:
         raise ValueError(f"{name}: head dim {hd} with {H // KV} query heads "
                          "per KV head is not supported")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError(f"{name}: the pools must be 16-byte aligned")
     return kind
 
 
@@ -213,19 +264,33 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, tbl, last_pos,
     out = torch.empty_like(q)
     if B == 0:
         return out
+    plan = decode_plan_for(tbl, k_pool)
     lib = _build.load("paged_decode", _bind_decode)
     code = lib.paged_decode_launch(
         _build.ptr(q), _build.ptr(k_pool), _build.ptr(v_pool),
         _build.ptr(k_scale), _build.ptr(v_scale), _build.ptr(tbl),
         _build.ptr(last_pos), _build.ptr(out),
         B, H, KV, hd, P, ps, pps, int(window), kind, 1.0 / math.sqrt(hd),
-        _build.stream_of(q))
+        plan.split_tok, plan.nsplit, _build.stream_of(q))
     _build.check(lib, code, "paged_decode_attention")
     paged_decode_attention_cuda.launches += 1
     return out
 
 
 paged_decode_attention_cuda.launches = 0
+
+
+def decode_floor_cuda(rows: int, KV: int, ps: int, pps: int,
+                      device) -> None:
+    """Launch an empty kernel on the grid, cluster and shared memory that a
+    decode launch (paged or ragged) of `rows` rows over a table of pps pages
+    of ps tokens takes: the floor of a call, for measurement only (not
+    counted as a launch)."""
+    lib = _build.load("paged_decode", _bind_decode)
+    code = lib.decode_floor_launch(
+        rows, KV, ps, pps,
+        ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+    _build.check(lib, code, "decode floor")
 
 
 # ------------------------------------------------------- prefill (flash) ----

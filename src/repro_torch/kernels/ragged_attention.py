@@ -20,8 +20,9 @@ The plain version is ``ragged_attention_xla``: gather each row's table row
 (padding rows get an all-sentinel row) and run the plain paged decode
 version with batch == tokens, so its decode rows are those of the bucketed
 decode path.  The kernel shares the paged decode kernel's body
-(``csrc/decode_common.cuh``) and agrees with the plain version to bf16
-tolerance.  ``kernels.ops`` picks the plain version for CPU tensors and the
+(``csrc/decode_common.cuh``) and its split of the table
+(``paged_attention.decode_plan``), and agrees with the plain version to
+bf16 tolerance.  ``kernels.ops`` picks the plain version for CPU tensors and the
 kernel for CUDA tensors.
 """
 
@@ -33,7 +34,7 @@ import math
 import torch
 
 from . import _build
-from .paged_attention import _check_cuda, check_pools, \
+from .paged_attention import _check_cuda, check_pools, decode_plan_for, \
     paged_decode_attention_plain
 
 
@@ -59,7 +60,8 @@ def ragged_decode_attention_plain(q, k_pool, v_pool, tbl, token_slot,
 
 def _bind(lib: ctypes.CDLL) -> None:
     lib.ragged_decode_launch.argtypes = [ctypes.c_void_p] * 9 \
-        + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
+        + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_void_p]
     lib.ragged_decode_launch.restype = ctypes.c_int
 
 
@@ -86,13 +88,15 @@ def ragged_decode_attention_cuda(q, k_pool, v_pool, tbl, token_slot,
     out = torch.empty_like(q)
     if T == 0:
         return out
+    plan = decode_plan_for(tbl, k_pool)
     lib = _build.load("ragged_decode", _bind)
     code = lib.ragged_decode_launch(
         _build.ptr(q), _build.ptr(k_pool), _build.ptr(v_pool),
         _build.ptr(k_scale), _build.ptr(v_scale), _build.ptr(tbl),
         _build.ptr(token_slot), _build.ptr(token_pos), _build.ptr(out),
         T, H, KV, hd, P, ps, maxB, pps, int(window), kind,
-        1.0 / math.sqrt(hd), _build.stream_of(q))
+        1.0 / math.sqrt(hd), plan.split_tok, plan.nsplit,
+        _build.stream_of(q))
     _build.check(lib, code, "ragged_decode_attention")
     ragged_decode_attention_cuda.launches += 1
     return out

@@ -17,9 +17,10 @@ are held to atol 2e-2 in bf16, the bound the JAX package holds its Pallas
 kernels to, on bf16,
 int8 and int4 pools alike (both dequantize as bf16(q * scale)); flash
 prefill, whose sums have no atomics, also gives the same bits call after
-call, at every group size, head dim and tail shape of FLASH_SHAPES.  The ragged
-kernel shares the paged decode kernel's body, so a decode-only pack must
-give the paged decode kernel's output bit for bit.
+call, at every group size, head dim and tail shape of FLASH_SHAPES, and so
+does paged decode, whose splits merge in rank order.  The ragged kernel
+shares the paged decode kernel's body and split, so a decode-only pack
+must give the paged decode kernel's output bit for bit.
 """
 
 import numpy as np
@@ -178,10 +179,13 @@ def test_ragged_kernel_matches_plain(cuda, ps, cache_dtype, G):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("cache_dtype", ["bfloat16", "int8", "int4"])
-def test_ragged_decode_only_pack_equals_paged_decode(cuda, cache_dtype):
+@pytest.mark.parametrize("ps", [1, 4, 16])
+def test_ragged_decode_only_pack_equals_paged_decode(cuda, cache_dtype, ps):
     """One row per slot, each at its last position: the ragged kernel's
-    output is the paged decode kernel's, bit for bit."""
-    B, H, KV, hd, ps, pps = 6, 14, 2, 64, 16, 8
+    output is the paged decode kernel's, bit for bit (both split a table
+    of 128 tokens alike: 2 splits of 64)."""
+    B, H, KV, hd = 6, 14, 2, 64
+    pps = 128 // ps
     P = B * pps
     k, v, ks, vs = _pools((P, ps, KV, hd), cache_dtype, cuda)
     last = [127, -1, 64, 0, 15, 100]
@@ -192,6 +196,41 @@ def test_ragged_decode_only_pack_equals_paged_decode(cuda, cache_dtype):
     dec = paged_decode_attention_cuda(q, k, v, tbl, lp, ks, vs)
     rag = ragged_decode_attention_cuda(q, k, v, tbl, slots, lp, ks, vs)
     assert torch.equal(dec, rag)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache_dtype", ["bfloat16", "int8", "int4"])
+@pytest.mark.parametrize("pps,ps,last,window", [
+    # 512-token table, 8 splits of 64: last positions on split edges, a
+    # window of 21 inside one split and one of 100 across three
+    (32, 16, [63, 64, 511, -1, 127, 128, 0], 0),
+    (32, 16, [63, 64, 511, -1, 127, 128, 0], 21),
+    (32, 16, [63, 64, 511, -1, 127, 128, 0], 100),
+    # a 2,048-token table: splits of 256 tokens, four rounds of 64 each
+    (128, 16, [2047, 255, 256, 1000, -1], 0),
+    (128, 16, [2047, 255, 256, 1000, -1], 300),
+    # pages of 12 tokens: splits of 72, a round of 64 and one of 8
+    (8, 12, [95, 71, 72, 5], 0)])
+def test_paged_decode_split_edges_and_two_calls(cuda, cache_dtype, pps, ps,
+                                                last, window):
+    """The split kernel against the plain version where rows end on split
+    edges, windows cross splits and splits take several rounds; idle rows
+    exactly zero, and two calls bit-equal (splits merge in rank order)."""
+    B, H, KV, hd = len(last), 14, 2, 64
+    P = B * pps + 3
+    k, v, ks, vs = _pools((P, ps, KV, hd), cache_dtype, cuda)
+    tbl = torch.from_numpy(_table(B, pps, P, ps, last)).to(cuda)
+    lp = torch.tensor(last, dtype=torch.int32, device=cuda)
+    q = _bf(RNG.standard_normal((B, H, hd)).astype(np.float32), cuda)
+    got = paged_decode_attention_cuda(q, k, v, tbl, lp, ks, vs, window=window)
+    again = paged_decode_attention_cuda(q, k, v, tbl, lp, ks, vs,
+                                        window=window)
+    want = paged_decode_attention_plain(q, k, v, tbl, lp, ks, vs,
+                                        window=window)
+    assert (got.float() - want.float()).abs().max().item() <= ATOL
+    assert torch.equal(got, again)
+    idle = [b for b, x in enumerate(last) if x < 0]
+    assert not got[idle].float().any()
 
 
 @pytest.mark.cuda
@@ -712,12 +751,32 @@ def test_lut_mul4_kernel_exact(cuda, strategy):
     assert torch.equal(lut_mul4_cuda(a, b, strategy),
                        (a.int() * b.int()).to(torch.int8))
     gen = torch.Generator(device=cuda).manual_seed(3)
-    for shape in ((1 << 20,), (5, 33), (2, 3, 130), (1, 1, 1, 257)):
+    for shape in ((1 << 20,), (5, 33), (2, 3, 130), (1, 1, 1, 257),
+                  ((1 << 20) + 7,), (15,)):
         a, b = (torch.randint(-8, 8, shape, generator=gen, device=cuda,
                               dtype=torch.int8) for _ in range(2))
         got = lut_mul4_cuda(a, b, strategy)
         assert got.shape == a.shape
         assert torch.equal(got, (a.int() * b.int()).to(torch.int8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offsets", [(1, 1), (1, 0), (3, 5), (15, 15)])
+@pytest.mark.parametrize("n", [1, 17, 1000, (1 << 20) + 7])
+def test_lut_mul4_kernel_unaligned_operands(cuda, offsets, n):
+    """Operands off 16-byte alignment (a[1:] is contiguous at an odd
+    address): a shared offset takes 16-byte vectors after a head of bytes,
+    differing offsets take bytes throughout; exact either way."""
+    from repro_torch.kernels.lut_mul4 import lut_mul4_cuda
+
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    oa, ob = offsets
+    a, b = (torch.randint(-8, 8, (n + 16,), generator=gen, device=cuda,
+                          dtype=torch.int8) for _ in range(2))
+    a, b = a[oa:oa + n], b[ob:ob + n]
+    got = lut_mul4_cuda(a, b)
+    assert got.shape == (n,)
+    assert torch.equal(got, (a.int() * b.int()).to(torch.int8))
 
 
 @pytest.mark.cuda

@@ -66,7 +66,8 @@ def test_chip_smoke_imports_neither_jax_nor_the_reference():
 
 
 @pytest.mark.parametrize("script", ["w4a4_ablation.py", "lut4_ablation.py",
-                                    "w4a16_ablation.py", "flash_ablation.py"])
+                                    "w4a16_ablation.py", "flash_ablation.py",
+                                    "decode_ablation.py"])
 def test_ablation_scripts_import_neither_jax_nor_the_reference(script):
     """The chip-side ablation scripts, their timing programs (run from a
     string in a child process) included, import torch, the port and
