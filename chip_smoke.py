@@ -54,7 +54,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
                  is a float32 torch.matmul on the int values (exact while
                  |acc| < 2^24).
   4. serve    -- full-width qwen2-0.5b (24 layers, random weights from a
-                 seed) serves through InferenceEngine on cuda: with
+                 seed) serves through InferenceEngine on cuda, each step
+                 shape captured in a CUDA graph and replayed: with
                  W4A4-packed projections, a Poisson trace on the bucketed
                  step (bf16 paged KV pool, flash prefill, fused paged
                  decode), then a mixed trace on the ragged step (int8 pool,
@@ -65,12 +66,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
                  Every request must finish ok with tokens in [0, vocab),
                  every parameter and cache tensor must live on the card,
                  and each run must launch the kernels of its path (counts
-                 zeroed just before the run) and none of the other path's
-                 attention kernels or the other plans' GEMMs.  After each
-                 run a few steps at full batch run under torch.profiler:
-                 step time, launches per step (the run's GEMM 7 per layer),
-                 the card's busy share, the run's GEMM kernels' device
-                 time and the largest kernels.  Then the
+                 zeroed just before the run; a replay adds its graph's
+                 launches) and none of the other path's attention kernels
+                 or the other plans' GEMMs, and capture no step shape it
+                 has seen before (recompiles.steady_state 0; captures by
+                 step function printed).  Each run is then served again
+                 on the same trace by an engine whose steps run eagerly:
+                 every request's tokens and the launch counts must equal
+                 the captured run's.  After each of the two runs a few
+                 steps at full batch run under torch.profiler: step time,
+                 host launches and device kernels per step (the run's
+                 GEMM 7 per layer), the card's busy share, the run's GEMM
+                 kernels' device time and the largest kernels, then the
+                 captured step beside the eager one.  Then the
                  public entry points no serving path reaches (ops.mul4,
                  ops.int4_matmul), called as the JAX package's quickstart
                  and benchmarks call theirs.
@@ -208,8 +216,16 @@ def phase_device(torch):
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()
     kind = torch.cuda.get_device_name(0)
+    driver = subprocess.run(
+        ["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    from repro_torch.kernels import _build
+
+    nvcc = subprocess.run([_build.nvcc(), "--version"], capture_output=True,
+                          text=True, timeout=60).stdout.strip().splitlines()
     say(f"device: {kind} (torch {torch.__version__}, cuda "
-        f"{torch.version.cuda}, {torch.cuda.device_count()} visible)")
+        f"{torch.version.cuda}, {torch.cuda.device_count()} visible; driver "
+        f"{driver or 'unknown'}; nvcc: {nvcc[-1] if nvcc else 'unknown'})")
     say(f"nvidia-smi: {smi[0] if smi else 'unavailable'}")
     return kind, (smi[0] if smi else "unavailable")
 
@@ -1241,12 +1257,25 @@ GEMM_KERNELS = {"int4_matmul_fused": "w4a4_",
                 "w4a16_matmul": "w4a16_", "lut4_matmul": "lut4_"}
 
 
-def serve_run(torch, params, run: str, trace, prompt_lens):
+def eager_engine(*args, **kwargs):
+    """An InferenceEngine on cuda whose steps run eagerly, one launch per
+    op, as on the CPU: the run the captured steps are compared with."""
+    from unittest import mock
+
+    from repro_torch.serving.engine import InferenceEngine
+
+    with mock.patch.object(InferenceEngine, "_capture_steps",
+                           lambda *a: None):
+        return InferenceEngine(*args, **kwargs)
+
+
+def serve_run(torch, params, run: str, trace, prompt_lens, eager=False):
     """Serve `trace` on full-width qwen2-0.5b through InferenceEngine on
-    cuda as serve run `run` of SERVE_RUNS; checks every request, the
-    devices of every tensor and the launches of the path (counted from 0
-    just before the run).  Returns (engine, launches, stats, tokens by
-    request id)."""
+    cuda as serve run `run` of SERVE_RUNS, its steps captured (or eager,
+    with `eager`); checks every request, the devices of every tensor, the
+    launches of the path (counted from 0 just before the run) and, for the
+    captured steps, that no shape was captured twice.  Returns (engine,
+    launches, stats, tokens by request id)."""
     from repro_torch.configs import Runtime, ServingConfig, get_config
     from repro_torch.kernels import ops
     from repro_torch.serving.api import run_trace
@@ -1258,11 +1287,13 @@ def serve_run(torch, params, run: str, trace, prompt_lens):
     sv = ServingConfig(layout="paged", max_batch=MAX_BATCH,
                        page_size=PAGE_SIZE, num_pages=320, max_ctx=512,
                        prefix_cache=True, step=step)
-    engine = InferenceEngine(cfg, rt, sv, params=params, device="cuda")
+    make = eager_engine if eager else InferenceEngine
+    engine = make(cfg, rt, sv, params=params, device="cuda")
+    label = f"{run}, {'eager' if eager else 'graphs'}"
     for tree, what in ((engine.params, "parameter"), (engine.caches, "cache")):
         cpu = [t for t in _tensors(tree) if t.device.type != "cuda"]
         if cpu:
-            fail(f"serve ({run}): {len(cpu)} {what} tensors are not on the "
+            fail(f"serve ({label}): {len(cpu)} {what} tensors are not on the "
                  "card")
     engine.warmup(prompt_lens)
     torch.cuda.synchronize()
@@ -1272,29 +1303,29 @@ def serve_run(torch, params, run: str, trace, prompt_lens):
     launches = ops.launch_counts()
     bad = [r.rid for r in finished if r.outcome != "ok"]
     if len(finished) != len(trace) or bad:
-        fail(f"serve ({run}): {len(finished)}/{len(trace)} requests "
+        fail(f"serve ({label}): {len(finished)}/{len(trace)} requests "
              f"retired, not ok: {bad}")
     for r in finished:
         if len(r.tokens) != r.max_new or not all(
                 0 <= t < cfg.vocab for t in r.tokens):
-            fail(f"serve ({run}): request {r.rid} produced {len(r.tokens)} "
+            fail(f"serve ({label}): request {r.rid} produced {len(r.tokens)} "
                  f"tokens (want {r.max_new}) or a token outside "
                  f"[0, {cfg.vocab})")
     for name in must:
         if launches[name] <= 0:
-            fail(f"serve ({run}): kernel {name} was never launched on the "
+            fail(f"serve ({label}): kernel {name} was never launched on the "
                  "path")
     for name in must_not:
         if launches[name] != 0:
-            fail(f"serve ({run}): {name} launched {launches[name]} times "
+            fail(f"serve ({label}): {name} launched {launches[name]} times "
                  "on a path that does not run it")
     gemm = RUN_GEMM[run]
     if launches[gemm] % (7 * LAYERS):
-        fail(f"serve ({run}): {gemm} launched {launches[gemm]} times, not 7 "
+        fail(f"serve ({label}): {gemm} launched {launches[gemm]} times, not 7 "
              "per layer per forward")
     budget = (f", token budget {stats['token_budget']}, padding rows "
               f"{stats['padding_tokens_wasted']}" if step == "ragged" else "")
-    say(f"serve ({run}: {step}, {cache_dtype} pool, "
+    say(f"serve ({label}: {step}, {cache_dtype} pool, "
         f"{rt.quant_plan or rt.quant_backend}): {len(finished)} requests ok, "
         f"{stats['decode_tokens']} decode tokens in {stats['wall_s']:.2f} s = "
         f"{stats['decode_tok_per_s']:.1f} tok/s; latency p50 "
@@ -1303,7 +1334,23 @@ def serve_run(torch, params, run: str, trace, prompt_lens):
         f"(mean {stats['wall_s'] / stats['steps'] * 1e3:.1f} ms), preempted "
         f"{stats['requests_preempted']}, prefill tokens "
         f"{stats['prefill_tokens']}{budget}")
-    say(f"serve ({run}): kernel launches {json.dumps(launches)}")
+    say(f"serve ({label}): kernel launches {json.dumps(launches)}")
+    rec = stats["recompiles"]
+    say(f"serve ({label}): step shapes compiled {rec['total']} "
+        f"{json.dumps(rec['by_fn'])}, in steady state {rec['steady_state']}; "
+        "mid-run: " + (", ".join(f"{e['fn']} {e['shape']} at step "
+                                 f"{e['step']}" for e in rec["events"]
+                                 if e["step"]) or "none"))
+    if rec["steady_state"]:
+        fail(f"serve ({label}): {rec['steady_state']} steady-state recompiles "
+             f"(a step shape captured again): {rec['events']}")
+    if not eager:
+        graphs = sum(getattr(engine, "_" + n)._cache_size()
+                     for n in ("prefill", "prefill_tail", "decode", "ragged")
+                     if getattr(engine, "_" + n) is not None)
+        if graphs != rec["total"]:
+            fail(f"serve ({label}): {graphs} captured graphs, but the "
+                 f"sentinel counted {rec['total']} compiles")
     return engine, launches, stats, {r.rid: list(r.tokens) for r in finished}
 
 
@@ -1338,8 +1385,30 @@ def phase_serve(torch):
             engine, n, _, tokens[run] = serve_run(torch, params, run, trace,
                                                   prompt_lens)
             launches.append(n)
-            profile_steps(torch, engine, cfg.vocab, run)
+            prof = {"graphs": profile_steps(torch, engine, cfg.vocab, run)}
             del engine
+            engine, n_eager, _, eager = serve_run(torch, params, run, trace,
+                                                  prompt_lens, eager=True)
+            prof["eager"] = profile_steps(torch, engine, cfg.vocab, run,
+                                          mode="eager")
+            del engine
+            diff = [rid for rid in eager if tokens[run].get(rid) != eager[rid]]
+            if diff or len(eager) != len(tokens[run]):
+                fail(f"serve ({run}): requests {diff} emitted other tokens "
+                     "with captured steps than with eager steps")
+            if n_eager != n:
+                fail(f"serve ({run}): kernel launches with captured steps "
+                     f"{json.dumps(n)}, eager {json.dumps(n_eager)}")
+            say(f"serve ({run}): every request's tokens and the kernel "
+                "launches equal the eager run's")
+            g, e = prof["graphs"], prof["eager"]
+            say(f"profile ({run}): graphs vs eager: "
+                f"{g['ms']:.3f} vs {e['ms']:.3f} ms per step ("
+                f"{g['profiled_ms']:.3f} vs {e['profiled_ms']:.3f} profiled), "
+                f"{g['host_launches']:.0f} vs {e['host_launches']:.0f} host "
+                f"launches and {g['kernels']:.0f} vs {e['kernels']:.0f} "
+                f"device kernels per step, device busy {g['busy']} vs "
+                f"{e['busy']}")
         del params
     if tokens["lut4"] != tokens["bucketed"]:
         diff = [rid for rid in tokens["bucketed"]
@@ -1403,29 +1472,35 @@ def entry_points_run(torch):
     return launches
 
 
-def profile_steps(torch, engine, vocab: int, run: str, steps: int = 4):
+def profile_steps(torch, engine, vocab: int, run: str, steps: int = 4,
+                  mode: str = "graphs"):
     """Where a decode step's time goes: a full decode batch (MAX_BATCH
     requests of 200-token prompts) runs `steps` pure decode steps under
     torch.profiler, once every request decodes (ragged: 8 decode rows and
     BUDGET - 8 padding rows a step).  Prints the step wall time, the
-    device's busy share (kernel time over wall time), the launches per step,
-    the run's GEMM and decode attention kernels' device time and the
-    kernels that take the most, and checks that the run's GEMM launched 7
-    times per layer per step and its decode attention kernel once.  Runs
-    after the serve run has read its launch counts."""
+    device's busy share (kernel time over wall time), the host's launches
+    per step (a replayed step launches its graph) and the kernels the
+    device ran per step, the run's GEMM and decode attention kernels'
+    device time and the kernels that take the most, and checks that the
+    run's GEMM launched 7 times per layer per step and its decode
+    attention kernel once (a replay counts its graph's launches).  Runs
+    after the serve run has read its launch counts.  `mode` ("graphs" or
+    "eager") names the engine's steps in the output.  Returns the step's
+    ms, host launches, device kernels and busy share."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import ops
 
     step = SERVE_RUNS[run][0]
+    label = f"{run}, {mode}"
 
     gen = torch.Generator().manual_seed(SEED + 3)
     L = 200
     # bucketed: one step admits and prefills all, then decodes; ragged: the
     # prompts drain through the token budget first while the early ones
     # decode, so those need enough tokens to still run when the last starts
-    new = steps + 4 + (0 if step == "bucketed"
-                       else -(-MAX_BATCH * L // (BUDGET - MAX_BATCH)))
+    new = 2 * steps + 4 + (0 if step == "bucketed"
+                           else -(-MAX_BATCH * L // (BUDGET - MAX_BATCH)))
     for _ in range(MAX_BATCH):
         engine.submit(torch.randint(0, vocab, (L,), generator=gen).numpy(),
                       new)
@@ -1433,9 +1508,15 @@ def profile_steps(torch, engine, vocab: int, run: str, steps: int = 4):
     while len(running) < MAX_BATCH or not all(
             r.tokens for r in running.values()):
         if engine.step() == 0:
-            fail(f"profile ({run}): the engine went idle before the batch "
+            fail(f"profile ({label}): the engine went idle before the batch "
                  "was full")
     torch.cuda.synchronize()
+    # the same steps without the profiler
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        engine.step()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) / steps * 1e3
     before = ops.launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1451,13 +1532,16 @@ def profile_steps(torch, engine, vocab: int, run: str, steps: int = 4):
     if per_step.get(gemm) != 7 * LAYERS or any(
             per_step.get(k) for k in ("int4_matmul_fused", "w4a16_matmul",
                                       "lut4_matmul") if k != gemm):
-        fail(f"profile ({run}): kernel launches per decode step {per_step}; "
+        fail(f"profile ({label}): kernel launches per decode step {per_step}; "
              f"want {7 * LAYERS} of {gemm} and no other GEMM")
     attn = ("paged_decode_attention" if step == "bucketed"
             else "ragged_decode_attention")
     if per_step.get(attn) != LAYERS:
-        fail(f"profile ({run}): kernel launches per decode step {per_step}; "
+        fail(f"profile ({label}): kernel launches per decode step {per_step}; "
              f"want {LAYERS} of {attn}, one a layer")
+    # while the batch still runs: the last step's inputs are live requests'
+    replay = (_replay_ms(torch, engine._decode if step == "bucketed"
+                         else engine._ragged) if mode == "graphs" else {})
     engine.run_until_idle()
     engine.collect()
     events = prof.key_averages()
@@ -1474,35 +1558,73 @@ def profile_steps(torch, engine, vocab: int, run: str, steps: int = 4):
     busy = sum(dev_us(e) for e in kernels)
     n_launch = sum(e.count for e in events
                    if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
-                                "cuLaunchKernel", "cuLaunchKernelEx"))
-    say(f"profile ({run}): {steps} decode steps at batch {MAX_BATCH}: "
-        f"{wall_us / steps / 1e3:.3f} ms per step, "
-        f"{n_launch / steps:.0f} launches per step, device busy "
-        + (f"{busy / wall_us:.3f} of wall time" if busy else "not measured "
+                                "cuLaunchKernel", "cuLaunchKernelEx",
+                                "cudaGraphLaunch"))
+    n_graph = sum(e.count for e in events if e.key == "cudaGraphLaunch")
+    n_kernels = sum(e.count for e in kernels)
+    busy_share = round(busy / wall_us, 3) if busy else None
+    say(f"profile ({label}): {steps} decode steps at batch {MAX_BATCH}: "
+        f"{plain_ms:.3f} ms per step without the profiler, "
+        f"{wall_us / steps / 1e3:.3f} ms with it, "
+        f"{n_launch / steps:.0f} host launches per step ({n_graph / steps:.0f}"
+        f" of a graph), {n_kernels / steps:.0f} device kernels per step, "
+        "device busy "
+        + (f"{busy_share} of wall time" if busy else "not measured "
            "(the profiler saw no device time)")
         + f"; kernel launches per step {json.dumps(per_step)}")
     mine = [e for e in kernels if GEMM_KERNELS[gemm] in e.key]
-    say(f"profile ({run}): the {gemm} kernels: "
+    say(f"profile ({label}): the {gemm} kernels: "
         f"{sum(dev_us(e) for e in mine) / steps / 1e3:.3f} ms/step of device "
         f"time, {sum(e.count for e in mine) / steps:.0f} launches/step")
     mine = [e for e in kernels
             if attn.replace("_attention", "_kernel") in e.key]
-    say(f"profile ({run}): the {attn} kernels: "
+    say(f"profile ({label}): the {attn} kernels: "
         f"{sum(dev_us(e) for e in mine) / steps / 1e3:.3f} ms/step of device "
         f"time, {sum(e.count for e in mine) / steps:.0f} launches/step")
     for e in kernels[:8]:
-        say(f"profile ({run}):   {dev_us(e) / steps / 1e3:8.3f} ms/step "
+        say(f"profile ({label}):   {dev_us(e) / steps / 1e3:8.3f} ms/step "
             f"{e.count // steps:5d}x/step  {e.key[:90]}")
     # the host's side: PyTorch ops by their own CPU time (the kernel
     # wrappers' Python and ctypes calls are in no op: the rest of the wall)
     host = sorted((e for e in events if e.self_cpu_time_total > 0),
                   key=lambda e: e.self_cpu_time_total, reverse=True)
     in_ops = sum(e.self_cpu_time_total for e in host)
-    say(f"profile ({run}): host time in PyTorch ops {in_ops / wall_us:.3f} "
+    say(f"profile ({label}): host time in PyTorch ops {in_ops / wall_us:.3f} "
         "of wall time; the largest:")
     for e in host[:6]:
-        say(f"profile ({run}):   {e.self_cpu_time_total / steps / 1e3:8.3f} "
+        say(f"profile ({label}):   {e.self_cpu_time_total / steps / 1e3:8.3f} "
             f"ms/step {e.count // steps:5d}x/step  {e.key[:90]}")
+    if replay:
+        say(f"profile ({label}): the full-batch step's graph replayed "
+            f"{REPLAYS} times back to back: {replay['replay_ms']:.3f} ms of "
+            f"device time a replay, {replay['launch_ms']:.3f} ms of host "
+            "time to launch one")
+    return {"ms": plain_ms, "profiled_ms": wall_us / steps / 1e3,
+            "host_launches": n_launch / steps, "kernels": n_kernels / steps,
+            "busy": busy_share, **replay}
+
+
+#: back-to-back replays of a step's graph timed by `_replay_ms`
+REPLAYS = 20
+
+
+def _replay_ms(torch, captured):
+    """The device time of one replay of `captured`'s widest graph (the
+    full decode batch, or the token budget), replayed REPLAYS times back to
+    back on its static inputs (the last step's: each replay rewrites the
+    same K/V), and the host's time to launch one."""
+    g = max(captured._graphs.values(), key=lambda g: g.static[0].numel())
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    s.record()
+    for _ in range(REPLAYS):
+        g.graph.replay()
+    e.record()
+    host = (time.perf_counter() - t0) / REPLAYS * 1e3
+    torch.cuda.synchronize()
+    return {"replay_ms": s.elapsed_time(e) / REPLAYS, "launch_ms": host}
 
 
 # ------------------------------------------------------------ phase 5 ----

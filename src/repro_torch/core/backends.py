@@ -106,4 +106,4 @@ def _netlist_backend(w, x2, cfg, tag):
     raise NotImplementedError(
         f"site {tag!r}: the netlist backend (every product through the "
         f"simulated FPGA circuit) is not ported yet (ROADMAP Queue 1 item "
-        f"10)")
+        f"12)")

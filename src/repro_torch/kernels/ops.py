@@ -9,7 +9,8 @@ sends CUDA tensors to it.
 
 Each CUDA wrapper counts its own launches in a plain integer attribute
 (``launch_counts()`` reads them, ``reset_launch_counts()`` zeroes them), so
-a run can show that it went through the kernels.
+a run can show that it went through the kernels.  A replayed CUDA graph
+runs no wrapper: its launches are added by ``add_launch_counts``.
 """
 
 from __future__ import annotations
@@ -56,6 +57,13 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in CUDA_WRAPPERS.values():
         fn.launches = 0
+
+
+def add_launch_counts(counts: Dict[str, int]) -> None:
+    """Add `counts` to the wrappers' launch counts: a replayed graph's
+    launches, which no wrapper counted (``launch.steps.CapturedStep``)."""
+    for name, n in counts.items():
+        CUDA_WRAPPERS[name].launches += n
 
 
 def _on_cuda(t: torch.Tensor, op: str) -> bool:

@@ -9,7 +9,9 @@ with the prefix cache, and prints a JSON report with tokens/s and p50/p95
 request latency.  ``--step bucketed`` runs flash prefill and fused paged
 decode; ``--step ragged`` packs prefill chunks and decode tokens into one
 ragged step a token budget wide.  Runs on ``cuda`` unless ``--device cpu``
-is given.
+is given; on ``cuda`` every step shape is captured in a CUDA graph and
+replayed, and the report's ``recompiles_steady_state`` counts captures of a
+shape seen before (0 in a sound run).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b --full
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
@@ -86,6 +88,9 @@ def serve(arch: str, *, reduced=True, layers=None, max_batch=4,
     report["latency_p50_s"] = stats["latency_p50_s"]
     report["latency_p95_s"] = stats["latency_p95_s"]
     report["prefix_hit_rate"] = stats["prefix_hit_rate"]
+    # captures of a step shape seen before (0 unless a step's shape key
+    # drifts: see observability.jit_watch)
+    report["recompiles_steady_state"] = stats["recompiles"]["steady_state"]
     return report
 
 

@@ -20,6 +20,14 @@ Device policy: the engine runs on ``cuda`` unless the caller passes
 ``device="cpu"``, and raises when no GPU is present and the CPU was not
 asked for.  On CUDA every kernel-backed op launches its CUDA kernel; on the
 CPU the kernels' plain versions run.
+
+Compiled steps: on CUDA each step (prefill, tail prefill, decode, ragged)
+is a ``launch.steps.CapturedStep``, one CUDA graph per step shape, as the
+JAX engine jits each step once per bucket; on the CPU the steps run
+eagerly.  A recompile sentinel (``observability.jit_watch``) is polled
+after every step call, warmup included, and counts the captures per step
+function and shape (on the CPU, each new shape); ``stats()["recompiles"]``
+reports them.
 """
 
 from __future__ import annotations
@@ -31,11 +39,18 @@ import numpy as np
 import torch
 
 from ..core.quant_plan import pack_for_serving
-from ..launch.steps import make_ragged_step, make_serving_steps
+from ..launch.steps import (CapturedStep, cuda_graph_capture,
+                            make_ragged_step, make_serving_steps)
 from ..models.transformer import init_model, with_layer_views
+from ..observability import Telemetry
 from ..observability.metrics import COUNT_BUCKETS, MetricsRegistry
 from .kv_pages import PagedKVCacheManager, init_paged_caches
 from .scheduler import ERROR, OK, SHED, Request, Scheduler, ShedError
+
+
+#: the step functions, as the engine's attributes (``_<name>``) and the
+#: recompile sentinel's function names
+STEP_NAMES = ("prefill", "prefill_tail", "decode", "ragged")
 
 
 class EngineStuckError(RuntimeError):
@@ -70,14 +85,18 @@ class InferenceEngine:
 
     def __init__(self, cfg, rt, sv, params=None, seed: int = 0,
                  clock=time.time, metrics: Optional[MetricsRegistry] = None,
-                 device="cuda"):
+                 device="cuda", telemetry: Optional[Telemetry] = None):
         if sv.layout != "paged":
             raise NotImplementedError(
                 f"only the paged layout is ported (got {sv.layout!r})")
         self.cfg, self.rt, self.sv = cfg, rt, sv
         self.device = resolve_device(device)
         self.clock = clock
-        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        # metrics registry + recompile sentinel (`metrics` alone keeps the
+        # sentinel counting into that registry)
+        self.tm = telemetry if telemetry is not None \
+            else Telemetry(registry=metrics)
+        self.metrics = self.tm.registry
         if params is None:
             params = build_params(cfg, rt, seed, self.device)
         self.params = with_layer_views(params, cfg)
@@ -85,7 +104,9 @@ class InferenceEngine:
         self.kv = PagedKVCacheManager(sv, metrics=self.metrics)
         self.caches = init_paged_caches(cfg, rt, sv, device=self.device)
         # rows start at the sentinel (== num_pages): writes through an
-        # unassigned slot go to the spill page, reads are zeros
+        # unassigned slot go to the spill page, reads are zeros.  Updated in
+        # place (`_sync_tables`): one tensor for the engine's lifetime, which
+        # the captured steps read where it lies
         self._tbl = torch.full((sv.max_batch, sv.pages_per_seq),
                                sv.num_pages, dtype=torch.int32,
                                device=self.device)
@@ -103,6 +124,20 @@ class InferenceEngine:
         self._ragged = make_ragged_step(cfg, rt) \
             if sv.step == "ragged" else None
         self._budget = sv.budget
+        # recompile sentinel: every step function is polled after each call
+        # (warmup included), so a capture is attributed to the bucket shape
+        # that triggered it
+        for name in STEP_NAMES:
+            self.tm.jit_watch.register(name, getattr(self, "_" + name))
+        self._captured = False
+        if self.device.type == "cuda":
+            # one memory pool for every graph of the engine: no graph leaves
+            # a tensor alive in it (static inputs and outputs are allocated
+            # outside any capture), and the graphs replay one at a time on
+            # one stream, so a graph's scratch may reuse another's
+            self._capture_steps(
+                cuda_graph_capture(torch.cuda.graph_pool_handle()),
+                torch.cuda.CUDAGraph)
 
         self._next_rid = 0
         self._finished: List[Request] = []
@@ -117,6 +152,24 @@ class InferenceEngine:
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
+
+    def _in(self, a: np.ndarray) -> torch.Tensor:
+        """A per-step input: on the device for the eager steps; a host
+        tensor for the captured steps, which stage it into their graph's
+        static buffers."""
+        return torch.from_numpy(a) if self._captured else self._dev(a)
+
+    def _capture_steps(self, capture, graph) -> None:
+        """Wrap every step in a `CapturedStep` taking `capture` and `graph`
+        (``launch.steps.cuda_graph_capture`` and ``torch.cuda.CUDAGraph``
+        on CUDA) and watch the wrappers in its place."""
+        for name in STEP_NAMES:
+            fn = getattr(self, "_" + name)
+            if fn is not None:
+                step = CapturedStep(fn, self.device, capture, graph)
+                setattr(self, "_" + name, step)
+                self.tm.jit_watch.register(name, step)
+        self._captured = True
 
     # -------------------------------------------------------------- api --
     def submit(self, prompt, max_new: int, arrival: Optional[float] = None,
@@ -153,10 +206,11 @@ class InferenceEngine:
     def warmup(self, prompt_lens=()) -> None:
         """Run every expected step shape once (one prefill per prompt
         bucket, one decode per batch bucket) before the measured window,
-        so first-call costs (kernel loading, allocator growth) stay out of
-        the stats.  Every position is -1: all writes go to the spill page
-        and the pool is untouched.  The ragged step has one shape, the
-        token budget, so it warms with one call whatever the prompts."""
+        so first-call costs (kernel loading, allocator growth and, on CUDA,
+        the shape's capture) stay out of the stats.  Every position is -1:
+        all writes go to the spill page and the pool is untouched.  The
+        ragged step has one shape, the token budget, so it warms with one
+        call whatever the prompts."""
         if self._ragged is not None:
             self._warm_ragged()
             return
@@ -167,10 +221,15 @@ class InferenceEngine:
                                    device=self.device)
             _, self.caches = self._prefill(self.params, tokens, self.caches,
                                            positions, self._tbl, slot0)
+            self._poll_jit("prefill", (1, L))
             if self.sv.prefix_cache:
+                # prefix hits run the tail-prefill step over the same
+                # buckets (a tail can land in a smaller bucket mid-run; that
+                # capture is attributed to the run)
                 _, self.caches = self._prefill_tail(
                     self.params, tokens, self.caches, positions, self._tbl,
                     slot0)
+                self._poll_jit("prefill_tail", (1, L))
         for nb in self.sv.buckets:
             tok = torch.zeros((nb, 1), dtype=torch.int32, device=self.device)
             pos = torch.full((nb, 1), -1, dtype=torch.int32,
@@ -178,6 +237,7 @@ class InferenceEngine:
             _, self.caches = self._decode(
                 self.params, tok, self.caches, pos, self._tbl,
                 torch.zeros((nb,), dtype=torch.int32, device=self.device))
+            self._poll_jit("decode", (nb, 1))
 
     def step(self) -> int:
         """One decode-step boundary; returns the number of running requests
@@ -196,12 +256,14 @@ class InferenceEngine:
             self.caches, pad[None], self._tbl, pad,
             torch.full((self.sv.max_batch,), -1, dtype=torch.int32,
                        device=dev))
+        self._poll_jit("ragged", (1, T))
 
     def _grow_budget(self, need: int) -> None:
         """The running set's decode tokens (plus one prefill-chunk row)
         exceed the budget, which only an explicit token_budget below
-        max_batch allows: double it until they fit, and warm the new
-        shape."""
+        max_batch allows: double it until they fit, capture the new shape
+        and re-baseline the sentinel.  The growth lands in the compiles
+        count, never in steady_state."""
         new = self._budget
         while new < need:
             new *= 2
@@ -210,6 +272,7 @@ class InferenceEngine:
             "ragged_budget_grows_total",
             "token-budget doublings of the ragged step").inc()
         self._warm_ragged()
+        self.tm.jit_watch.absorb("ragged")
 
     def _step_bucketed(self) -> int:
         t0 = time.perf_counter()
@@ -288,9 +351,10 @@ class InferenceEngine:
         self._observe_packing(used, T)
         self._sync_tables([r for r, _, _ in plan])
         nxt, self.caches = self._ragged(
-            self.params, self._dev(tokens), self.caches,
-            self._dev(positions), self._tbl, self._dev(slots),
-            self._dev(emit_rows))
+            self.params, self._in(tokens), self.caches,
+            self._in(positions), self._tbl, self._in(slots),
+            self._in(emit_rows))
+        self._poll_jit("ragged", (1, T))
         # the step's one device->host sync: token readback
         nxt = np.asarray(nxt.cpu())  # repro: ignore[host-sync-in-hot-path]
         ps = self.sv.page_size
@@ -369,6 +433,11 @@ class InferenceEngine:
             f"{list(self.scheduler.running)}")
 
     # -------------------------------------------------------- internals --
+    def _poll_jit(self, name: str, shape) -> None:
+        """Poll the recompile sentinel right after a step call, attributing
+        any new capture to `shape` (the call's bucket signature)."""
+        self.tm.jit_watch.after_call(name, shape, step=self.n_steps)
+
     def _observe_packing(self, used: int, capacity: int) -> None:
         wasted = max(capacity - used, 0)
         self.n_tokens_packed += used
@@ -413,9 +482,10 @@ class InferenceEngine:
         self._sync_tables([req])
         step = self._prefill_tail if hit else self._prefill
         tok, self.caches = step(
-            self.params, self._dev(tokens), self.caches,
-            self._dev(positions), self._tbl,
-            self._dev(np.asarray([req.slot], np.int32)))
+            self.params, self._in(tokens), self.caches,
+            self._in(positions), self._tbl,
+            self._in(np.asarray([req.slot], np.int32)))
+        self._poll_jit("prefill_tail" if hit else "prefill", (1, Lb))
 
         req.n_cached = L
         self.n_prefill_tokens += n
@@ -447,8 +517,9 @@ class InferenceEngine:
         # spill and their (masked) attention output is discarded
         self._sync_tables(batch)
         nxt, self.caches = self._decode(
-            self.params, self._dev(tok), self.caches, self._dev(pos),
-            self._tbl, self._dev(slots))
+            self.params, self._in(tok), self.caches, self._in(pos),
+            self._tbl, self._in(slots))
+        self._poll_jit("decode", (nb, 1))
         self._observe_packing(n, nb)
         self.metrics.counter("decode_tokens_total",
                              "tokens emitted by decode steps").inc(n)
@@ -515,5 +586,6 @@ class InferenceEngine:
             "ttft_mean_s": mean(ttft),
             "kv_pages_high_water": self.kv.high_water,
             "paged_attn": self.rt.paged_attn,
+            "recompiles": self.tm.jit_watch.snapshot(),
             "metrics": self.metrics.snapshot(),
         }

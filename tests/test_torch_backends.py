@@ -305,6 +305,6 @@ def test_lut4_bit_equal_to_int_sim_on_the_port():
 
 
 def test_netlist_backend_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         tql.qdense(torch.ones((8, 4)), torch.ones((2, 8)),
                    tql.QuantConfig(backend="netlist"))

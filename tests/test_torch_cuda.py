@@ -20,7 +20,10 @@ prefill, whose sums have no atomics, also gives the same bits call after
 call, at every group size, head dim and tail shape of FLASH_SHAPES, and so
 does paged decode, whose splits merge in rank order.  The ragged kernel
 shares the paged decode kernel's body and split, so a decode-only pack
-must give the paged decode kernel's output bit for bit.
+must give the paged decode kernel's output bit for bit.  Every kernel
+wrapper captured in a CUDA graph must replay to its eager call's bits, and
+the engine with captured steps must emit an eager engine's tokens and
+kernel launch counts.
 """
 
 import numpy as np
@@ -840,3 +843,190 @@ def test_w4a16_card_vs_cpu_catches_a_planted_fault(cuda, monkeypatch, plan):
           f"group 0 scale x2 {err_planted:.6g} (limit {cs.CPU_ATOL})")
     assert launches["w4a16_matmul"] > 0, launches
     assert err <= cs.CPU_ATOL < err_planted
+
+
+# ------------------------------------------------- the compiled step ----
+def _graph_cases(dev):
+    """(name, inputs A, inputs B, fn) for every kernel wrapper of the
+    serving paths at serving shapes: the split-K workspaces (W4A16 and lut4
+    at M = 8) and their programmatic-dependent-launch reduces, the W4A4
+    and decode cluster launches, and flash prefill's shared-memory
+    attribute at two buckets, the larger first."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def bytes_(*shape):
+        return torch.randint(0, 256, shape, generator=gen, device=dev,
+                             dtype=torch.int32).to(torch.uint8)
+
+    def scale(*shape):
+        return torch.rand(shape, generator=gen, device=dev) + 0.05
+
+    cases = []
+    for M, (K, N) in ((8, (896, 4864)), (64, (4864, 896))):
+        w, ws = bytes_(K // 2, N), scale(1, N)
+        cases.append((f"int4_matmul_fused M={M} K={K} N={N}",
+                      lambda M=M, K=K: [randn(M, K, dtype=torch.float32)],
+                      lambda x, w=w, ws=ws: ops.int4_matmul_fused_kmajor(
+                          x, w, ws)))
+        cases.append((f"w4a16_matmul M={M} K={K} N={N}",
+                      lambda M=M, K=K: [randn(M, K)],
+                      lambda x, w=w, ws=ws, K=K: ops.w4a16_matmul_kmajor(
+                          x, w, ws, K)))
+        cases.append((f"lut4_matmul M={M} K={K} N={N}",
+                      lambda M=M, K=K: [torch.randint(
+                          -7, 8, (M, K), generator=gen,
+                                             device=dev, dtype=torch.int32
+                                             ).to(torch.int8),
+                               scale(M, 1)],
+                      lambda a, s, w=w, ws=ws: ops.lut4_matmul_kmajor(
+                          a, s, w, ws)))
+    for S in (256, 32):
+        pos = torch.arange(S, dtype=torch.int32, device=dev)[None]
+        cases.append((f"flash_prefill Sq={S}",
+                      lambda S=S: [randn(1, S, H_, 64), randn(1, S, KV_, 64),
+                                   randn(1, S, KV_, 64)],
+                      lambda q, k, v, pos=pos: ops.flash_prefill(
+                          q, k, v, pos, pos)))
+    P, ps, pps = 320, 16, 32
+    kp, vp = randn(P, ps, KV_, 64), randn(P, ps, KV_, 64)
+    tbl = torch.randperm(P, generator=gen, device=dev)[:8 * pps].reshape(
+        8, pps).to(torch.int32)
+
+    def last():
+        return torch.randint(0, pps * ps, (8,), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    cases.append(("paged_decode_attention B=8",
+                  lambda: [randn(8, H_, 64), last()],
+                  lambda q, lp: ops.paged_decode_attention(q, kp, vp, tbl,
+                                                           lp)))
+    slots = torch.arange(64, device=dev, dtype=torch.int32) % 8
+    cases.append(("ragged_decode_attention T=64",
+                  lambda: [randn(64, H_, 64), last().repeat(8)],
+                  lambda q, tp: ops.ragged_paged_attention(q, kp, vp, tbl,
+                                                           slots, tp)))
+    return cases
+
+
+H_, KV_ = 14, 2
+
+
+@pytest.mark.cuda
+def test_every_kernel_replays_under_capture(cuda):
+    """Each wrapper captured in a CUDA graph (one memory pool for all, as
+    the engine's) and replayed on new inputs copied into its static
+    buffers gives the eager call's bits, also when replayed again after
+    every other graph was captured; the launch counts move only where a
+    wrapper runs, and the capture itself launches nothing."""
+    import subprocess
+
+    out = subprocess.run(["nvidia-smi", "--query-gpu=driver_version",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(f"torch {torch.__version__}, cuda {torch.version.cuda}, "
+          f"driver {out}")
+    pool = torch.cuda.graph_pool_handle()
+    graphs = []
+    for name, make, fn in _graph_cases(cuda):
+        static = make()
+        fn(*static)                                    # warm-up
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, pool=pool):
+            result = fn(*static)
+        graphs.append((name, make, fn, static, g, result))
+        for new in (make(), make()):
+            for s, x in zip(static, new):
+                s.copy_(x)
+            g.replay()
+            assert torch.equal(result, fn(*new)), name
+    for name, make, fn, static, g, result in graphs:
+        new = make()
+        for s, x in zip(static, new):
+            s.copy_(x)
+        ops.reset_launch_counts()
+        g.replay()
+        torch.cuda.synchronize()
+        assert set(ops.launch_counts().values()) == {0}
+        assert torch.equal(result, fn(*new)), f"{name}, replayed again"
+
+
+def _captured_vs_eager(cuda, step, cache_dtype, trace_fn, warm_lens):
+    """One trace through the captured engine and an eager one on the same
+    weights: (stats, tokens, launches) of each."""
+    from repro_torch.configs import Runtime, ServingConfig, get_config
+    from repro_torch.observability import Telemetry
+    from repro_torch.serving.api import run_trace
+    from repro_torch.serving.engine import InferenceEngine
+
+    cs = _chip_smoke()
+    cfg = get_config("qwen2-0.5b").reduced(n_layers=2, head_dim=64)
+    rt = Runtime(attn_impl="flash", quant_backend="w4a4_packed",
+                 cache_dtype=cache_dtype)
+    sv = ServingConfig(max_batch=4, page_size=16, num_pages=24, max_ctx=128,
+                       step=step)
+    out, params = {}, None
+    for mode in ("captured", "eager"):
+        make = InferenceEngine if mode == "captured" else cs.eager_engine
+        eng = make(cfg, rt, sv, params=params, device=cuda,
+                   telemetry=Telemetry(strict_recompiles=True))
+        params = eng.params
+        eng.warmup(warm_lens)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        stats, fin = run_trace(eng, trace_fn(cfg.vocab))
+        torch.cuda.synchronize()
+        assert all(r.outcome == "ok" and len(r.tokens) == r.max_new
+                   for r in fin)
+        out[mode] = (stats, [r.tokens for r in fin], ops.launch_counts(),
+                     eng)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step,cache_dtype", [("bucketed", "bfloat16"),
+                                              ("ragged", "int8")])
+def test_captured_engine_equals_eager_engine(cuda, step, cache_dtype):
+    """Greedy tokens and kernel launch counts of the captured engine equal
+    the eager engine's on one trace (with preemption: 24 pages of 16 for
+    four requests of up to 90 tokens), every step shape captured once."""
+    from repro_torch.serving.api import mixed_trace, poisson_trace
+
+    def trace(vocab):
+        if step == "ragged":
+            return mixed_trace(8, (8, 20, 50), (8, 40), vocab, seed=2)
+        return poisson_trace(8, 1.0, (8, 20, 50), (8, 40), vocab, seed=2)
+
+    out = _captured_vs_eager(cuda, step, cache_dtype, trace, (8, 20, 50))
+    (cs, ctok, cn, eng), (es, etok, en, _) = out["captured"], out["eager"]
+    assert ctok == etok
+    assert cn == en, (cn, en)
+    assert cs["recompiles"]["steady_state"] == 0
+    assert cs["recompiles"]["total"] == sum(
+        s._cache_size() for s in (eng._prefill, eng._prefill_tail,
+                                  eng._decode, eng._ragged) if s is not None)
+    assert cs["recompiles"]["by_fn"] == es["recompiles"]["by_fn"]
+
+
+@pytest.mark.cuda
+def test_captured_engine_mid_run_bucket_is_a_compile(cuda):
+    """A prompt bucket first hit mid-run (warmup covers 8 and 16 tokens,
+    the trace brings 50) is captured then: a compile, never a steady-state
+    recompile (the engine's sentinel is strict)."""
+    from repro_torch.serving.api import poisson_trace
+
+    out = _captured_vs_eager(
+        cuda, "bucketed", "bfloat16",
+        lambda vocab: poisson_trace(6, 1.0, (8, 12, 50), (6,), vocab,
+                                    seed=3), (8, 12))
+    (cs, ctok, _, eng), (_, etok, _, _) = out["captured"], out["eager"]
+    assert ctok == etok
+    rec = cs["recompiles"]
+    mid = [e for e in rec["events"] if e["step"] > 0]
+    assert any(e["fn"] == "prefill" and e["shape"] == [1, 64] for e in mid)
+    assert rec["steady_state"] == 0
+    assert not any(e["steady_state"] for e in rec["events"])
+    assert eng._prefill._cache_size() == rec["by_fn"]["prefill"]

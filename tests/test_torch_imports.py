@@ -44,6 +44,8 @@ def test_port_imports_neither_jax_nor_the_reference():
                  "repro_torch.core.backends",
                  "repro_torch.core.quant_plan",
                  "repro_torch.serving.engine",
+                 "repro_torch.launch.steps",
+                 "repro_torch.observability.jit_watch",
                  "repro_torch.launch.serve"):
         assert name in report["modules"]
 

@@ -196,3 +196,5 @@ def test_serve_cli_report_on_cpu():
     assert report["paged"]["decode_tokens"] == 3 * 2   # 1st token at prefill
     assert set(report["kernel_launches"].values()) == {0}
     assert report["tokens_per_s"] > 0
+    assert report["recompiles_steady_state"] == 0
+    assert report["paged"]["recompiles"]["total"] > 0
