@@ -78,7 +78,30 @@ Phases, each of which raises on failure (the script then exits non-zero):
                  host launches and device kernels per step (the run's
                  GEMM 7 per layer), the card's busy share, the run's GEMM
                  kernels' device time and the largest kernels, then the
-                 captured step beside the eager one.  Then the
+                 captured step beside the eager one, and
+                 engine.profile()'s attribution (one decode step against
+                 its decode attention alone) beside the graph's replay.
+                 Then, on the W4A4 weights: shared-prefix traffic
+                 (PREFIX_TRACE: a 128-token system prompt for all 8
+                 requests) on the bucketed and the ragged step, bf16 pool,
+                 each served captured, eager and captured with the prefix
+                 cache off: every request ok, prefix-hit tokens > 0, a
+                 prefill_tail shape captured and flash prefill launched
+                 (bucketed), captured tokens and launches equal to eager,
+                 tokens/s, TTFT p50 and hit rate beside the cold run's and
+                 token agreement with it reported; the bucketed captured
+                 run records the trace recorder's timeline, saved and
+                 checked as Chrome trace JSON with one lane per slot.  Then
+                 the chaos harness (serving.chaos.run_chaos, exact-softmax
+                 prefill as the CLI runs it): seed 0 with restores at
+                 steps 6 and 14 in both step modes and the cancel storm on
+                 the bucketed step, each held to a fault-free run of its
+                 own mode (survivors' tokens equal, no leaked pages, every
+                 request retired with an outcome, invariants after every
+                 event), with the memory allocated on the card read at
+                 each snapshot and after the run (flat within
+                 RESTORE_SLACK_BYTES) and each engine's captures printed.
+                 Then the
                  public entry points no serving path reaches (ops.mul4,
                  ops.int4_matmul), called as the JAX package's quickstart
                  and benchmarks call theirs.
@@ -1245,11 +1268,25 @@ SERVE_RUNS = {
              ("lut4_matmul", "flash_prefill", "paged_decode_attention"),
              ("int4_matmul_fused", "w4a16_matmul",
               "ragged_decode_attention")),
+    # shared-prefix traffic: prefix hits, the tail prefill over a cached
+    # prefix (flash over the gathered pages) under capture
+    "prefix_bucketed": ("bucketed", "bfloat16",
+                        {"quant_backend": "w4a4_packed"},
+                        ("int4_matmul_fused", "flash_prefill",
+                         "paged_decode_attention"),
+                        ("ragged_decode_attention", "w4a16_matmul",
+                         "lut4_matmul")),
+    "prefix_ragged": ("ragged", "bfloat16", {"quant_backend": "w4a4_packed"},
+                      ("int4_matmul_fused", "ragged_decode_attention"),
+                      ("flash_prefill", "paged_decode_attention",
+                       "w4a16_matmul", "lut4_matmul")),
 }
 #: the GEMM each serve run's projections go through: 7 launches per layer
 #: per forward
 RUN_GEMM = {"bucketed": "int4_matmul_fused", "ragged": "int4_matmul_fused",
-            "w4a16": "w4a16_matmul", "lut4": "lut4_matmul"}
+            "w4a16": "w4a16_matmul", "lut4": "lut4_matmul",
+            "prefix_bucketed": "int4_matmul_fused",
+            "prefix_ragged": "int4_matmul_fused"}
 #: the device kernels behind each GEMM wrapper, by a prefix of their name
 #: (the W4A16 wrapper's M <= 16 path and the lut4 wrapper's split calls
 #: launch two: split K, then reduce)
@@ -1269,13 +1306,15 @@ def eager_engine(*args, **kwargs):
         return InferenceEngine(*args, **kwargs)
 
 
-def serve_run(torch, params, run: str, trace, prompt_lens, eager=False):
+def serve_run(torch, params, run: str, trace, prompt_lens, eager=False,
+              prefix_cache=True, telemetry=None):
     """Serve `trace` on full-width qwen2-0.5b through InferenceEngine on
     cuda as serve run `run` of SERVE_RUNS, its steps captured (or eager,
-    with `eager`); checks every request, the devices of every tensor, the
-    launches of the path (counted from 0 just before the run) and, for the
-    captured steps, that no shape was captured twice.  Returns (engine,
-    launches, stats, tokens by request id)."""
+    with `eager`), the prefix cache on unless `prefix_cache` is false, with
+    `telemetry` (a new bundle by default); checks every request, the
+    devices of every tensor, the launches of the path (counted from 0 just
+    before the run) and, for the captured steps, that no shape was captured
+    twice.  Returns (engine, launches, stats, tokens by request id)."""
     from repro_torch.configs import Runtime, ServingConfig, get_config
     from repro_torch.kernels import ops
     from repro_torch.serving.api import run_trace
@@ -1286,10 +1325,12 @@ def serve_run(torch, params, run: str, trace, prompt_lens, eager=False):
     rt = Runtime(attn_impl="flash", cache_dtype=cache_dtype, **quant)
     sv = ServingConfig(layout="paged", max_batch=MAX_BATCH,
                        page_size=PAGE_SIZE, num_pages=320, max_ctx=512,
-                       prefix_cache=True, step=step)
+                       prefix_cache=prefix_cache, step=step)
     make = eager_engine if eager else InferenceEngine
-    engine = make(cfg, rt, sv, params=params, device="cuda")
-    label = f"{run}, {'eager' if eager else 'graphs'}"
+    engine = make(cfg, rt, sv, params=params, device="cuda",
+                  telemetry=telemetry)
+    label = (f"{run}, {'eager' if eager else 'graphs'}"
+             + ("" if prefix_cache else ", prefix cache off"))
     for tree, what in ((engine.params, "parameter"), (engine.caches, "cache")):
         cpu = [t for t in _tensors(tree) if t.device.type != "cuda"]
         if cpu:
@@ -1333,7 +1374,9 @@ def serve_run(torch, params, run: str, trace, prompt_lens, eager=False):
         f"ttft p50 {stats['ttft_p50_s']:.3f} s; steps {stats['steps']} "
         f"(mean {stats['wall_s'] / stats['steps'] * 1e3:.1f} ms), preempted "
         f"{stats['requests_preempted']}, prefill tokens "
-        f"{stats['prefill_tokens']}{budget}")
+        f"{stats['prefill_tokens']}, prefix-hit tokens "
+        f"{stats['tokens_prefilled_saved']} (hit rate "
+        f"{stats['prefix_hit_rate']:.3f}){budget}")
     say(f"serve ({label}): kernel launches {json.dumps(launches)}")
     rec = stats["recompiles"]
     say(f"serve ({label}): step shapes compiled {rec['total']} "
@@ -1354,13 +1397,236 @@ def serve_run(torch, params, run: str, trace, prompt_lens, eager=False):
     return engine, launches, stats, {r.rid: list(r.tokens) for r in finished}
 
 
+#: the shared-prefix trace of phase 4: 8 requests, one 128-token system
+#: prompt and a 32- or 96-token user suffix each, 16 or 32 new tokens
+PREFIX_TRACE = dict(n_requests=8, rate_per_step=0.5, sys_len=128,
+                    user_lens=(32, 96), gen_lens=(16, 32))
+
+
+def check_trace_json(path: str, n_slots: int) -> int:
+    """Load a saved trace recorder file as Chrome trace_event JSON; fail
+    unless it names an engine lane and one lane per batch slot and holds
+    step, prefill, tail prefill and request residency spans.  Returns its
+    event count."""
+    with open(path) as f:
+        doc = json.load(f)
+    events = doc["traceEvents"]
+    lanes = {e["tid"]: e["args"]["name"] for e in events
+             if e.get("ph") == "M" and e["name"] == "thread_name"}
+    want = {0: "engine", **{1 + s: f"slot{s}" for s in range(n_slots)}}
+    if lanes != want:
+        fail(f"trace: lanes {lanes}, want the engine and {n_slots} slots")
+    names = {e["name"] for e in events if e.get("ph") == "X"}
+    missing = {"step", "prefill", "tail_prefill"} - names
+    if missing or not any(n.startswith("r") and n[1:].isdigit()
+                          for n in names):
+        fail(f"trace: no {sorted(missing) or 'request residency'} spans "
+             f"among {sorted(names)[:12]}")
+    if doc["otherData"]["dropped_events"]:
+        fail(f"trace: {doc['otherData']['dropped_events']} events dropped")
+    return len(events)
+
+
+def prefix_runs(torch, params):
+    """Shared-prefix traffic (PREFIX_TRACE) on the bucketed and the ragged
+    step, bf16 pool, W4A4 weights: each served with captured steps, with
+    eager steps and, captured, with the prefix cache off (the cold run).
+    Fails unless every request is ok, prefix hits saved prefill tokens,
+    the bucketed run captured a tail-prefill shape and launched flash
+    prefill, nothing was captured twice, and the captured run's tokens and
+    launches equal the eager run's.  Token agreement with the cold run is
+    reported, not gated (flash over a cached prefix tiles the context
+    differently from a fresh prefill, and bf16 W4A4 amplifies a rounding
+    difference).  The bucketed captured run records the trace recorder's
+    timeline to a temporary file, checked by `check_trace_json`.  Returns
+    the captured runs' launches."""
+    import os
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.observability import Telemetry
+    from repro_torch.serving.api import shared_prefix_trace
+
+    trace = shared_prefix_trace(**PREFIX_TRACE,
+                                vocab=get_config("qwen2-0.5b").vocab,
+                                seed=SEED)
+    sys_len = PREFIX_TRACE["sys_len"]
+    warm = PREFIX_TRACE["user_lens"] + tuple(sys_len + u for u in
+                                            PREFIX_TRACE["user_lens"])
+    launches = []
+    for run in ("prefix_bucketed", "prefix_ragged"):
+        t0 = time.perf_counter()
+        tm = Telemetry(trace=True) if run == "prefix_bucketed" else None
+        engine, n, stats, tokens = serve_run(torch, params, run, trace, warm,
+                                             telemetry=tm)
+        del engine
+        _, n_eager, _, eager = serve_run(torch, params, run, trace, warm,
+                                         eager=True)
+        _, _, cold_stats, cold = serve_run(torch, params, run, trace, warm,
+                                           prefix_cache=False)
+        launches.append(n)
+        if stats["tokens_prefilled_saved"] <= 0:
+            fail(f"serve ({run}): no prefix-hit tokens on shared-prefix "
+                 "traffic")
+        by_fn = stats["recompiles"]["by_fn"]
+        if run == "prefix_bucketed" and by_fn.get("prefill_tail", 0) < 1:
+            fail(f"serve ({run}): no prefill_tail shape captured "
+                 f"({json.dumps(by_fn)})")
+        if eager != tokens or n_eager != n:
+            diff = [r for r in eager if tokens.get(r) != eager[r]]
+            fail(f"serve ({run}): captured vs eager: requests {diff} differ "
+                 f"in tokens, launches {json.dumps(n)} vs "
+                 f"{json.dumps(n_eager)}")
+        same = sum(tokens[r] == cold[r] for r in tokens)
+        first = sum(tokens[r][0] == cold[r][0] for r in tokens)
+        say(f"serve ({run}): every request's tokens and the kernel launches "
+            "equal the eager run's; prefix on vs off: "
+            f"{stats['decode_tok_per_s']:.1f} vs "
+            f"{cold_stats['decode_tok_per_s']:.1f} tok/s, TTFT p50 "
+            f"{stats['ttft_p50_s'] * 1e3:.2f} vs "
+            f"{cold_stats['ttft_p50_s'] * 1e3:.2f} ms, hit rate "
+            f"{stats['prefix_hit_rate']:.3f} vs "
+            f"{cold_stats['prefix_hit_rate']:.3f}, prefill tokens "
+            f"{stats['prefill_tokens']} vs {cold_stats['prefill_tokens']}; "
+            f"{same} of {len(tokens)} requests emit the cold run's tokens "
+            f"({first} its first token); "
+            f"captures {json.dumps(by_fn)}")
+        if tm is not None:
+            fd, path = tempfile.mkstemp(suffix=".json")
+            os.close(fd)
+            try:
+                tm.trace.save(path)
+                n_events = check_trace_json(path, MAX_BATCH)
+            finally:
+                os.unlink(path)
+            say(f"trace ({run}): Chrome trace JSON with the engine lane and "
+                f"{MAX_BATCH} slot lanes, {n_events} events")
+        say(f"serve ({run}): three runs in "
+            f"{time.perf_counter() - t0:.1f} s")
+    return {k: sum(n[k] for n in launches) for k in launches[0]}
+
+
+#: the chaos runs of phase 4: (step mode, chaos preset keywords or None for
+#: CANCEL_STORM)
+CHAOS_RUNS = (("bucketed", {"seed": 0, "stop_resume_at": (6, 14)}),
+              ("ragged", {"seed": 0, "stop_resume_at": (6, 14)}),
+              ("bucketed", None))
+#: the largest growth of memory_allocated from one restored engine to the
+#: next that still reads as flat: per-graph static buffers are ~KB, a
+#: leaked engine its 63 MB pool
+RESTORE_SLACK_BYTES = 1 << 20
+
+
+def chaos_runs(torch, params):
+    """The chaos harness (`serving.chaos.run_chaos`) at full width on the
+    card, bf16 pool, W4A4 weights, exact-softmax prefill as the CLI runs
+    it: seed 0 with a snapshot/restore at steps 6 and 14, bucketed and
+    ragged, and CANCEL_STORM bucketed.  Each run is held to a fault-free
+    reference of its own step mode (the ragged kernel's online softmax and
+    the bucketed exact prefill round differently).  run_chaos asserts the
+    invariants after every event, zero leaked pages, an outcome for every
+    request and survivors equal to the reference; here the memory
+    allocated on the card, read at each snapshot (one engine alive) and
+    after the run, must stay flat.  Prints each run's events, outcomes,
+    preemptions, the captures of each engine before its restore and the
+    memory readings.  Returns the chaos runs' launches."""
+    import gc
+    from unittest import mock
+
+    from repro_torch.configs import Runtime, ServingConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.serving import chaos
+    from repro_torch.serving.engine import InferenceEngine
+
+    cfg = get_config("qwen2-0.5b")
+    rt = Runtime(attn_impl="chunked", attn_chunk_q=512,
+                 quant_backend="w4a4_packed", cache_dtype="bfloat16")
+    refs, launches = {}, []
+    real_snapshot, real_restore = (InferenceEngine.snapshot,
+                                   InferenceEngine.restore.__func__)
+    for step, knobs in CHAOS_RUNS:
+        t0 = time.perf_counter()
+        preset = (chaos.CANCEL_STORM if knobs is None
+                  else chaos.ChaosConfig(**knobs))
+        name = f"{step}, " + ("cancel storm" if knobs is None
+                              else f"seed {preset.seed}")
+        sv = ServingConfig(layout="paged", max_batch=MAX_BATCH,
+                           page_size=PAGE_SIZE, num_pages=320, max_ctx=512,
+                           step=step, max_queue=2 * MAX_BATCH)
+        trace = chaos._make_trace(preset, cfg.vocab)
+        key = (step, preset.seed)
+        if key not in refs:
+            refs[key] = chaos.reference_tokens(cfg, rt, sv, trace,
+                                               params=params, device="cuda")
+        readings, held = [], {}
+
+        def snapshot(self):
+            gc.collect()
+            torch.cuda.synchronize()
+            readings.append((torch.cuda.memory_allocated(),
+                             self.tm.jit_watch.snapshot()["total"]))
+            return real_snapshot(self)
+
+        def restore(cls, *args, **kwargs):
+            held["engine"] = real_restore(cls, *args, **kwargs)
+            return held["engine"]
+
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        ops.reset_launch_counts()
+        try:
+            with mock.patch.object(InferenceEngine, "snapshot", snapshot), \
+                    mock.patch.object(InferenceEngine, "restore",
+                                      classmethod(restore)):
+                rep = chaos.run_chaos(cfg, rt, sv, preset, params=params,
+                                      reference=refs[key], device="cuda")
+        except AssertionError as exc:
+            fail(f"chaos ({name}): {exc}")
+        torch.cuda.synchronize()
+        launches.append(ops.launch_counts())
+        last = held.pop("engine", None)
+        captures = [c for _, c in readings] + (
+            [last.tm.jit_watch.snapshot()["total"]] if last else [])
+        del last
+        gc.collect()
+        after = torch.cuda.memory_allocated()
+        mem = [m for m, _ in readings]
+        if any(b > mem[0] + RESTORE_SLACK_BYTES for b in mem[1:]) \
+                or after > before + RESTORE_SLACK_BYTES:
+            fail(f"chaos ({name}): memory allocated grew across restores: "
+                 f"before {before}, at each snapshot {mem}, after {after}")
+        if rep["recompiles_steady_state"]:
+            fail(f"chaos ({name}): {rep['recompiles_steady_state']} "
+                 "steady-state recompiles")
+        say(f"chaos ({name}): {rep['steps']} steps, events "
+            f"{json.dumps(rep['events'])}, outcomes "
+            f"{json.dumps(rep['outcomes'])}, {rep['survivors']} survivors "
+            f"equal the reference, preemptions {rep['preemptions']}, leaked "
+            f"pages {rep['leaked_pages']}, pool high water "
+            f"{rep['pool_high_water']}; captures by each engine (restored "
+            f"at {list(preset.stop_resume_at)}): {captures}; memory "
+            f"allocated before {before}, at each snapshot {mem}, after "
+            f"{after} bytes; {time.perf_counter() - t0:.1f} s")
+    bucketed, ragged = refs[("bucketed", 0)], refs[("ragged", 0)]
+    same = sum(bucketed[r] == ragged[r] for r in bucketed)
+    first = sum(bucketed[r][0] == ragged[r][0] for r in bucketed)
+    say(f"chaos: the bucketed and ragged references agree on {same} of "
+        f"{len(bucketed)} requests, on the first token of {first} "
+        "(reported, not gated)")
+    return {k: sum(n[k] for n in launches) for k in launches[0]}
+
+
+
 def phase_serve(torch):
     """The bucketed path (bf16 pool, Poisson trace), then the ragged path
     (int8 pool, mixed trace), on one set of full-width W4A4 weights; then
     the bucketed path on the Poisson trace under the W4A16 plan (pre-packed
     grouped weights) and under lut4 (on-the-fly weights, the same masters),
-    whose tokens must equal the W4A4 run's.  Returns the launches of all
-    runs, summed."""
+    whose tokens must equal the W4A4 run's.  On the W4A4 weights also
+    `engine.profile()` after each of the first two runs, the shared-prefix
+    runs (`prefix_runs`) and the chaos runs (`chaos_runs`).  Returns the
+    launches of all runs, summed."""
     from repro_torch.configs import Runtime, get_config
     from repro_torch.serving.api import mixed_trace, poisson_trace
     from repro_torch.serving.engine import build_params
@@ -1386,6 +1652,15 @@ def phase_serve(torch):
                                                   prompt_lens)
             launches.append(n)
             prof = {"graphs": profile_steps(torch, engine, cfg.vocab, run)}
+            if quant == "w4a4_packed":
+                att = engine.profile()
+                say(f"profile ({run}): engine.profile(): decode step "
+                    f"{att['decode_step_us']} us, decode attention "
+                    f"{att['attn_us']} us ({cfg.n_layers} x one call), "
+                    f"attn_frac {att['attn_frac']}, at step "
+                    f"{att['at_step']}; profile_steps' replay "
+                    f"{prof['graphs']['replay_ms'] * 1e3:.1f} us of device "
+                    "time")
             del engine
             engine, n_eager, _, eager = serve_run(torch, params, run, trace,
                                                   prompt_lens, eager=True)
@@ -1409,6 +1684,9 @@ def phase_serve(torch):
                 f"launches and {g['kernels']:.0f} vs {e['kernels']:.0f} "
                 f"device kernels per step, device busy {g['busy']} vs "
                 f"{e['busy']}")
+        if quant == "w4a4_packed":
+            launches.append(prefix_runs(torch, params))
+            launches.append(chaos_runs(torch, params))
         del params
     if tokens["lut4"] != tokens["bucketed"]:
         diff = [rid for rid in tokens["bucketed"]

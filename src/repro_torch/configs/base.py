@@ -154,6 +154,12 @@ class ServingConfig:
     step: str = "bucketed"          # bucketed | ragged
     token_budget: int = 0           # ragged step's rows per step, 0 = auto
     max_queue: int = 0              # bounded admission queue (0 = none)
+    # watchdog deadline around each engine step (distributed.fault_tolerance
+    # Watchdog): a step exceeding it bumps
+    # serving_step_deadline_exceeded_total, and raises StepDeadlineExceeded
+    # when strict.  0 = off.
+    step_deadline_s: float = 0.0
+    step_deadline_strict: bool = False
 
     def __post_init__(self):
         assert self.layout in ("paged", "contiguous"), self.layout
@@ -162,7 +168,7 @@ class ServingConfig:
             "the ragged step packs tokens through block tables (paged only)"
         assert self.max_ctx % self.page_size == 0, \
             f"max_ctx {self.max_ctx} must be a multiple of page_size {self.page_size}"
-        assert self.max_queue >= 0
+        assert self.max_queue >= 0 and self.step_deadline_s >= 0.0
 
     @property
     def budget(self) -> int:

@@ -1,7 +1,7 @@
 """Continuous-batching serving driver for the PyTorch port.
 
-Serves synthetic traffic (Poisson arrivals, or the mixed and bursty
-scenarios) under a quantization plan (``--quant``, a uniform backend,
+Serves synthetic traffic (Poisson arrivals, or the shared_prefix, mixed
+and bursty scenarios) under a quantization plan (``--quant``, a uniform backend,
 default W4A4-packed weights through the fused int4 GEMM; or
 ``--quant-plan``, a preset, JSON file or inline rules, which takes
 precedence) and a paged KV pool (bf16, or int8/int4 with per-token scales)
@@ -11,7 +11,21 @@ decode; ``--step ragged`` packs prefill chunks and decode tokens into one
 ragged step a token budget wide.  Runs on ``cuda`` unless ``--device cpu``
 is given; on ``cuda`` every step shape is captured in a CUDA graph and
 replayed, and the report's ``recompiles_steady_state`` counts captures of a
-shape seen before (0 in a sound run).
+shape seen before (0 in a sound run).  The report carries the engine's
+`profile()` (one decode step's time against its decode attention alone).
+
+``--scenario shared_prefix`` gives every prompt one shared system prefix
+(``--sys-len`` tokens) and a user suffix from ``--prompt-lens``: the
+report's ``prefix_hit_rate`` and ``tokens_prefilled_saved`` show the
+prefix cache at work.  ``--scenario chaos`` (or ``cancel_storm``, a
+cancel-only preset) runs the seeded fault-injection harness
+(``serving.chaos``: cancels, deadlines, allocator failures, step faults,
+a snapshot/restore) in both step modes against one fault-free bucketed
+reference, with exact-softmax prefill (``attn_impl="chunked"``) as the
+JAX package's CLI does.  ``--max-queue`` bounds the admission queue (the
+chaos scenarios default to twice the batch), ``--trace-out`` writes the
+run's Chrome/Perfetto timeline, ``--metrics off`` disables the registry
+and the recompile sentinel.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b --full
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
@@ -20,6 +34,11 @@ shape seen before (0 in a sound run).
         --full --quant-plan "*=w4a16_packed/g128;lm_head=float"
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
         --reduced --device cpu --requests 4 --prompt-lens 8,16 --gen-lens 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
+        --reduced --device cpu --scenario shared_prefix --sys-len 32 \
+        --trace-out /tmp/serve_trace.json
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
+        --reduced --device cpu --scenario chaos --chaos-seed 3
 """
 
 from __future__ import annotations
@@ -32,8 +51,9 @@ import torch
 
 from ..configs import Runtime, ServingConfig, get_config
 from ..kernels import ops
+from ..observability import Telemetry
 from ..serving.api import (bursty_trace, mixed_trace, poisson_trace,
-                           run_trace)
+                           run_trace, shared_prefix_trace)
 from ..serving.engine import InferenceEngine, build_params
 
 #: the bursty scenario's arrivals per burst and decode steps between bursts
@@ -44,22 +64,57 @@ BURST, PERIOD = 4, 8
 def serve(arch: str, *, reduced=True, layers=None, max_batch=4,
           page_size=16, num_pages=48, max_ctx=128, requests=8, rate=0.5,
           prompt_lens=(8, 16, 32), gen_lens=(8, 16), prefix_cache=True,
-          scenario="poisson", step="bucketed",
+          scenario="poisson", sys_len=32, step="bucketed",
           token_budget=0, cache_dtype="bfloat16", quant="w4a4_packed",
-          quant_plan=None, seed=0, device="cuda"):
+          quant_plan=None, seed=0, chaos_seed=0, max_queue=0,
+          trace_out=None, metrics=True, device="cuda"):
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced(**({"n_layers": layers} if layers else {}))
     elif layers:
         cfg = dataclasses.replace(cfg, n_layers=layers)
+    if scenario in ("chaos", "cancel_storm"):
+        # the seeded fault-injection harness in both step modes against one
+        # fault-free bucketed reference, with exact-softmax prefill
+        # ("chunked") so that the bucketed and ragged survivors compare the
+        # same arithmetic
+        from ..serving.chaos import CANCEL_STORM, ChaosConfig, chaos_report
+
+        rt = Runtime(attn_impl="chunked", attn_chunk_q=min(512, max_ctx),
+                     quant_backend=None if quant_plan else quant,
+                     quant_plan=quant_plan, cache_dtype=cache_dtype)
+        base = CANCEL_STORM if scenario == "cancel_storm" else ChaosConfig()
+        chaos = dataclasses.replace(
+            base, seed=chaos_seed, n_requests=requests, rate_per_step=rate,
+            prompt_lens=tuple(prompt_lens), gen_lens=tuple(gen_lens),
+            stop_resume_at=(max(2, requests // 2),))
+        # the chaos runs always bound the admission queue, so shedding runs
+        # (deterministically: the queue's depth at submit follows the seed)
+        sv = ServingConfig(layout="paged", max_batch=max_batch,
+                           page_size=page_size, num_pages=num_pages,
+                           max_ctx=max_ctx, prefix_cache=prefix_cache,
+                           token_budget=token_budget,
+                           max_queue=max_queue or 2 * max_batch)
+        return {"arch": arch, "reduced": reduced, "scenario": scenario,
+                "quant": quant_plan or quant, "cache_dtype": cache_dtype,
+                "device": device,
+                **chaos_report(cfg, rt, sv, chaos, device=device)}
     rt = Runtime(attn_impl="flash", attn_chunk_q=min(512, max_ctx),
                  quant_backend=None if quant_plan else quant,
                  quant_plan=quant_plan, cache_dtype=cache_dtype)
     sv = ServingConfig(layout="paged", max_batch=max_batch,
                        page_size=page_size, num_pages=num_pages,
                        max_ctx=max_ctx, prefix_cache=prefix_cache, step=step,
-                       token_budget=token_budget)
-    if scenario == "mixed":
+                       token_budget=token_budget, max_queue=max_queue)
+    warm_lens = tuple(prompt_lens)
+    if scenario == "shared_prefix":
+        trace = shared_prefix_trace(requests, rate, sys_len, prompt_lens,
+                                    gen_lens, cfg.vocab, seed=seed)
+        # the cold full prompts (system prefix + user suffix) and the tail
+        # buckets a prefix hit leaves behind
+        warm_lens = tuple(prompt_lens) + tuple(sys_len + p
+                                               for p in prompt_lens)
+    elif scenario == "mixed":
         trace = mixed_trace(requests, prompt_lens, gen_lens, cfg.vocab,
                             seed=seed)
     elif scenario == "bursty":
@@ -69,12 +124,19 @@ def serve(arch: str, *, reduced=True, layers=None, max_batch=4,
         trace = poisson_trace(requests, rate, prompt_lens, gen_lens,
                               cfg.vocab, seed=seed)
     params = build_params(cfg, rt, seed, device)
-    engine = InferenceEngine(cfg, rt, sv, params=params, device=device)
-    engine.warmup(prompt_lens)
+    tm = Telemetry(metrics=metrics, trace=bool(trace_out))
+    engine = InferenceEngine(cfg, rt, sv, params=params, device=device,
+                             telemetry=tm)
+    engine.warmup(warm_lens)
     if engine.device.type == "cuda":
         torch.cuda.synchronize(engine.device)
     ops.reset_launch_counts()
     stats, _ = run_trace(engine, trace)
+    launches = ops.launch_counts()
+    # attention vs GEMM attribution of one decode step, stamped with the
+    # step it was taken at
+    stats["profile"] = engine.profile()
+    stats["profile_at_step"] = stats["profile"]["at_step"]
     report = {"arch": arch, "reduced": reduced, "n_layers": cfg.n_layers,
               "quant": quant_plan or quant, "cache_dtype": cache_dtype,
               "step": step, "scenario": scenario,
@@ -82,12 +144,18 @@ def serve(arch: str, *, reduced=True, layers=None, max_batch=4,
               "device_name": (torch.cuda.get_device_name(engine.device)
                               if engine.device.type == "cuda" else "cpu"),
               "requests": requests, "rate_per_step": rate,
-              "prefix_cache": bool(prefix_cache), "paged": stats,
-              "kernel_launches": ops.launch_counts()}
+              "prefix_cache": bool(prefix_cache),
+              **({"sys_len": sys_len} if scenario == "shared_prefix"
+                 else {}),
+              "paged": stats, "kernel_launches": launches}
+    if tm.trace.enabled:
+        tm.trace.save(trace_out)
+        report["trace_out"] = trace_out
     report["tokens_per_s"] = stats["decode_tok_per_s"]
     report["latency_p50_s"] = stats["latency_p50_s"]
     report["latency_p95_s"] = stats["latency_p95_s"]
     report["prefix_hit_rate"] = stats["prefix_hit_rate"]
+    report["tokens_prefilled_saved"] = stats["tokens_prefilled_saved"]
     # captures of a step shape seen before (0 unless a step's shape key
     # drifts: see observability.jit_watch)
     report["recompiles_steady_state"] = stats["recompiles"]["steady_state"]
@@ -112,9 +180,19 @@ def main():
     ap.add_argument("--prompt-lens", default="8,16,32")
     ap.add_argument("--gen-lens", default="8,16")
     ap.add_argument("--scenario", default="poisson",
-                    choices=["poisson", "mixed", "bursty"],
-                    help="mixed: one arrival per step with cycling lengths; "
-                         f"bursty: {BURST} arrivals every {PERIOD} steps")
+                    choices=["poisson", "shared_prefix", "mixed", "bursty",
+                             "chaos", "cancel_storm"],
+                    help="shared_prefix: one shared system prefix "
+                         "(--sys-len) + a user suffix from --prompt-lens; "
+                         "mixed: one arrival per step with cycling lengths; "
+                         f"bursty: {BURST} arrivals every {PERIOD} steps; "
+                         "chaos: the seeded fault-injection harness "
+                         "(cancels, deadlines, allocator failures, step "
+                         "faults, stop/resume) in both step modes, "
+                         "survivors held to a fault-free run; cancel_storm: "
+                         "its cancel-only preset")
+    ap.add_argument("--sys-len", type=int, default=32,
+                    help="shared system-prompt length (shared_prefix)")
     ap.add_argument("--step", default="bucketed",
                     choices=["bucketed", "ragged"],
                     help="bucketed prefill/decode steps, or the ragged "
@@ -135,6 +213,19 @@ def main():
                          "a preset name, a JSON path, or inline "
                          "pattern=backend[/g<G>][;...] rules")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--chaos-seed", type=int, default=0,
+                    help="seed of the chaos scenarios' trace and fault "
+                         "stream (--seed picks the weights)")
+    ap.add_argument("--max-queue", type=int, default=0,
+                    help="bounded admission queue: submissions past this "
+                         "many waiting requests are shed (0 = unbounded; "
+                         "the chaos scenarios default to 2 * max_batch)")
+    ap.add_argument("--trace-out", default=None,
+                    help="write the run's Chrome/Perfetto trace_event JSON "
+                         "timeline here")
+    ap.add_argument("--metrics", default="on", choices=["on", "off"],
+                    help="telemetry registry and recompile sentinel (off: "
+                         "stats() reports empty metrics and recompiles)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     ap.add_argument("--out", default=None,
@@ -149,9 +240,11 @@ def main():
         prompt_lens=tuple(int(x) for x in args.prompt_lens.split(",")),
         gen_lens=tuple(int(x) for x in args.gen_lens.split(",")),
         prefix_cache=args.prefix_cache == "on", scenario=args.scenario,
-        step=args.step,
+        sys_len=args.sys_len, step=args.step,
         token_budget=args.token_budget, cache_dtype=args.cache_dtype,
         quant=args.quant, quant_plan=args.quant_plan, seed=args.seed,
+        chaos_seed=args.chaos_seed, max_queue=args.max_queue,
+        trace_out=args.trace_out, metrics=args.metrics == "on",
         device=args.device)
     text = json.dumps(out, indent=1)
     print(text)

@@ -28,24 +28,43 @@ eagerly.  A recompile sentinel (``observability.jit_watch``) is polled
 after every step call, warmup included, and counts the captures per step
 function and shape (on the CPU, each new shape); ``stats()["recompiles"]``
 reports them.
+
+Lifecycle (host-side, outside the captured steps): `cancel` retires a
+queued or running request, a deadline given at `submit` retires it with
+outcome timeout at the first step boundary past it, a full bounded queue
+sheds, `inject_step_fault` raises at the top of the next step before any
+mutation (so ``distributed.fault_tolerance.run_with_retries`` retries
+against unchanged state), and an optional watchdog
+(``ServingConfig.step_deadline_s``) counts overrunning steps, or raises
+when strict.  `snapshot` / `restore` stop and resume the engine at a step
+boundary: the restored engine copies the pools and the table pool into its
+own tensors, which stay the storage its captured graphs read.  `profile`
+attributes one decode step's time to the decode attention kernel and the
+rest.  The telemetry bundle adds a trace recorder (off by default): one
+Perfetto lane per batch slot with each request's residency and its
+prefills, and an engine lane with one span per step.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
+from collections import deque
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..core.quant_plan import pack_for_serving
+from ..distributed.fault_tolerance import StepDeadlineExceeded, Watchdog
 from ..launch.steps import (CapturedStep, cuda_graph_capture,
                             make_ragged_step, make_serving_steps)
 from ..models.transformer import init_model, with_layer_views
 from ..observability import Telemetry
 from ..observability.metrics import COUNT_BUCKETS, MetricsRegistry
 from .kv_pages import PagedKVCacheManager, init_paged_caches
-from .scheduler import ERROR, OK, SHED, Request, Scheduler, ShedError
+from .scheduler import (CANCELLED, ERROR, OK, SHED, TIMEOUT, Request,
+                        Scheduler, ShedError)
 
 
 #: the step functions, as the engine's attributes (``_<name>``) and the
@@ -55,7 +74,20 @@ STEP_NAMES = ("prefill", "prefill_tail", "decode", "ragged")
 
 class EngineStuckError(RuntimeError):
     """run_until_idle() exhausted its step budget with work still queued
-    or running."""
+    or running.  Carries the stuck state: the rids queued and running and
+    the pool's pages in use."""
+
+    def __init__(self, max_steps: int, queued, running,
+                 pool_in_use: int, pool_pages: int):
+        self.max_steps = max_steps
+        self.queued = list(queued)
+        self.running = list(running)
+        self.pool_in_use = pool_in_use
+        self.pool_pages = pool_pages
+        super().__init__(
+            f"engine not idle after {max_steps} steps: "
+            f"queued rids {self.queued}, running rids {self.running}, "
+            f"pool {pool_in_use}/{pool_pages} pages in use")
 
 
 def resolve_device(device) -> torch.device:
@@ -80,6 +112,24 @@ def build_params(cfg, rt, seed: int = 0, device="cuda"):
     return pack_for_serving(init_model(gen, cfg), cfg, rt)
 
 
+def _pool_leaves(caches: Dict) -> List[tuple]:
+    """(path, tensor) of every pool leaf of `caches` in a fixed order: the
+    K/V pools and their scales, not the per-step routing leaves ("tbl",
+    "slots") a step binds."""
+    out: List[tuple] = []
+
+    def walk(node, path):
+        for key in sorted(node):
+            val = node[key]
+            if isinstance(val, dict):
+                walk(val, path + (key,))
+            elif key not in ("tbl", "slots"):
+                out.append((path + (key,), val))
+
+    walk(caches, ())
+    return out
+
+
 class InferenceEngine:
     """submit() requests, step() the world, collect() finished requests."""
 
@@ -97,6 +147,13 @@ class InferenceEngine:
         self.tm = telemetry if telemetry is not None \
             else Telemetry(registry=metrics)
         self.metrics = self.tm.registry
+        self.trace = self.tm.trace
+        self.trace.lane(0, "engine")
+        for slot in range(sv.max_batch):
+            self.trace.lane(1 + slot, f"slot{slot}")
+        # rid -> (trace t0, slot): the open residency segment of a request,
+        # one span on its slot's lane when it retires or is preempted
+        self._seg: Dict[int, tuple] = {}
         if params is None:
             params = build_params(cfg, rt, seed, self.device)
         self.params = with_layer_views(params, cfg)
@@ -124,6 +181,13 @@ class InferenceEngine:
         self._ragged = make_ragged_step(cfg, rt) \
             if sv.step == "ragged" else None
         self._budget = sv.budget
+        # step watchdog (ServingConfig.step_deadline_s): an overrunning step
+        # is counted, and raises in strict mode
+        self._watchdog = (Watchdog(sv.step_deadline_s)
+                          if sv.step_deadline_s > 0 else None)
+        # chaos hook: raised at the top of the next step(), before any
+        # state changes
+        self._inject_fault: Optional[Exception] = None
         # recompile sentinel: every step function is polled after each call
         # (warmup included), so a capture is attributed to the bucket shape
         # that triggered it
@@ -148,7 +212,11 @@ class InferenceEngine:
         self.n_prefix_hit_tokens = 0
         self.n_tokens_packed = 0
         self.n_tokens_wasted = 0
+        self._last_packed = 0
+        self._last_wasted = 0
         self.t_start = None
+        self._profile: Optional[Dict] = None
+        self._profile_step: Optional[int] = None
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -173,17 +241,23 @@ class InferenceEngine:
 
     # -------------------------------------------------------------- api --
     def submit(self, prompt, max_new: int, arrival: Optional[float] = None,
-               eos_id: Optional[int] = None) -> int:
-        """Queue a request.  Raises ShedError when the bounded admission
-        queue is full and ValueError when the request can never fit; both
-        retire it (outcome shed / error), collectable via collect()."""
+               eos_id: Optional[int] = None,
+               deadline_s: Optional[float] = None) -> int:
+        """Queue a request.  ``deadline_s`` is a time to live from now: the
+        step-boundary sweep retires the request with outcome timeout once
+        it passes, queued or mid-decode.  Raises ShedError when the bounded
+        admission queue is full and ValueError when the request can never
+        fit; both retire it (outcome shed / error), collectable via
+        collect()."""
         rid = self._next_rid
         self._next_rid += 1
         now = self.clock()
         req = Request(rid=rid, prompt=np.asarray(prompt, np.int32),
                       max_new=max_new,
                       arrival=now if arrival is None else arrival,
-                      eos_id=eos_id)
+                      eos_id=eos_id,
+                      deadline=(now + deadline_s
+                                if deadline_s is not None else None))
         req.t_visible = now
         self._all[rid] = req
         try:
@@ -198,6 +272,20 @@ class InferenceEngine:
         self.metrics.counter("requests_submitted_total",
                              "requests accepted into the queue").inc()
         return rid
+
+    def cancel(self, rid: int, outcome: str = CANCELLED) -> bool:
+        """Cancel a queued, prefilling or decoding request: its pages are
+        released (shared prefix pages stay warm), its slot frees at this
+        step boundary, and it retires with `outcome`, collectable via
+        collect().  False when rid is unknown or already retired."""
+        req = self._all.get(rid)
+        if req is None or req.t_finish is not None:
+            return False
+        retired = self.scheduler.cancel(rid, self.clock(), outcome)
+        if retired is None:
+            return False
+        self._finish_aborted(retired)
+        return True
 
     def collect(self) -> List[Request]:
         out, self._finished = self._finished, []
@@ -239,12 +327,40 @@ class InferenceEngine:
                 torch.zeros((nb,), dtype=torch.int32, device=self.device))
             self._poll_jit("decode", (nb, 1))
 
+    def inject_step_fault(self, exc: Exception) -> None:
+        """Chaos hook: raise `exc` at the top of the next step(), before
+        any scheduler or pool change, so wrapping step() in
+        ``run_with_retries`` retries against unchanged state."""
+        self._inject_fault = exc
+
     def step(self) -> int:
         """One decode-step boundary; returns the number of running requests
-        after the step (0 = idle)."""
-        if self._ragged is not None:
-            return self._step_ragged()
-        return self._step_bucketed()
+        after the step (0 = idle).  An injected fault fires first, then the
+        deadline sweep retires overdue requests (before admission can spend
+        pages on them); the watchdog, when set, watches the rest."""
+        if self._inject_fault is not None:
+            exc, self._inject_fault = self._inject_fault, None
+            raise exc
+        for req in self.scheduler.expire(self.clock()):
+            self._finish_aborted(req)
+        wd = self._watchdog
+        if wd is not None:
+            wd.arm()
+        try:
+            n = (self._step_ragged() if self._ragged is not None
+                 else self._step_bucketed())
+        finally:
+            if wd is not None:
+                wd.disarm()
+        if wd is not None and wd.fired.is_set():
+            self.metrics.counter(
+                "serving_step_deadline_exceeded_total",
+                "engine steps that overran the watchdog deadline").inc()
+            if self.sv.step_deadline_strict:
+                raise StepDeadlineExceeded(
+                    f"serving step {self.n_steps - 1} exceeded "
+                    f"{self.sv.step_deadline_s:.3f}s deadline")
+        return n
 
     def _warm_ragged(self) -> None:
         """One ragged step at the current budget, all rows padding (slot
@@ -276,21 +392,33 @@ class InferenceEngine:
 
     def _step_bucketed(self) -> int:
         t0 = time.perf_counter()
+        tt0 = self.trace.now()
         now = self.clock()
         if self.t_start is None:
             self.t_start = now
         admitted = self.scheduler.admit(now)
+        n_tail = sum(1 for r in admitted if r.n_cached)
         for req in admitted:
             self._prefill_request(req)
         self._retire()                 # a 1-token request is done at prefill
-        self.scheduler.ensure_decode()
+        self._close_preempted(self.scheduler.ensure_decode())
         batch = self.scheduler.batch()
         if batch:
             self._decode_batch(batch)
         self.n_steps += 1
         self._retire()
-        self._observe_step(t0, batch)
+        self._observe_step(t0, tt0, admitted, n_tail, batch)
         return len(self.scheduler.running)
+
+    def _close_preempted(self, preempted: List[Request]) -> None:
+        """A preemption ends a request's slot residency: close its segment
+        so the timeline shows the slot going dark."""
+        for req in preempted:
+            seg = self._seg.pop(req.rid, None)
+            if seg is not None:
+                self.trace.complete(f"r{req.rid}", 1 + seg[1], seg[0],
+                                    rid=req.rid, outcome="preempted",
+                                    gen=len(req.tokens))
 
     def _step_ragged(self) -> int:
         """One ragged token-major step: admit, plan a token budget's worth
@@ -299,10 +427,13 @@ class InferenceEngine:
         possibly over several steps, beside everyone else's decode
         tokens."""
         t0 = time.perf_counter()
+        tt0 = self.trace.now()
         now = self.clock()
         if self.t_start is None:
             self.t_start = now
-        for req in self.scheduler.admit(now):
+        admitted = self.scheduler.admit(now)
+        n_tail = sum(1 for r in admitted if r.n_cached)
+        for req in admitted:
             # prefix-cache hits are realized at admission: the planner only
             # ever feeds prefix[n_cached:]
             hit = req.n_cached
@@ -310,7 +441,8 @@ class InferenceEngine:
             self.metrics.counter(
                 "prefix_hit_tokens_total",
                 "prompt/resume tokens served from cached pages").inc(hit)
-        self.scheduler.ensure_decode()
+            self._seg.setdefault(req.rid, (self.trace.now(), req.slot))
+        self._close_preempted(self.scheduler.ensure_decode())
         # the budget must cover every decode token plus one prefill-chunk
         # row while a prefill-phase request runs, or a saturated decode set
         # starves the later slots (decode tokens are planned in slot order)
@@ -324,7 +456,8 @@ class InferenceEngine:
             self._ragged_exec(plan)
         self.n_steps += 1
         self._retire()
-        self._observe_step(t0, [r for r, _, _ in plan if r.decoding])
+        self._observe_step(t0, tt0, admitted, n_tail,
+                           [r for r, _, _ in plan if r.decoding])
         return len(self.scheduler.running)
 
     def _ragged_exec(self, plan) -> None:
@@ -350,6 +483,7 @@ class InferenceEngine:
             used += n
         self._observe_packing(used, T)
         self._sync_tables([r for r, _, _ in plan])
+        tp0 = self.trace.now()
         nxt, self.caches = self._ragged(
             self.params, self._in(tokens), self.caches,
             self._in(positions), self._tbl, self._in(slots),
@@ -369,6 +503,9 @@ class InferenceEngine:
                 self.n_prefill_tokens += n
                 m.counter("prefill_tokens_total",
                           "tokens pushed through prefill").inc(n)
+                if self.trace.enabled:
+                    self.trace.complete("chunk_prefill", 1 + req.slot, tp0,
+                                        rid=req.rid, tokens=n, start=start)
             req.n_cached = end
             if emit_rows[req.slot] >= 0:
                 if not req.decoding:
@@ -383,7 +520,11 @@ class InferenceEngine:
                     # a decode row filled a generated-token page
                     self.kv.register_upto(req.rid, req.prefix, end)
 
-    def _observe_step(self, t0: float, batch: List[Request]) -> None:
+    def _observe_step(self, t0: float, tt0: float, admitted: List[Request],
+                      n_tail: int, batch: List[Request]) -> None:
+        """Per-step telemetry: wall time and batch size into the registry,
+        occupancy gauges at the step boundary, the step's token
+        utilization, and the engine lane's step span."""
         m = self.metrics
         m.counter("steps_total", "engine decode-step boundaries").inc()
         m.histogram("step_wall_us", "wall time per engine step").observe(
@@ -395,10 +536,33 @@ class InferenceEngine:
             len(self.scheduler.waiting))
         m.gauge("running_requests", "requests in the decode batch").set(
             len(self.scheduler.running))
+        # useful rows over useful + padding rows computed since the last
+        # boundary
+        du = self.n_tokens_packed - self._last_packed
+        dw = self.n_tokens_wasted - self._last_wasted
+        self._last_packed = self.n_tokens_packed
+        self._last_wasted = self.n_tokens_wasted
+        if du + dw:
+            m.gauge("token_utilization",
+                    "useful fraction of the step's padded token capacity"
+                    ).set(du / (du + dw))
         m.gauge("kv_pool_in_use_pages", "pages held by running requests").set(
             self.kv.in_use)
+        m.gauge("kv_pool_warm_pages", "refcount-0 pages still indexed").set(
+            len(self.kv.warm))
+        m.gauge("kv_pool_blank_pages", "free pages with no content").set(
+            len(self.kv.blank))
+        m.gauge("kv_pool_occupancy", "in-use fraction of the page pool").set(
+            self.kv.in_use / self.sv.num_pages)
         m.gauge("kv_pool_high_water_pages",
                 "peak concurrent in-use pages").set(self.kv.high_water)
+        if self.trace.enabled:
+            self.trace.complete(
+                "step", 0, tt0,
+                decode_rows=len(batch),
+                prefills=len(admitted) - n_tail, tail_prefills=n_tail,
+                queue_depth=len(self.scheduler.waiting),
+                pool_in_use=self.kv.in_use)
 
     def _retire(self) -> None:
         now = self.clock()
@@ -408,7 +572,18 @@ class InferenceEngine:
                 self._finished.append(req)
                 self._observe_retire(req)
 
+    def _finish_aborted(self, req: Request) -> None:
+        """Land a request the scheduler aborted (cancel, deadline) in the
+        collect() queue with its retirement telemetry."""
+        self._finished.append(req)
+        self._observe_retire(req)
+
     def _observe_retire(self, req: Request) -> None:
+        """Retirement telemetry, recorded when t_finish is stamped: the
+        retire counter and latency histograms carry the request's outcome
+        (ok, cancelled, timeout, shed, error); requests_finished_total
+        counts ok alone; the residency segment closes on the slot's
+        lane."""
         m = self.metrics
         out = req.outcome or ERROR
         m.counter("requests_retired_total", "requests retired, any outcome",
@@ -416,21 +591,45 @@ class InferenceEngine:
         if out == OK:
             m.counter("requests_finished_total",
                       "requests fully decoded").inc()
+        elif out == CANCELLED:
+            m.counter("serving_cancelled_total",
+                      "requests cancelled before finishing").inc()
+        elif out == TIMEOUT:
+            m.counter("serving_timeout_total",
+                      "requests retired past their deadline").inc()
+        elif out == SHED:
+            m.counter("serving_shed_total",
+                      "requests shed by the bounded admission queue").inc()
         m.histogram("request_latency_us", "submit-to-retire wall time",
                     outcome=out).observe((req.t_finish - req.t_visible) * 1e6)
         if req.t_first is not None:
             m.histogram("ttft_us", "time to first token",
                         outcome=out).observe(
                             (req.t_first - req.t_visible) * 1e6)
+            if len(req.tokens) > 1:
+                m.histogram("itl_us",
+                            "mean inter-token latency per request",
+                            outcome=out).observe(
+                                (req.t_finish - req.t_first) * 1e6
+                                / (len(req.tokens) - 1))
+        seg = self._seg.pop(req.rid, None)
+        if seg is not None:
+            self.trace.complete(f"r{req.rid}", 1 + seg[1], seg[0],
+                                rid=req.rid, outcome=out,
+                                gen=len(req.tokens),
+                                preempts=req.n_preempts)
 
     def run_until_idle(self, max_steps: int = 100_000) -> None:
         for _ in range(max_steps):
             if self.step() == 0 and self.scheduler.idle:
                 return
+        self.metrics.counter(
+            "serving_engine_stuck_total",
+            "run_until_idle step-budget exhaustions").inc()
         raise EngineStuckError(
-            f"engine not idle after {max_steps} steps: queued rids "
-            f"{[r.rid for r in self.scheduler.waiting]}, running rids "
-            f"{list(self.scheduler.running)}")
+            max_steps, [r.rid for r in self.scheduler.waiting],
+            list(self.scheduler.running), self.kv.in_use,
+            self.sv.num_pages)
 
     # -------------------------------------------------------- internals --
     def _poll_jit(self, name: str, shape) -> None:
@@ -479,6 +678,10 @@ class InferenceEngine:
         # pad rows stay negative (spilled writes, masked queries) after the
         # hit offset shifts the real tail to hit..L-1
         positions = np.where(base >= 0, base + hit, -1).astype(np.int32)[None]
+        # open the slot-residency segment (a resume opens a new one) and
+        # record this prefill as a span
+        self._seg.setdefault(req.rid, (self.trace.now(), req.slot))
+        tp0 = self.trace.now()
         self._sync_tables([req])
         step = self._prefill_tail if hit else self._prefill
         tok, self.caches = step(
@@ -486,6 +689,9 @@ class InferenceEngine:
             self._in(positions), self._tbl,
             self._in(np.asarray([req.slot], np.int32)))
         self._poll_jit("prefill_tail" if hit else "prefill", (1, Lb))
+        self.trace.complete("tail_prefill" if hit else "prefill",
+                            1 + req.slot, tp0, rid=req.rid, tokens=n,
+                            hit=hit, bucket=Lb)
 
         req.n_cached = L
         self.n_prefill_tokens += n
@@ -493,6 +699,9 @@ class InferenceEngine:
         m = self.metrics
         m.counter("prefill_tokens_total",
                   "tokens pushed through prefill").inc(n)
+        if hit:
+            m.counter("tail_prefill_tokens_total",
+                      "prefill tokens behind a prefix-cache hit").inc(n)
         m.counter("prefix_hit_tokens_total",
                   "prompt/resume tokens served from cached pages").inc(hit)
         self._observe_packing(n, Lb)
@@ -533,6 +742,225 @@ class InferenceEngine:
                 # a generated-token page just filled: index it
                 self.kv.register_upto(req.rid, req.prefix, req.n_cached)
         self.n_decode_tokens += n
+
+    # ------------------------------------------------------- stop/resume --
+    def snapshot(self) -> Dict:
+        """Freeze the engine at a step boundary: every request's progress,
+        the scheduler's queues and slots, the page manager's bookkeeping,
+        the KV pools and the table pool (copied to host tensors) and the
+        counters.  `InferenceEngine.restore(snap)` builds an engine that
+        continues as this one would have: the pools are restored verbatim,
+        so nothing is recomputed.  Call between steps.  The dict is
+        same-process state: configs are held by reference and the prefix
+        index keys are Python hashes (stable across processes only with
+        ``PYTHONHASHSEED`` pinned)."""
+        def _req(req: Request) -> Dict:
+            d = {f.name: getattr(req, f.name)
+                 for f in dataclasses.fields(Request)}
+            d["prompt"] = np.array(d["prompt"], np.int32)
+            d["tokens"] = list(d["tokens"])
+            return d
+
+        sch = self.scheduler
+        return {
+            "cfg": self.cfg, "rt": self.rt, "sv": self.sv,
+            "device": str(self.device),
+            "requests": {rid: _req(r) for rid, r in self._all.items()},
+            "finished": [r.rid for r in self._finished],
+            "waiting": [r.rid for r in sch.waiting],
+            "running": list(sch.running),          # insertion order
+            "free_slots": list(sch._free_slots),   # heap layout, verbatim
+            "admit_counter": sch._admit_counter,
+            "n_preemptions": sch.n_preemptions,
+            "kv": self.kv.state(),
+            "caches": [t.to("cpu", copy=True)
+                       for _, t in _pool_leaves(self.caches)],
+            "tbl": self._tbl.to("cpu", copy=True),
+            "budget": self._budget if self._ragged is not None else None,
+            "next_rid": self._next_rid,
+            "counters": {
+                "n_steps": self.n_steps,
+                "n_decode_tokens": self.n_decode_tokens,
+                "n_prefill_tokens": self.n_prefill_tokens,
+                "n_prefix_hit_tokens": self.n_prefix_hit_tokens,
+                "n_tokens_packed": self.n_tokens_packed,
+                "n_tokens_wasted": self.n_tokens_wasted,
+                "t_start": self.t_start,
+            },
+        }
+
+    @classmethod
+    def restore(cls, snap: Dict, params=None, seed: int = 0,
+                clock=time.time, telemetry: Optional[Telemetry] = None
+                ) -> "InferenceEngine":
+        """Build an engine on the snapshot's device from a `snapshot()` and
+        resume where it stopped.  Weights are not in the snapshot: pass the
+        same `params` (or the same `seed`).  The new engine's steps capture
+        each shape at its first call (counted as compiles, never as
+        steady-state recompiles)."""
+        eng = cls(snap["cfg"], snap["rt"], snap["sv"], params=params,
+                  seed=seed, clock=clock, telemetry=telemetry,
+                  device=snap["device"])
+        eng._load_snapshot(snap)
+        return eng
+
+    def _load_snapshot(self, snap: Dict) -> None:
+        """Load `snap` into this engine.  The pools and the table pool are
+        copied into the engine's own tensors, never rebound: they stay the
+        storage every graph captured before the load reads and writes."""
+        reqs: Dict[int, Request] = {}
+        for rid, d in snap["requests"].items():
+            d = dict(d)
+            d["prompt"] = np.array(d["prompt"], np.int32)
+            d["tokens"] = list(d["tokens"])
+            reqs[rid] = Request(**d)
+        self._all = reqs
+        self._finished = [reqs[r] for r in snap["finished"]]
+        sch = self.scheduler
+        sch.waiting = deque(reqs[r] for r in snap["waiting"])
+        sch.running = {r: reqs[r] for r in snap["running"]}
+        sch._free_slots = list(snap["free_slots"])
+        sch._admit_counter = snap["admit_counter"]
+        sch.n_preemptions = snap["n_preemptions"]
+        self.kv.load_state(snap["kv"])
+        if self._ragged is not None and snap["budget"] is not None:
+            # the source engine's (possibly grown) budget, so the plan packs
+            # as it would have; a new shape is captured at first use
+            self._budget = snap["budget"]
+        leaves = _pool_leaves(self.caches)
+        if [tuple(t.shape) for _, t in leaves] != \
+                [tuple(t.shape) for t in snap["caches"]]:
+            raise ValueError("snapshot: the KV pools' shapes differ from "
+                             "this engine's")
+        for (_, dst), src in zip(leaves, snap["caches"]):
+            dst.copy_(src)
+        self._tbl.copy_(snap["tbl"])
+        # empty version map: running requests' rows upload again on their
+        # next batch (versions key on slot and page ids)
+        self._tbl_ver = {}
+        self._next_rid = snap["next_rid"]
+        c = snap["counters"]
+        self.n_steps = c["n_steps"]
+        self.n_decode_tokens = c["n_decode_tokens"]
+        self.n_prefill_tokens = c["n_prefill_tokens"]
+        self.n_prefix_hit_tokens = c["n_prefix_hit_tokens"]
+        self.n_tokens_packed = self._last_packed = c["n_tokens_packed"]
+        self.n_tokens_wasted = self._last_wasted = c["n_tokens_wasted"]
+        self.t_start = c["t_start"]
+        sch.check_invariants()
+        self.kv.check_invariants()
+
+    # ----------------------------------------------------------- profile --
+    def profile(self, reps: int = 3) -> Dict:
+        """Attribute one full-context decode step's time: the whole step
+        (the captured one on CUDA; ragged: the step at the token budget,
+        all padding) against the decode attention op alone (the same
+        ``kernels.ops`` entry the model calls, timed once and counted
+        ``n_layers`` times), so a regression can be pinned on attention or
+        on the GEMMs and the rest.  Best of `reps` timed calls after one
+        untimed call.  Call when idle: the probe steps write through stale
+        table rows and scratch the pool.  The result lands in
+        ``stats()["profile"]``."""
+        dev, cfg, sv = self.device, self.cfg, self.sv
+
+        def sync():
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+        def best_us(fn):
+            fn()
+            sync()
+            ts = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                fn()
+                sync()
+                ts.append((time.perf_counter() - t0) * 1e6)
+            return float(min(ts))
+
+        nb = sv.max_batch
+        rng = np.random.default_rng(0)
+        q = torch.from_numpy(rng.standard_normal(
+            (nb, cfg.n_heads, cfg.hd))).to(torch.bfloat16).to(dev)
+        last = torch.full((nb,), sv.max_ctx - 1, dtype=torch.int32,
+                          device=dev)
+        if self._ragged is not None:
+            T = self._budget
+            rtok = np.zeros((1, T), np.int32)
+            rpos = np.full((1, T), -1, np.int32)
+            rslots = np.full((T,), -1, np.int32)
+            remit = np.full((nb,), -1, np.int32)
+
+            def step():
+                nxt, self.caches = self._ragged(
+                    self.params, self._in(rtok), self.caches,
+                    self._in(rpos), self._tbl, self._in(rslots),
+                    self._in(remit))
+                return nxt
+        else:
+            tok = np.zeros((nb, 1), np.int32)
+            pos = np.full((nb, 1), sv.max_ctx - 1, np.int32)
+            slots = np.zeros((nb,), np.int32)
+
+            def step():
+                nxt, self.caches = self._decode(
+                    self.params, self._in(tok), self.caches, self._in(pos),
+                    self._tbl, self._in(slots))
+                return nxt
+
+        step_us = best_us(step)
+
+        from ..kernels import ops
+
+        attn = {k: v[0] for k, v in self.caches["rep"]["u0"]["attn"].items()
+                if k not in ("tbl", "slots")}
+        if self._ragged is not None:
+            T = self._budget
+            qT = torch.from_numpy(rng.standard_normal(
+                (T, cfg.n_heads, cfg.hd))).to(torch.bfloat16).to(dev)
+            tslots = torch.zeros((T,), dtype=torch.int32, device=dev)
+            tpos = torch.full((T,), sv.max_ctx - 1, dtype=torch.int32,
+                              device=dev)
+
+            def attn_op():
+                return ops.ragged_paged_attention(
+                    qT, attn["k"], attn["v"], self._tbl, tslots, tpos,
+                    attn.get("k_scale"), attn.get("v_scale"),
+                    window=cfg.local_window)
+        elif self.rt.paged_attn == "fused":
+            def attn_op():
+                return ops.paged_decode_attention(
+                    q, attn["k"], attn["v"], self._tbl[:nb], last,
+                    attn.get("k_scale"), attn.get("v_scale"),
+                    window=cfg.local_window)
+        else:
+            from ..models.attention import attention_core
+            from .kv_pages import paged_read
+
+            def attn_op():
+                kf, vf, kpos = paged_read(dict(attn, tbl=self._tbl[:nb]),
+                                          last)
+                return attention_core(
+                    q[:, None], kf, vf, q_positions=last[:, None],
+                    k_positions=kpos, window=cfg.local_window,
+                    impl="full", chunk_q=self.rt.attn_chunk_q)
+
+        with torch.inference_mode():
+            attn_us = best_us(attn_op) * cfg.n_layers
+        self._profile = {
+            "decode_step_us": round(step_us, 1),
+            "attn_us": round(attn_us, 1),
+            "gemm_other_us": round(max(step_us - attn_us, 0.0), 1),
+            "attn_frac": round(min(attn_us / step_us, 1.0), 4)
+            if step_us else None,
+            "at_step": self.n_steps,
+        }
+        self._profile_step = self.n_steps
+        # a probe can hit a shape no step has run (a decode bucket the run
+        # never filled): re-baseline the sentinel so that capture is not
+        # read as the next real step's recompile
+        self.tm.jit_watch.absorb()
+        return self._profile
 
     # ------------------------------------------------------------- stats --
     def stats(self) -> Dict:
@@ -588,4 +1016,7 @@ class InferenceEngine:
             "paged_attn": self.rt.paged_attn,
             "recompiles": self.tm.jit_watch.snapshot(),
             "metrics": self.metrics.snapshot(),
+            **({"profile": self._profile,
+                "profile_at_step": self._profile_step}
+               if self._profile else {}),
         }

@@ -40,7 +40,10 @@ lists, with refcounted, content-addressed prefix caching: full pages are
 identified by a chained hash of the tokens behind them, admission shares
 the longest cached page-aligned prefix (refcount + 1, never rewritten), and
 refcount-0 registered pages park in an LRU until the blank list runs dry.
-It is numpy and Python only and ports verbatim.
+Its bookkeeping round-trips through ``state`` / ``load_state`` (engine
+snapshots), and ``fail_next_admits`` makes the next admissions report a
+capacity miss (the chaos harness).  It is numpy and Python only and ports
+verbatim.
 """
 
 from __future__ import annotations
@@ -243,6 +246,10 @@ class PagedKVCacheManager:
         self.n_lookups = 0
         self.n_hit_tokens = 0
         self.n_evictions = 0
+        # chaos hook (serving/chaos.py): the next N admissions that would
+        # allocate pages report capacity failure instead, exercising the
+        # all-or-nothing admission path without real pool pressure
+        self.fail_next_admits = 0
 
     # -- capacity ---------------------------------------------------------
     @property
@@ -342,6 +349,14 @@ class PagedKVCacheManager:
         assert rid not in self.pages, f"rid {rid} already holds pages"
         if n_tokens > self.sv.max_ctx:
             return None
+        if self.fail_next_admits:
+            # injected allocator failure: exactly a capacity miss (nothing
+            # held, nothing counted, the request waits)
+            self.fail_next_admits -= 1
+            self.metrics.counter(
+                "chaos_alloc_failures_total",
+                "admissions failed by the chaos allocator hook").inc()
+            return None
         shared, h = self._match(tokens) if self.sv.prefix_cache \
             else ([], _HASH_SEED)
         warm_shared = sum(1 for p in shared if not self.refcount.get(p))
@@ -399,9 +414,11 @@ class PagedKVCacheManager:
 
     # -- invariants --------------------------------------------------------
     def check_invariants(self) -> None:
-        """blank / warm / in-use partition the pool; refcounts equal the
-        ownership multiset; only registered pages are shared or warm; the
-        prefix index and page_hash are inverse maps."""
+        """blank / warm / in-use partition the pool; refcounts are >= 1 and
+        equal the ownership multiset (so free pages plus ownership shares
+        make the pool); only registered pages are shared or warm; the
+        prefix index and page_hash are inverse maps.  Shared by the chaos
+        harness, which asserts it after every event."""
         blank, warm = set(self.blank), set(self.warm)
         in_use = set(self.refcount)
         assert len(blank) == len(self.blank), "blank list holds duplicates"
@@ -409,6 +426,11 @@ class PagedKVCacheManager:
             and not (warm & in_use), "pool state overlap"
         assert blank | warm | in_use == set(range(self.sv.num_pages)), \
             "pool partition incomplete"
+        assert all(c >= 1 for c in self.refcount.values())
+        shares = sum(1.0 / self.refcount[p]
+                     for pages in self.pages.values() for p in pages)
+        assert abs(self.available + shares - self.sv.num_pages) < 1e-9, \
+            "ownership shares + free pages != pool"
         owners: Dict[int, int] = {}
         for rid, pages in self.pages.items():
             assert len(set(pages)) == len(pages), \
@@ -423,3 +445,37 @@ class PagedKVCacheManager:
             "warm page lost its registration"
         assert self.index == {h: p for p, h in self.page_hash.items()}, \
             "index/page_hash out of sync"
+
+    # -- snapshot ----------------------------------------------------------
+    def state(self) -> Dict:
+        """Host-side allocator state for ``InferenceEngine.snapshot()``.
+        The prefix-index keys are Python hashes: stable within a process; a
+        snapshot restored in another process keeps its warm-page hits only
+        with ``PYTHONHASHSEED`` pinned."""
+        return {
+            "blank": list(self.blank),
+            "warm": list(self.warm),
+            "pages": {rid: list(p) for rid, p in self.pages.items()},
+            "refcount": dict(self.refcount),
+            "index": dict(self.index),
+            "page_hash": dict(self.page_hash),
+            "chain": dict(self._chain),
+            "high_water": self.high_water,
+            "n_lookups": self.n_lookups,
+            "n_hit_tokens": self.n_hit_tokens,
+            "n_evictions": self.n_evictions,
+        }
+
+    def load_state(self, st: Dict) -> None:
+        self.blank = deque(st["blank"])
+        self.warm = OrderedDict((p, None) for p in st["warm"])
+        self.pages = {rid: list(p) for rid, p in st["pages"].items()}
+        self.refcount = dict(st["refcount"])
+        self.index = dict(st["index"])
+        self.page_hash = dict(st["page_hash"])
+        self._chain = dict(st["chain"])
+        self.high_water = st["high_water"]
+        self.n_lookups = st["n_lookups"]
+        self.n_hit_tokens = st["n_hit_tokens"]
+        self.n_evictions = st["n_evictions"]
+        self.check_invariants()

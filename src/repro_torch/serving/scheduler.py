@@ -13,8 +13,13 @@ the uncached tail is recomputed.
 Determinism: slots are assigned lowest-free-first, the decode batch is the
 running set in slot order, and the preemption victim is always the
 latest-admitted request, so a trace replayed against this port and the JAX
-package makes identical scheduling decisions.  Cancellation and deadlines
-wait for a later slice.
+package makes identical scheduling decisions.
+
+Lifecycle: `cancel` aborts a queued or running request (its pages and slot
+free at once), `expire` is the step-boundary deadline sweep (outcome
+timeout), and admission considers deadline-carrying waiters
+earliest-deadline-first ahead of the FIFO rest.  Every retired request
+carries one outcome of `OUTCOMES`.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ OUTCOMES = (OK, CANCELLED, TIMEOUT, SHED, ERROR)
 
 class ShedError(RuntimeError):
     """The bounded admission queue (``ServingConfig.max_queue``) is full;
-    the request was never queued."""
+    the request was never queued.  Backpressure belongs to the caller."""
 
 
 @dataclasses.dataclass
@@ -48,6 +53,9 @@ class Request:
     max_new: int
     arrival: float = 0.0                # engine-clock time the request exists
     eos_id: Optional[int] = None
+    deadline: Optional[float] = None    # absolute engine-clock deadline; the
+                                        # step-boundary sweep retires overdue
+                                        # requests with outcome=timeout
     # -- runtime state ----------------------------------------------------
     state: str = WAITING
     outcome: Optional[str] = None       # one of OUTCOMES once retired
@@ -114,9 +122,11 @@ class Scheduler:
         """Admit queue-head requests that have arrived and fit (a free batch
         slot + pages for the prefix and the first decode write).  FIFO: a
         capacity-blocked head blocks later arrivals.  With the prefix cache
-        on, the request starts at ``n_cached = hit`` over shared pages."""
+        on, the request starts at ``n_cached = hit`` over shared pages.
+        Deadline-carrying waiters go first, earliest deadline first
+        (`_admission_order`); with no deadline in play the order is FIFO."""
         admitted = []
-        for req in list(self.waiting):
+        for req in self._admission_order():
             if not self._free_slots:
                 break
             if req.arrival > now:
@@ -143,11 +153,65 @@ class Scheduler:
                     "admissions of previously-preempted requests").inc()
         return admitted
 
+    def _admission_order(self) -> List[Request]:
+        """Deadline-carrying waiters earliest-deadline-first, then the rest
+        in queue position (preemption victims sit at the front, so they
+        keep resuming before new arrivals)."""
+        if not any(r.deadline is not None for r in self.waiting):
+            return list(self.waiting)
+        pos = {id(r): i for i, r in enumerate(self.waiting)}
+        return sorted(self.waiting,
+                      key=lambda r: ((0, r.deadline) if r.deadline is not None
+                                     else (1, 0.0), pos[id(r)]))
+
     def _evict_running(self, req: Request) -> None:
+        """Take a running request out of the batch, releasing its pages
+        (shared prefix pages stay warm) and its slot."""
         self.kv.release(req.rid)
         heapq.heappush(self._free_slots, req.slot)
         del self.running[req.rid]
         req.slot = -1
+
+    def _retire_aborted(self, req: Request, now: float, outcome: str) -> None:
+        req.state = FINISHED
+        req.outcome = outcome
+        req.t_finish = now
+
+    def cancel(self, rid: int, now: float,
+               outcome: str = CANCELLED) -> Optional[Request]:
+        """Abort a queued or running request: a queued one leaves the
+        waiting deque, a running one releases its pages and slot.  Returns
+        the retired request, or None when rid is neither queued nor
+        running."""
+        for req in self.waiting:
+            if req.rid == rid:
+                self.waiting.remove(req)
+                self._retire_aborted(req, now, outcome)
+                return req
+        req = self.running.get(rid)
+        if req is None:
+            return None
+        self._evict_running(req)
+        self._retire_aborted(req, now, outcome)
+        return req
+
+    def expire(self, now: float) -> List[Request]:
+        """Deadline sweep at a step boundary: retire every waiting or
+        running request whose deadline has passed with outcome=timeout
+        (running ones release their pages as a cancel does).  Returns the
+        expired requests."""
+        expired = []
+        for req in [r for r in self.waiting
+                    if r.deadline is not None and r.deadline <= now]:
+            self.waiting.remove(req)
+            self._retire_aborted(req, now, TIMEOUT)
+            expired.append(req)
+        for req in [r for r in self.running.values()
+                    if r.deadline is not None and r.deadline <= now]:
+            self._evict_running(req)
+            self._retire_aborted(req, now, TIMEOUT)
+            expired.append(req)
+        return expired
 
     def _preempt(self, victim: Request) -> None:
         self._evict_running(victim)

@@ -1030,3 +1030,106 @@ def test_captured_engine_mid_run_bucket_is_a_compile(cuda):
     assert rec["steady_state"] == 0
     assert not any(e["steady_state"] for e in rec["events"])
     assert eng._prefill._cache_size() == rec["by_fn"]["prefill"]
+
+
+@pytest.mark.cuda
+def test_shared_prefix_captures_prefill_tail_bit_equal_to_eager(cuda):
+    """Shared-prefix traffic on the card: prefix hits run the tail-prefill
+    step (flash over the gathered cached pages) under capture, and the
+    captured engine emits the eager engine's tokens and launches; each
+    tail-prefill graph replayed on its last inputs gives the eager step's
+    tokens."""
+    from repro_torch.serving.api import shared_prefix_trace
+
+    out = _captured_vs_eager(
+        cuda, "bucketed", "bfloat16",
+        lambda vocab: shared_prefix_trace(6, 1.0, 32, (8, 20), (6,), vocab,
+                                          seed=4), (8, 20, 40, 52))
+    (cs, ctok, cn, eng), (es, etok, en, _) = out["captured"], out["eager"]
+    assert ctok == etok
+    assert cn == en and cn["flash_prefill"] > 0
+    assert cs["tokens_prefilled_saved"] > 0
+    assert cs["tokens_prefilled_saved"] == es["tokens_prefilled_saved"]
+    assert cs["recompiles"]["by_fn"]["prefill_tail"] >= 1
+    assert cs["recompiles"]["steady_state"] == 0
+    tail = eng._prefill_tail
+    for g in tail._graphs.values():
+        g.graph.replay()
+        replayed = g.out.clone()
+        tokens, positions, slots = g.static
+        want, _ = tail.fn(eng.params, tokens, eng.caches, positions,
+                          eng._tbl, slots)
+        assert torch.equal(replayed, want)
+
+
+@pytest.mark.cuda
+def test_captured_engine_cancel_and_restore_on_card(cuda):
+    """A captured engine cancels a request mid-decode, is snapshotted and
+    restored (a new engine, whose steps capture again at first use), and a
+    second restore goes into an engine warmed up beforehand, whose pool
+    and table pool keep their storage: the survivors' tokens equal an
+    uninterrupted captured run with the same cancel."""
+    import gc
+    import weakref
+
+    from repro_torch.configs import Runtime, ServingConfig, get_config
+    from repro_torch.observability import Telemetry
+    from repro_torch.serving.engine import InferenceEngine, _pool_leaves
+
+    cfg = get_config("qwen2-0.5b").reduced(n_layers=2, head_dim=64)
+    rt = Runtime(attn_impl="flash", quant_backend="w4a4_packed",
+                 cache_dtype="bfloat16")
+    sv = ServingConfig(max_batch=4, page_size=16, num_pages=24, max_ctx=128)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab, size=n, dtype=np.int32)
+               for n in (12, 30, 20, 9)]
+    params = None
+
+    def engine():
+        nonlocal params
+        eng = InferenceEngine(cfg, rt, sv, params=params, device=cuda,
+                              telemetry=Telemetry(strict_recompiles=True))
+        params = eng.params
+        eng.warmup((12, 30))
+        return eng
+
+    def start(eng):
+        for p in prompts:
+            eng.submit(p, 12)
+        for _ in range(3):
+            eng.step()
+        assert eng.cancel(1)                   # mid-decode
+        eng.step()
+
+    def drain(eng, out):
+        eng.run_until_idle()
+        for r in eng.collect():
+            out[r.rid] = (r.outcome, list(r.tokens))
+        return out
+
+    ref = engine()
+    start(ref)
+    want = drain(ref, {})
+    del ref
+    eng = engine()
+    start(eng)
+    out = {}
+    for r in eng.collect():
+        out[r.rid] = (r.outcome, list(r.tokens))
+    snap = eng.snapshot()
+    old = weakref.ref(eng)
+    eng = InferenceEngine.restore(snap, params=params)
+    gc.collect()
+    assert old() is None
+    eng.step()
+    snap2 = eng.snapshot()
+    warm = engine()                            # captured before the load
+    ptrs = [t.data_ptr() for _, t in _pool_leaves(warm.caches)]
+    tbl = warm._tbl.data_ptr()
+    warm._load_snapshot(snap2)
+    assert [t.data_ptr() for _, t in _pool_leaves(warm.caches)] == ptrs
+    assert warm._tbl.data_ptr() == tbl
+    assert drain(eng, dict(out)) == want        # the first restore drains
+    assert drain(warm, out) == want
+    assert want[1][0] == "cancelled"
+    assert warm.stats()["recompiles"]["steady_state"] == 0

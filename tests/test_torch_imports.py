@@ -46,6 +46,10 @@ def test_port_imports_neither_jax_nor_the_reference():
                  "repro_torch.serving.engine",
                  "repro_torch.launch.steps",
                  "repro_torch.observability.jit_watch",
+                 "repro_torch.observability.trace",
+                 "repro_torch.distributed.fault_tolerance",
+                 "repro_torch.serving.chaos",
+                 "repro_torch.serving.api",
                  "repro_torch.launch.serve"):
         assert name in report["modules"]
 
