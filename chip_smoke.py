@@ -104,7 +104,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
                  Then the
                  public entry points no serving path reaches (ops.mul4,
                  ops.int4_matmul), called as the JAX package's quickstart
-                 and benchmarks call theirs.
+                 and benchmarks call theirs.  Then the paper's circuit
+                 (circuit_runs), each step failing the run on a mismatch:
+                 (a) the proposed multiplier, lm and acc_ullah exact on all
+                 256 pairs on the card in both evaluation modes, their INIT
+                 tables, area, timing and the pipelined report printed (the
+                 FPGA model's numbers; proposed must read 11 LUTs, 2 CARRY4,
+                 CPD 2.750 ns = 1.302 logic + 1.448 net); (b) 2^24 seeded
+                 signed int4 pairs through the netlist in both modes equal
+                 to the lut_mul4 kernel and a * b, timed beside it; (c)
+                 full-width qwen2-0.5b, one 16-token prompt: `forward` under
+                 *=netlist gives logits bit-equal to *=int_sim (the fused
+                 W4A4 kernel) and *=lut4; (d) the widths no kernel serves
+                 (int_sim/a8, int_sim/w8/a8, lut4/a8, pallas_int4/w8/a8,
+                 pre-packed w4a4_packed/a8, w4a16/w8) at M = 1, 8, 16, 17,
+                 64 on the projection shapes, the integer ones bit-equal to
+                 a float64 integer GEMM, w4a16/w8 within 1e-5 relative; (e)
+                 the sensitivity sweep at full width (batch 2, seq 16): the
+                 int_sim and lut4 rows equal, every MSE finite and above 0.
   5. cpu      -- full width cut to 2 layers, on cuda and on cpu with the
                  same weights.  Bucketed: one prefill and three decode
                  steps with float weights in bf16 (logits within CPU_ATOL),
@@ -126,6 +143,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -1750,6 +1768,352 @@ def entry_points_run(torch):
     return launches
 
 
+# ------------------------------------------------------------- circuit ----
+#: 2^24 seeded signed int4 pairs through the netlist as a multiplier array
+ARRAY_PAIRS = 1 << 24
+#: the oracle forward's prompt: one 16-token prompt at full width
+ORACLE_TOKENS = 16
+#: the widths run at qwen2-0.5b's projection shapes: every spec but
+#: w4a16/w8 takes an exact integer route
+WIDTH_SPECS = ("int_sim/a8", "int_sim/w8/a8", "lut4/a8", "pallas_int4/w8/a8",
+               "w4a4_packed/a8", "w4a16/w8")
+WIDTH_ROWS = (1, MAX_BATCH, 16, 17, 64)
+W8_RTOL = 1e-5
+
+
+def circuit_designs(torch):
+    """(a) The proposed multiplier and the two baselines: all 256 pairs on
+    the card in both evaluation modes equal a * b; their INIT tables, area,
+    timing and the pipelined report printed.  The area and delays are the
+    FPGA model's (Artix-7 calibration), not the card's."""
+    from repro_torch.core import (analyze, build_acc_mult4, build_lm_mult4,
+                                  build_proposed_mult4, resources)
+    from repro_torch.core.pipeline_mult import pipelined_report
+
+    a = torch.arange(16, dtype=torch.uint8, device="cuda")[:, None]
+    a = a.expand(16, 16).contiguous()
+    b = a.t().contiguous()
+    exact = (a.int() * b.int()).to(torch.uint8)
+    for nl in (build_proposed_mult4(), build_lm_mult4(), build_acc_mult4()):
+        for mode in ("direct", "init"):
+            got = nl(a, b, mode=mode)
+            if not (got.is_cuda and torch.equal(got, exact)):
+                fail(f"circuit (a): {nl.name} in {mode} mode is not a * b on "
+                     "all 256 pairs on the card")
+        r, t = resources(nl), analyze(nl)
+        inits = {k: f"0x{v:016X}" for k, v in nl.init_table().items()}
+        say(f"circuit (a): {nl.name}: all 256 pairs exact on the card in "
+            f"both modes; INIT {json.dumps(inits)}")
+        say(f"circuit (a): {nl.name}: FPGA model (not the card): "
+            f"{json.dumps(r)}, CPD {t['cpd']:.3f} ns (logic {t['logic']:.3f} "
+            f"/ net {t['net']:.3f}), critical output {t['critical_output']}")
+        if nl.name == "proposed" and (
+                (r["luts"], r["carry4"]) != (11, 2)
+                or (t["cpd"], t["logic"], t["net"]) != (2.75, 1.302, 1.448)):
+            fail(f"circuit (a): proposed reads {r} and {t}, not 11 LUTs, 2 "
+                 "CARRY4 and CPD 2.750 ns (1.302 logic / 1.448 net)")
+    say(f"circuit (a): pipelined proposed (FPGA model): "
+        f"{json.dumps(pipelined_report())}")
+
+
+def circuit_array(torch, smi: str):
+    """(b) The netlist as a multiplier array: ARRAY_PAIRS seeded signed int4
+    pairs split by to_unsigned_mag, multiplied through the circuit in both
+    modes and signed again; equal to ops.mul4 (the lut_mul4 kernel) and to
+    a * b.  Times each mode and the kernel on the same pairs (`Timer`).
+    Returns the launches of the checked run (counted from 0 just
+    before)."""
+    from repro_torch.core import build_proposed_mult4
+    from repro_torch.core.quant import to_unsigned_mag
+    from repro_torch.kernels import ops
+
+    nl = build_proposed_mult4()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    a, b = (torch.randint(-8, 8, (ARRAY_PAIRS,), generator=gen,
+                          device="cuda", dtype=torch.int8) for _ in range(2))
+
+    def signed(mode):
+        ma, sa = to_unsigned_mag(a)
+        mb, sb = to_unsigned_mag(b)
+        return nl(ma, mb, mode=mode).to(torch.int32) * sa * sb
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    table = ops.mul4(a, b)
+    via = {mode: signed(mode) for mode in ("direct", "init")}
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    exact = a.int() * b.int()
+    for mode, got in via.items():
+        if not (got.is_cuda and torch.equal(got, exact)
+                and torch.equal(got, table.int())):
+            fail(f"circuit (b): the netlist in {mode} mode differs from the "
+                 "lut_mul4 kernel or a * b")
+    if launches["lut_mul4"] <= 0:
+        fail("circuit (b): the lut_mul4 kernel was never launched")
+    timer = Timer(torch)
+    ms = {mode: timer.ms(lambda m=mode: signed(m), reps=5) for mode in via}
+    ms["lut_mul4"] = timer.ms(lambda: ops.mul4(a, b))
+    rates = ", ".join(f"{k} {v:.3f} ms ({ARRAY_PAIRS / v * 1e3:.4g} "
+                      "products/s)" for k, v in ms.items())
+    say(f"circuit (b): {ARRAY_PAIRS} signed int4 pairs through the netlist "
+        f"(both modes) equal the lut_mul4 kernel and a * b; {rates}; {smi}")
+    return launches
+
+
+def circuit_oracle(torch):
+    """(c) The oracle at full width: qwen2-0.5b, 24 layers, one
+    ORACLE_TOKENS-token prompt, float masters from SEED; `forward` under
+    `*=netlist` (every product through the circuit) gives logits bit-equal
+    to `*=int_sim` (the fused W4A4 kernel) and `*=lut4` (the table-lookup
+    kernel).  Prints each forward's time and the netlist run's peak memory.
+    Returns the launches (counted from 0 just before the three forwards)."""
+    from repro_torch.configs import Runtime, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import forward, init_model
+
+    cfg = get_config("qwen2-0.5b")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = init_model(gen, cfg)
+    tokens = torch.randint(0, cfg.vocab, (1, ORACLE_TOKENS), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    logits, secs, peak = {}, {}, {}
+    with torch.no_grad():
+        for be in ("netlist", "int_sim", "lut4"):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            rt = Runtime(attn_impl="chunked", quant_plan=f"*={be}")
+            logits[be] = forward(params, tokens, cfg, rt)[0]
+            torch.cuda.synchronize()
+            secs[be] = time.perf_counter() - t0
+            peak[be] = torch.cuda.max_memory_allocated() - base
+    launches = ops.launch_counts()
+    del params
+    for be in ("int_sim", "lut4"):
+        if not torch.equal(logits["netlist"], logits[be]):
+            diff = (logits["netlist"].float() - logits[be].float()).abs()
+            fail(f"circuit (c): netlist logits differ from {be}'s (max "
+                 f"|diff| {diff.max().item():.6g})")
+    want = LAYERS * 7
+    for name in ("int4_matmul_fused", "lut4_matmul"):
+        if launches[name] != want:
+            fail(f"circuit (c): {name} launched {launches[name]} times, not "
+                 f"{want} (one a projection)")
+    products = sum(m * k * n for m, k, n in _oracle_gemms(cfg))
+    say(f"circuit (c): full-width {cfg.name} ({cfg.n_layers} layers), "
+        f"{ORACLE_TOKENS} tokens, bf16: *=netlist logits "
+        f"{tuple(logits['netlist'].shape)} bit-equal to *=int_sim (fused "
+        f"W4A4 kernel) and *=lut4; {products} products through the "
+        f"circuit; host seconds with sync: "
+        + ", ".join(f"{be} {secs[be]:.3f} s (peak {peak[be] / 2**30:.3f} GiB "
+                    "above the weights)" for be in secs))
+    return launches
+
+
+def _oracle_gemms(cfg):
+    """(M, K, N) of every projection of one forward of ORACLE_TOKENS."""
+    D, F, kv = cfg.d_model, cfg.d_ff, cfg.n_kv_heads * cfg.hd
+    layer = [(D, cfg.n_heads * cfg.hd), (D, kv), (D, kv),
+             (cfg.n_heads * cfg.hd, D), (D, F), (D, F), (F, D)]
+    return [(ORACLE_TOKENS, k, n) for k, n in layer] * cfg.n_layers
+
+
+def width_call(torch, spec: str, w, x, pw=None):
+    """`*=spec` through `qdense` on w [K, N] and x [M, K], held to its
+    float64 reference: returns (result, relative error).  The integer
+    routes must equal a float64 integer GEMM of the quantized values with
+    the same epilogue bit for bit (error 0.0, else inf); w4a16/w8 reads the
+    largest |difference| from a float64 product of the dequantized weight
+    over that product's largest magnitude.  `pw` is the packed weight of a
+    packed spec (packed here when None)."""
+    from repro_torch.core import qlinear as tql
+    from repro_torch.core.quant import (group_dequantize, group_quantize,
+                                        quant_scale, quantize, unpack_int4)
+    from repro_torch.core.quant_plan import get_plan
+
+    qc = get_plan(f"*={spec}").resolve("x")
+    K = w.shape[0]
+    if qc.backend == "w4a16":
+        got = tql.qdense(w, x, qc)
+        w_q, w_s = group_quantize(w, K, bits=qc.w_bits)
+        want = x.double() @ group_dequantize(w_q, w_s, K).double()
+        return got, ((got.double() - want).abs().max()
+                     / want.abs().max()).item()
+    if qc.backend == "w4a4_packed":
+        if pw is None:
+            pw = tql.prepack_tree({"w": tql.pack_weight_nd(w, qc)})["w"]
+        got = tql.qdense(pw, x, qc)
+        w_q, w_s = unpack_int4(pw["packed"], axis=-1), pw["scale"]
+    else:
+        got = tql.qdense(w, x, qc)
+        w_s = quant_scale(w, axis=0, bits=qc.w_bits)
+        w_q = quantize(w, w_s, bits=qc.w_bits)
+    a_s = quant_scale(x, axis=1, bits=qc.a_bits)
+    acc = quantize(x, a_s, bits=qc.a_bits).double() @ w_q.double()
+    exact = torch.equal(got, acc.to(torch.float32) * a_s * w_s)
+    return got, 0.0 if exact else math.inf
+
+
+def circuit_widths(torch):
+    """(d) Widths no kernel serves, at WIDTH_ROWS rows on qwen2-0.5b's
+    projection shapes, each held to its float64 reference (`width_call`):
+    the integer routes (torch._int_mm, padded) bit for bit, w4a16/w8 within
+    W8_RTOL.  Every result stays on the card and no kernel launches."""
+    from repro_torch.core import qlinear as tql
+    from repro_torch.core.quant_plan import get_plan
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    t0 = time.perf_counter()
+    worst = 0.0
+    n = 0
+    ops.reset_launch_counts()
+    for (K, N), _ in GEMM_SHAPES:
+        w = torch.randn((K, N), generator=gen, device="cuda") * 0.05
+        qc = get_plan("*=w4a4_packed/a8").resolve("x")
+        pw = tql.prepack_tree({"w": tql.pack_weight_nd(w, qc)})["w"]
+        for M in WIDTH_ROWS:
+            x = torch.randn((M, K), generator=gen, device="cuda")
+            for spec in WIDTH_SPECS:
+                got, err = width_call(torch, spec, w, x, pw)
+                if spec == "w4a16/w8":
+                    worst = max(worst, err)
+                if not (got.is_cuda and err <= W8_RTOL):
+                    fail(f"circuit (d): *={spec} at M={M}, K={K}, N={N} is "
+                         f"not the float64 reference on the card ({err})")
+                n += 1
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in ops.launch_counts().items() if v}
+    if launched:
+        fail(f"circuit (d): the width routes launched kernels {launched}")
+    say(f"circuit (d): {n} width calls ({', '.join(WIDTH_SPECS)} at M = "
+        f"{', '.join(map(str, WIDTH_ROWS))} on {len(GEMM_SHAPES)} projection "
+        f"shapes): integer routes bit-equal to a float64 integer GEMM, "
+        f"w4a16/w8 within {worst:.3g} relative (limit {W8_RTOL}), on the "
+        f"card, no kernel launched; {time.perf_counter() - t0:.1f} s")
+
+
+def _held_to_plain(torch, ops, worst: dict):
+    """A context in which `ops`' GEMM entry points run their kernel and
+    then its plain version on the same inputs, and fail the run unless the
+    two agree as phase 3 holds them: the W4A4 and table kernels bit for
+    bit, the W4A16 kernel within W4A16_RTOL of the output's largest
+    magnitude.  `worst` collects, per kernel, the calls held and the
+    largest |difference|.  The plain versions launch nothing."""
+    import contextlib
+
+    from repro_torch.kernels.int4_matmul import int4_matmul_fused_plain
+    from repro_torch.kernels.lut4_matmul import lut4_matmul_plain
+    from repro_torch.kernels.w4a16_matmul import w4a16_matmul_plain
+
+    held = {"int4_matmul_fused_kmajor": ("int4_matmul_fused",
+                                         int4_matmul_fused_plain, 0.0),
+            "lut4_matmul_kmajor": ("lut4_matmul", lut4_matmul_plain, 0.0),
+            "w4a16_matmul_kmajor": ("w4a16_matmul", w4a16_matmul_plain,
+                                    W4A16_RTOL)}
+
+    def holding(entry, name, plain, rtol):
+        def call(*args):
+            got = entry(*args)
+            want = plain(*args)
+            err = (got - want).abs().max().item()
+            if not (got.is_cuda and err <= rtol * want.abs().max().item()):
+                fail(f"circuit (e): kernel {name} at {tuple(args[0].shape)} "
+                     f"-> {tuple(got.shape)} differs from its plain version "
+                     f"(max |diff| {err:.6g})")
+            n, top = worst.get(name, (0, 0.0))
+            worst[name] = (n + 1, max(top, err))
+            return got
+        return call
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = {attr: getattr(ops, attr) for attr in held}
+        for attr, (name, plain, rtol) in held.items():
+            setattr(ops, attr, holding(saved[attr], name, plain, rtol))
+        try:
+            yield
+        finally:
+            for attr, entry in saved.items():
+                setattr(ops, attr, entry)
+    return ctx()
+
+
+def circuit_sweep(torch):
+    """(e) The sensitivity sweep on full-width qwen2-0.5b (batch 2, seq 16,
+    seed 0) on the card: the table printed with its seconds; the int_sim and
+    lut4 backend rows equal; every quantized MSE finite and above 0.  Then
+    the uniform forward of each COMPARE_BACKENDS plan, on the sweep's params
+    and tokens, with every kernel call held to its plain version at the
+    sweep's own shapes (`_held_to_plain`).  Returns the launches of the
+    sweep (counted from 0 just before)."""
+    from repro_torch.configs import Runtime, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.sensitivity import (COMPARE_BACKENDS,
+                                                sensitivity_sweep)
+    from repro_torch.models.transformer import forward, init_model
+
+    cfg = get_config("qwen2-0.5b")
+    batch, seq, seed = 2, 16, 0
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_model(gen, cfg)
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = sensitivity_sweep(cfg, seed=seed, params=params, tokens=tokens,
+                            device="cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    rows = {r["backend"]: r["mse_vs_float"] for r in rep["backends"]}
+    mses = [rep["uniform_mse_vs_float"]] + list(rows.values()) \
+        + [r["mse_vs_float"] for r in rep["per_site"]]
+    if rows["int_sim"] != rows["lut4"]:
+        fail(f"circuit (e): the int_sim and lut4 rows differ: {rows}")
+    if not all(math.isfinite(m) and m > 0 for m in mses):
+        fail(f"circuit (e): a quantized MSE is not finite and above 0: "
+             f"{json.dumps(rep)}")
+    for name in ("int4_matmul_fused", "lut4_matmul", "w4a16_matmul"):
+        if launches[name] <= 0:
+            fail(f"circuit (e): kernel {name} was never launched")
+    say(f"circuit (e): sensitivity sweep, full-width {cfg.name}, batch "
+        f"{batch}, seq {seq}, seed {seed}, on the card in {secs:.2f} s: "
+        f"{json.dumps(rep)}")
+    worst = {}
+    with torch.no_grad(), _held_to_plain(torch, ops, worst):
+        for spec in COMPARE_BACKENDS.values():
+            rt = Runtime(attn_impl="chunked", attn_chunk_q=min(512, seq),
+                         quant_plan=spec)
+            forward(params, tokens, cfg, rt)
+    torch.cuda.synchronize()
+    for name in ("int4_matmul_fused", "lut4_matmul", "w4a16_matmul"):
+        if worst.get(name, (0,))[0] <= 0:
+            fail(f"circuit (e): no {name} call was held to its plain version")
+    say("circuit (e): the uniform forwards of "
+        f"{', '.join(COMPARE_BACKENDS.values())} with every kernel call held "
+        "to its plain version: "
+        + ", ".join(f"{k} {n} calls, max |diff| {e:.6g}"
+                    for k, (n, e) in worst.items())
+        + f" (W4A4 and table bit-equal, W4A16 limit {W4A16_RTOL} relative)")
+    return launches
+
+
+def circuit_runs(torch, smi: str):
+    """The paper's circuit on the card, (a) to (e); returns the launches of
+    (b), (c) and (e), summed."""
+    t0 = time.perf_counter()
+    circuit_designs(torch)
+    launches = [circuit_array(torch, smi), circuit_oracle(torch)]
+    circuit_widths(torch)
+    launches.append(circuit_sweep(torch))
+    say(f"circuit: (a) to (e) in {time.perf_counter() - t0:.1f} s")
+    return {k: sum(n[k] for n in launches) for k in launches[0]}
+
 def profile_steps(torch, engine, vocab: int, run: str, steps: int = 4,
                   mode: str = "graphs"):
     """Where a decode step's time goes: a full decode batch (MAX_BATCH
@@ -2182,7 +2546,8 @@ def main() -> None:
     del timer
     launches = phase_serve(torch)
     entry = entry_points_run(torch)
-    launches = {k: launches[k] + entry[k] for k in launches}
+    circuit = circuit_runs(torch, smi)
+    launches = {k: launches[k] + entry[k] + circuit[k] for k in launches}
     phase_cpu(torch)
     kernels = []
     for name, res in results.items():

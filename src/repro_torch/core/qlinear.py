@@ -18,12 +18,17 @@ serving weights (``{"packed", "scale", "packed_km"}`` dicts from
   w4a4_packed  -- pre-packed int4 weights through the fused W4A4 kernel
   w4a16_packed -- pre-packed int4 weights (per-channel or grouped scales)
                   through the W4A16 kernel
+  netlist      -- every 4-bit product through the simulated FPGA circuit
+                  (the paper's netlist): the end-to-end oracle, W4A4 only
 
 Every kernel-backed GEMM takes the kernel route on every device: the CUDA
 kernel on CUDA tensors, its plain version on CPU tensors.  The W4A4
 integer math is exact, so the W4A4 backends equal the JAX package's
 int_sim numerics; W4A16 equals the JAX package's XLA twin up to f32
-summation order.  netlist is not ported and raises.
+summation order.  Widths other than 4 (``/w<b>``, ``/a<b>`` in a plan)
+take the JAX package's XLA route, outside the kernels: an exact integer
+GEMM for the W4A4 family, a dequantized float32 GEMM for w4a16
+(``core.backends``).
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ import torch
 
 from ..kernels import ops
 from ..kernels.packing import nmajor_to_kmajor_grouped
-from .quant import pack_int4, quant_scale, quantize
+from .quant import pack_int4, quant_scale, quantize, unpack_int4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,11 +61,13 @@ W4A4_BACKENDS = ("w4a4_packed", "int_sim", "pallas_int4", "lut4")
 
 
 def check_int4(cfg: QuantConfig, tag: str = "") -> None:
-    """The W4A4 kernel takes 4-bit weights and activations only."""
+    """The netlist oracle multiplies 4-bit magnitudes: 4-bit weights and
+    activations only (the JAX package's feeds wider magnitudes into the
+    4-input circuit and returns wrong products; ROADMAP Queue 3)."""
     if cfg.w_bits != 4 or cfg.a_bits != 4:
         raise NotImplementedError(
-            f"site {tag!r}: w{cfg.w_bits}a{cfg.a_bits} is not ported; only "
-            f"the W4A4 GEMM is")
+            f"site {tag!r}: backend {cfg.backend!r} at "
+            f"w{cfg.w_bits}a{cfg.a_bits}: the netlist is a 4-bit circuit")
 
 
 def qdense(w, x: torch.Tensor, cfg: QuantConfig,
@@ -92,18 +99,24 @@ def qdense(w, x: torch.Tensor, cfg: QuantConfig,
 
 
 def _packed_backend(w, x2: torch.Tensor, cfg: QuantConfig, tag: str = ""):
-    """Serving path for a pre-packed weight, on its planar K-major twin
-    (`packed_km`, added by `prepack_tree`; made here when absent).  W4A4
+    """Serving path for a pre-packed (int4) weight, on its planar K-major
+    twin (`packed_km`, added by `prepack_tree`; made here when absent).  W4A4
     backends run the fused W4A4 kernel, ``lut4`` quantizes the activations
     and runs the table-lookup kernel, the W4A16 backends run the W4A16
     kernel with the scales' rank picking per-channel or grouped (the group
-    size recovered from the scale's shape)."""
+    size recovered from the scale's shape).  W4A4 backends at activation
+    widths other than 4 run `backends.int_gemm` on the unpacked weight, as
+    the JAX package's XLA path does."""
     packed, w_scale = w["packed"], w["scale"]
+    if cfg.backend in W4A4_BACKENDS and cfg.a_bits != 4:
+        from .backends import int_gemm
+
+        return int_gemm(x2.to(torch.float32), unpack_int4(packed, axis=-1),
+                        w_scale, cfg.a_bits)
     w_km = w.get("packed_km")
     if w_km is None:
         w_km = nmajor_to_kmajor_grouped(packed, w_scale)
     if cfg.backend in W4A4_BACKENDS:
-        check_int4(cfg, tag)
         xf = x2.to(torch.float32)
         if cfg.backend == "lut4":
             a_scale = quant_scale(xf, axis=1, bits=4)

@@ -21,13 +21,20 @@ def _qrange(bits: int) -> Tuple[int, int]:
 
 def quant_scale(x: torch.Tensor, axis: Optional[int] = None, bits: int = 4,
                 eps: float = 1e-8) -> torch.Tensor:
-    """Symmetric scale; `axis=None` -> per-tensor, else reduce over `axis`."""
+    """Symmetric scale; `axis=None` -> per-tensor, else reduce over `axis`.
+
+    The divisor is a 0-dim tensor on x's device: PyTorch's CUDA division by
+    a Python scalar multiplies by its reciprocal, which can round one ulp
+    away from the quotient; a tensor divisor divides with IEEE rounding on
+    every device, so the card's scales are the CPU's and the JAX
+    package's."""
     _, qmax = _qrange(bits)
     if axis is None:
         amax = x.abs().amax()
     else:
         amax = x.abs().amax(dim=axis, keepdim=True)
-    return torch.clamp_min(amax, eps) / qmax
+    amax = torch.clamp_min(amax, eps)
+    return amax / amax.new_full((), qmax)
 
 
 def quantize(x: torch.Tensor, scale: torch.Tensor, bits: int = 4) -> torch.Tensor:
@@ -92,3 +99,14 @@ def unpack_int4(p: torch.Tensor, axis: int = -1) -> torch.Tensor:
     out = torch.stack([lo, hi], dim=-1).reshape(*p.shape[:-1],
                                                 p.shape[-1] * 2)
     return torch.movedim(out, -1, axis)
+
+
+def to_unsigned_mag(q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Split signed int4 values into (|q| in [0,8] as uint8, sign in {-1,+1}
+    as int32).
+
+    |q| <= 8 fits the unsigned 4-bit domain of the paper's multiplier, so the
+    netlist computes |a|*|b| exactly and the sign is applied afterwards.
+    """
+    sign = torch.where(q < 0, -1, 1).to(torch.int32)
+    return q.to(torch.int32).abs().to(torch.uint8), sign

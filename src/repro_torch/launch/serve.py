@@ -14,6 +14,9 @@ replayed, and the report's ``recompiles_steady_state`` counts captures of a
 shape seen before (0 in a sound run).  The report carries the engine's
 `profile()` (one decode step's time against its decode attention alone).
 
+``--sweep`` adds the per-site quantization sensitivity table
+(``launch.sensitivity``) to the report.
+
 ``--scenario shared_prefix`` gives every prompt one shared system prefix
 (``--sys-len`` tokens) and a user suffix from ``--prompt-lens``: the
 report's ``prefix_hit_rate`` and ``tokens_prefilled_saved`` show the
@@ -67,7 +70,7 @@ def serve(arch: str, *, reduced=True, layers=None, max_batch=4,
           scenario="poisson", sys_len=32, step="bucketed",
           token_budget=0, cache_dtype="bfloat16", quant="w4a4_packed",
           quant_plan=None, seed=0, chaos_seed=0, max_queue=0,
-          trace_out=None, metrics=True, device="cuda"):
+          trace_out=None, metrics=True, sweep=False, device="cuda"):
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced(**({"n_layers": layers} if layers else {}))
@@ -159,6 +162,11 @@ def serve(arch: str, *, reduced=True, layers=None, max_batch=4,
     # captures of a step shape seen before (0 unless a step's shape key
     # drifts: see observability.jit_watch)
     report["recompiles_steady_state"] = stats["recompiles"]["steady_state"]
+    if sweep:
+        from .sensitivity import sensitivity_sweep
+
+        report["sensitivity"] = sensitivity_sweep(cfg, seed=seed,
+                                                  device=device)
     return report
 
 
@@ -226,6 +234,8 @@ def main():
     ap.add_argument("--metrics", default="on", choices=["on", "off"],
                     help="telemetry registry and recompile sentinel (off: "
                          "stats() reports empty metrics and recompiles)")
+    ap.add_argument("--sweep", action="store_true",
+                    help="add the per-site sensitivity table to the report")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     ap.add_argument("--out", default=None,
@@ -245,7 +255,7 @@ def main():
         quant=args.quant, quant_plan=args.quant_plan, seed=args.seed,
         chaos_seed=args.chaos_seed, max_queue=args.max_queue,
         trace_out=args.trace_out, metrics=args.metrics == "on",
-        device=args.device)
+        sweep=args.sweep, device=args.device)
     text = json.dumps(out, indent=1)
     print(text)
     if args.out:

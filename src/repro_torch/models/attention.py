@@ -54,9 +54,12 @@ def quantize_kv(val: torch.Tensor, int4: bool):
     nibble) and f32 scales [..., 1].  The op sequence is the JAX package's,
     dtype by dtype: the scale, the division and the rounding run in `val`'s
     own dtype (bf16 on the serving path) and only the scale is cast to
-    f32, so the bytes are the reference's."""
+    f32, so the bytes are the reference's.  The divisor is a tensor on
+    `val`'s device, so CUDA divides as the CPU does (``core.quant.
+    quant_scale``)."""
     qmax = 7.0 if int4 else 127.0
-    scale = val.abs().amax(dim=-1, keepdim=True) / qmax + 1e-8
+    amax = val.abs().amax(dim=-1, keepdim=True)
+    scale = amax / amax.new_full((), qmax) + 1e-8
     q = torch.clamp(torch.round(val / scale), -qmax, qmax).to(torch.int8)
     if int4:
         from ..core.quant import pack_int4

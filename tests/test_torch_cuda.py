@@ -1133,3 +1133,61 @@ def test_captured_engine_cancel_and_restore_on_card(cuda):
     assert drain(warm, out) == want
     assert want[1][0] == "cancelled"
     assert warm.stats()["recompiles"]["steady_state"] == 0
+
+
+# ------------------------------------------------- the circuit and widths --
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["direct", "init"])
+def test_netlist_on_the_card_equals_the_cpu(cuda, mode):
+    """The simulated circuit on CUDA operands computes on the card and
+    gives the CPU's products (all of them a * b)."""
+    from repro_torch.core import build_acc_mult4, build_proposed_mult4
+
+    a = torch.from_numpy(RNG.integers(0, 16, (1 << 16,), dtype=np.uint8))
+    b = torch.from_numpy(RNG.integers(0, 16, (1 << 16,), dtype=np.uint8))
+    for nl in (build_proposed_mult4(), build_acc_mult4()):
+        got = nl(a.to(cuda), b.to(cuda), mode=mode)
+        assert got.is_cuda and got.dtype == torch.uint8
+        assert torch.equal(got.cpu(), nl(a, b, mode=mode))
+        assert torch.equal(got.cpu(), (a.int() * b.int()).to(torch.uint8))
+
+
+@pytest.mark.cuda
+def test_netlist_qdense_equals_int_sim_on_the_card(cuda):
+    """The gate-level oracle equals the fused W4A4 kernel bit for bit on
+    the card, and its own CPU result, on plain random inputs: the quantize
+    scales divide with IEEE rounding on both devices, so the card's int4
+    values are the CPU's."""
+    from repro_torch.core.qlinear import QuantConfig, qdense
+
+    w = torch.from_numpy(RNG.standard_normal((256, 72)).astype(np.float32))
+    x = torch.from_numpy(RNG.standard_normal((16, 256)).astype(np.float32))
+    net = qdense(w.to(cuda), x.to(cuda), QuantConfig(backend="netlist"))
+    ops.reset_launch_counts()
+    fused = qdense(w.to(cuda), x.to(cuda), QuantConfig(backend="int_sim"))
+    assert ops.launch_counts()["int4_matmul_fused"] == 1
+    assert net.is_cuda and torch.equal(net, fused)
+    assert torch.equal(net.cpu(), qdense(w, x, QuantConfig(backend="netlist")))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ["int_sim/a8", "int_sim/w8/a8", "lut4/a8",
+                                  "pallas_int4/w8/a8", "w4a4_packed/a8",
+                                  "w4a16/w8"])
+@pytest.mark.parametrize("M", [16, 17])
+def test_widths_on_the_card_at_the_int_mm_boundary(cuda, spec, M):
+    """Widths no kernel serves at 16 and 17 rows (``torch._int_mm`` runs
+    only above 16: the route pads), held to chip_smoke's float64 reference
+    (`width_call`): the integer routes bit for bit, w4a16/w8 within
+    W8_RTOL relative; every result stays on the card and no kernel
+    launches."""
+    cs = _chip_smoke()
+    K, N = 896, 132
+    w = torch.from_numpy(RNG.standard_normal((K, N)).astype(np.float32)
+                         ).to(cuda)
+    x = torch.from_numpy(RNG.standard_normal((M, K)).astype(np.float32)
+                         ).to(cuda)
+    ops.reset_launch_counts()
+    got, err = cs.width_call(torch, spec, w, x)
+    assert got.is_cuda and err <= cs.W8_RTOL, err
+    assert sum(ops.launch_counts().values()) == 0

@@ -50,25 +50,45 @@ def test_port_imports_neither_jax_nor_the_reference():
                  "repro_torch.distributed.fault_tolerance",
                  "repro_torch.serving.chaos",
                  "repro_torch.serving.api",
-                 "repro_torch.launch.serve"):
+                 "repro_torch.launch.serve",
+                 "repro_torch.core.netlist",
+                 "repro_torch.core.mult4_proposed",
+                 "repro_torch.core.mult4_baselines",
+                 "repro_torch.core.timing",
+                 "repro_torch.core.area",
+                 "repro_torch.core.pipeline_mult",
+                 "repro_torch.launch.sensitivity"):
         assert name in report["modules"]
 
 
-def test_chip_smoke_imports_neither_jax_nor_the_reference():
-    """Every import statement of chip_smoke.py, at any depth, names torch,
-    the port or the standard library: never jax or the JAX package."""
+def _import_roots(script: str):
+    """The root package of every import statement of `script`, at any
+    depth."""
     import ast
 
-    tree = ast.parse((SRC.parent / "chip_smoke.py").read_text())
+    tree = ast.parse((SRC.parent / script).read_text())
     names = set()
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             names.update(a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom):
             names.add(node.module or "")
-    roots = {n.split(".")[0] for n in names}
+    return {n.split(".")[0] for n in names}
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_reference():
+    """Every import statement of chip_smoke.py, at any depth, names torch,
+    the port or the standard library: never jax or the JAX package."""
+    roots = _import_roots("chip_smoke.py")
     assert "repro_torch" in roots and "torch" in roots
-    assert not roots & {"jax", "jaxlib", "repro"}, sorted(names)
+    assert not roots & {"jax", "jaxlib", "repro"}, sorted(roots)
+
+
+def test_quickstart_imports_neither_jax_nor_the_reference():
+    """The same for the port's quickstart, examples/quickstart_torch.py."""
+    roots = _import_roots("examples/quickstart_torch.py")
+    assert "repro_torch" in roots and "torch" in roots
+    assert not roots & {"jax", "jaxlib", "repro"}, sorted(roots)
 
 
 @pytest.mark.parametrize("script", ["w4a4_ablation.py", "lut4_ablation.py",
