@@ -14,7 +14,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
                  (each shape's `w4a4_plan` printed, two calls bit-equal at
                  M = 8, 64 and 256, its kernels' ptxas registers and spill,
                  and a method gate: `cuobjdump -sass` shows IMMA in every
-                 w4a4_ kernel), the attention kernels
+                 w4a4_ kernel; then at mamba2-130m's in_proj (768, 3352:
+                 1-byte weight loads) and out_proj (1536, 768) at M = 1, 8,
+                 32, 96, 160 and 256, timed at 8 and 256), the attention
+                 kernels
                  within atol 2e-2 (bf16) on bf16, int8 and int4 pools with
                  padding rows exactly 0 (flash prefill at the prompt
                  buckets 32, 128 and 256, a prefix-hit tail and qwen3-4b's
@@ -62,7 +65,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
                  token budget 64, ragged decode); then the Poisson trace on
                  the bucketed step under the pre-packed grouped W4A16 plan
                  (W4A16_PLAN) and under lut4 (on-the-fly weights from the
-                 same masters), whose tokens must equal the W4A4 run's.
+                 same masters), both at 8 of the 24 layers (RUN_LAYERS),
+                 the lut4 run's tokens equal to a W4A4 run's at that
+                 depth.
                  Every request must finish ok with tokens in [0, vocab),
                  every parameter and cache tensor must live on the card,
                  and each run must launch the kernels of its path (counts
@@ -81,9 +86,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
                  captured step beside the eager one, and
                  engine.profile()'s attribution (one decode step against
                  its decode attention alone) beside the graph's replay.
-                 Then, on the W4A4 weights: shared-prefix traffic
-                 (PREFIX_TRACE: a 128-token system prompt for all 8
-                 requests) on the bucketed and the ragged step, bf16 pool,
+                 Then, on W4A4 weights at 8 of the 24 layers (RUN_LAYERS):
+                 shared-prefix traffic (PREFIX_TRACE: a 128-token system
+                 prompt for all 8 requests) on the bucketed and the ragged
+                 step, bf16 pool,
                  each served captured, eager and captured with the prefix
                  cache off: every request ok, prefix-hit tokens > 0, a
                  prefill_tail shape captured and flash prefill launched
@@ -122,6 +128,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
                  a float64 integer GEMM, w4a16/w8 within 1e-5 relative; (e)
                  the sensitivity sweep at full width (batch 2, seq 16): the
                  int_sim and lut4 rows equal, every MSE finite and above 0.
+                 Also on the W4A4 weights, after the chaos runs: the
+                 contiguous KV layout (`contiguous_runs`: the Poisson
+                 trace, flash prefill, captured and eager, tokens equal
+                 to a paged_gather run, no decode attention kernel) and
+                 the compare harness (`compare_runs`: the five attention
+                 paths of `serve --layout compare`, exact-softmax prefill,
+                 under W4A4 and under float weights in bf16; contiguous =
+                 paged_gather and paged = paged_nocache gated, the other
+                 agreements printed).  Last, full-width mamba2-130m
+                 (`mamba_runs`: the contiguous layout with exact-length
+                 prefill, W4A4 in_proj/out_proj, the Poisson trace,
+                 captured and eager, one graph per prompt length and
+                 decode bucket, no attention kernel, the GEMM 2 times a
+                 layer a forward).
   5. cpu      -- full width cut to 2 layers, on cuda and on cpu with the
                  same weights.  Bucketed: one prefill and three decode
                  steps with float weights in bf16 (logits within CPU_ATOL),
@@ -134,6 +154,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
                  prefill chunks and padding, then three ragged decode
                  steps, float weights in bf16 on a bf16 pool and on an int8
                  pool (logits of the emitted rows within CPU_ATOL on both).
+                 Mamba: full-width mamba2-130m (24 layers), W4A4 weights in
+                 float32, a prefill and three decode steps on contiguous
+                 caches, logits within CPU_W4A4_F32_ATOL.
 
 The line before the last is a JSON object with every kernel's launches,
 error and times; the last line is {"ok": true, "device": {...}}.
@@ -174,6 +197,23 @@ CPU_W4A4_CORR = 0.7
 W4A16_RTOL = 1e-4
 #: qwen2-0.5b's layers; every one runs 7 projections a forward
 LAYERS = 24
+#: the serve runs cut in depth (full width), so that the script keeps its
+#: time as later slices add runs: the W4A16, lut4, shared-prefix and chaos
+#: runs at 8 of 24 layers (the lut4 run's tokens are held to a W4A4 run at
+#: the same depth)
+RUN_LAYERS = dict.fromkeys(("w4a16", "lut4", "prefix_bucketed",
+                            "prefix_ragged", "chaos"), 8)
+
+
+def _w4a4_params(n_layers: int):
+    """qwen2-0.5b's W4A4-packed weights at full width and `n_layers`
+    layers, random from SEED (the first layers of the full model's)."""
+    from repro_torch.configs import Runtime, get_config
+    from repro_torch.serving.engine import build_params
+
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"), n_layers=n_layers)
+    return build_params(cfg, Runtime(quant_backend="w4a4_packed"),
+                        seed=SEED, device="cuda")
 
 SEED = 0
 #: ~2 ms of device time at H100 clocks: longer than the host needs to
@@ -399,6 +439,63 @@ def check_gemm(torch, timer):
             "ptxas": {name: {"registers": r, "spill_bytes": sp}
                       for name, (r, sp, _) in sorted(ptxas.items())},
             "sass_kernels_checked": n_sass}
+
+
+#: the rows the W4A4 kernel is checked at on mamba2-130m's projections:
+#: decode rows and the exact prompt lengths of phase 4's trace; timed at
+#: M = 8 and 256
+MAMBA_GEMM_ROWS = (1, MAX_BATCH) + (32, 96, 160, 256)
+MAMBA_TIMED_ROWS = (MAX_BATCH, PROMPT_BUCKET)
+
+
+def check_gemm_mamba(torch, timer):
+    """The fused W4A4 kernel on mamba2-130m's two projections
+    (MAMBA_GEMM_SHAPES: in_proj N = 3352, whose N % 16 = 8 takes the
+    1-byte weight loads, and out_proj) bit for bit against its plain
+    version at every M of MAMBA_GEMM_ROWS (each shape's plan printed),
+    and timed at M = 8 and 256 beside the bound and the yardstick
+    (_int_mm, at M <= 16 a float32 torch.matmul on the int values).
+    Returns {"M=<m> K=<k> N=<n>": {ms, plain_ms, bound_ms, bound_by,
+    library_ms}} and the worst |diff| (0)."""
+    from repro_torch.kernels.int4_matmul import (
+        int4_matmul_fused_cuda, int4_matmul_fused_plain, w4a4_plan)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    out, worst = {}, 0.0
+    for M in MAMBA_GEMM_ROWS:
+        for (K, N), _ in MAMBA_GEMM_SHAPES:
+            x, w_q, w_km, w_scale = _gemm_inputs(torch, gen, M, K, N)
+            p = w4a4_plan(M, K, N, w_km.shape[0], w_km.data_ptr() % 16 == 0)
+            got = int4_matmul_fused_cuda(x, w_km, w_scale)
+            want = int4_matmul_fused_plain(x, w_km, w_scale)
+            err = (got - want).abs().max().item()
+            worst = max(worst, err)
+            if not torch.equal(got, want):
+                fail(f"int4_matmul_fused (mamba) M={M} K={K} N={N}: kernel "
+                     f"differs from the plain version (max |diff| {err})")
+            line = (f"gemm (mamba) M={M:4d} K={K:5d} N={N:5d}: bit-exact; "
+                    f"plan {p.bm} x {p.bn} tiles, {p.vec}-byte weight loads, "
+                    f"{p.splits} splits, {p.ctas} CTAs")
+            if M in MAMBA_TIMED_ROWS:
+                n_bytes = M * K * 4 + w_km.numel() + N * 4 + M * N * 4
+                b_ms, b_by = bound_ms(n_bytes, 2.0 * M * K * N,
+                                      INT8_OPS_PER_S)
+                t = timer.ms(lambda: int4_matmul_fused_cuda(x, w_km,
+                                                            w_scale))
+                tp = timer.ms(lambda: int4_matmul_fused_plain(
+                    x, w_km, w_scale), reps=5)
+                a8 = torch.clamp(torch.round(x * 7.0 / x.abs().amax()), -8,
+                                 7).to(torch.int8)
+                lib = _int_yardstick_ms(torch, timer, a8, w_q)
+                out[f"M={M} K={K} N={N}"] = {
+                    "ms": t, "plain_ms": tp, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": lib}
+                line += (f"; kernel {t:.4f} ms, plain {tp:.4f} ms, bound "
+                         f"{b_ms:.5f} ms ({b_by}), "
+                         + ("_int_mm" if M > 16 else "f32 matmul")
+                         + f" {lib:.4f} ms")
+            say(line)
+    return out, worst
 
 
 def _layer_sum(rows, M, peak):
@@ -1304,12 +1401,23 @@ SERVE_RUNS = {
 RUN_GEMM = {"bucketed": "int4_matmul_fused", "ragged": "int4_matmul_fused",
             "w4a16": "w4a16_matmul", "lut4": "lut4_matmul",
             "prefix_bucketed": "int4_matmul_fused",
-            "prefix_ragged": "int4_matmul_fused"}
+            "prefix_ragged": "int4_matmul_fused",
+            "contiguous": "int4_matmul_fused", "mamba": "int4_matmul_fused"}
+#: the GEMM launches a layer a forward where not 7 (mamba2-130m: in_proj
+#: and out_proj)
+GEMMS_A_LAYER = {"mamba": 2}
+#: the decode attention kernel of the runs that launch none: the
+#: contiguous layout attends with PyTorch ops (exact attention over the
+#: row, as the JAX package's XLA path), mamba2-130m has no attention
+NO_DECODE_KERNEL = ("contiguous", "mamba")
 #: the device kernels behind each GEMM wrapper, by a prefix of their name
 #: (the W4A16 wrapper's M <= 16 path and the lut4 wrapper's split calls
 #: launch two: split K, then reduce)
 GEMM_KERNELS = {"int4_matmul_fused": "w4a4_",
                 "w4a16_matmul": "w4a16_", "lut4_matmul": "lut4_"}
+#: the attention kernels
+ATTN_KERNELS = ("flash_prefill", "paged_decode_attention",
+                "ragged_decode_attention")
 
 
 def eager_engine(*args, **kwargs):
@@ -1324,37 +1432,28 @@ def eager_engine(*args, **kwargs):
         return InferenceEngine(*args, **kwargs)
 
 
-def serve_run(torch, params, run: str, trace, prompt_lens, eager=False,
-              prefix_cache=True, telemetry=None):
-    """Serve `trace` on full-width qwen2-0.5b through InferenceEngine on
-    cuda as serve run `run` of SERVE_RUNS, its steps captured (or eager,
-    with `eager`), the prefix cache on unless `prefix_cache` is false, with
-    `telemetry` (a new bundle by default); checks every request, the
-    devices of every tensor, the launches of the path (counted from 0 just
-    before the run) and, for the captured steps, that no shape was captured
-    twice.  Returns (engine, launches, stats, tokens by request id)."""
-    from repro_torch.configs import Runtime, ServingConfig, get_config
+def serve_engine(torch, cfg, params, rt, sv, trace, warm_lens, label: str,
+                 eager=False, telemetry=None):
+    """Serve `trace` through InferenceEngine on cuda under `rt` and `sv`,
+    its steps captured (or eager, with `eager`), with `telemetry` (a new
+    bundle by default); checks every request (ok, its tokens in [0,
+    vocab)), the devices of every tensor and, for the captured steps, that
+    no shape was captured twice.  Launches are counted from 0 just before
+    the run.  Prints the run's numbers under `label`.  Returns (engine,
+    launches, stats, tokens by request id)."""
     from repro_torch.kernels import ops
     from repro_torch.serving.api import run_trace
     from repro_torch.serving.engine import InferenceEngine
 
-    step, cache_dtype, quant, must, must_not = SERVE_RUNS[run]
-    cfg = get_config("qwen2-0.5b")
-    rt = Runtime(attn_impl="flash", cache_dtype=cache_dtype, **quant)
-    sv = ServingConfig(layout="paged", max_batch=MAX_BATCH,
-                       page_size=PAGE_SIZE, num_pages=320, max_ctx=512,
-                       prefix_cache=prefix_cache, step=step)
     make = eager_engine if eager else InferenceEngine
     engine = make(cfg, rt, sv, params=params, device="cuda",
                   telemetry=telemetry)
-    label = (f"{run}, {'eager' if eager else 'graphs'}"
-             + ("" if prefix_cache else ", prefix cache off"))
     for tree, what in ((engine.params, "parameter"), (engine.caches, "cache")):
         cpu = [t for t in _tensors(tree) if t.device.type != "cuda"]
         if cpu:
             fail(f"serve ({label}): {len(cpu)} {what} tensors are not on the "
                  "card")
-    engine.warmup(prompt_lens)
+    engine.warmup(warm_lens)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     stats, finished = run_trace(engine, trace)
@@ -1370,22 +1469,12 @@ def serve_run(torch, params, run: str, trace, prompt_lens, eager=False,
             fail(f"serve ({label}): request {r.rid} produced {len(r.tokens)} "
                  f"tokens (want {r.max_new}) or a token outside "
                  f"[0, {cfg.vocab})")
-    for name in must:
-        if launches[name] <= 0:
-            fail(f"serve ({label}): kernel {name} was never launched on the "
-                 "path")
-    for name in must_not:
-        if launches[name] != 0:
-            fail(f"serve ({label}): {name} launched {launches[name]} times "
-                 "on a path that does not run it")
-    gemm = RUN_GEMM[run]
-    if launches[gemm] % (7 * LAYERS):
-        fail(f"serve ({label}): {gemm} launched {launches[gemm]} times, not 7 "
-             "per layer per forward")
     budget = (f", token budget {stats['token_budget']}, padding rows "
-              f"{stats['padding_tokens_wasted']}" if step == "ragged" else "")
-    say(f"serve ({label}: {step}, {cache_dtype} pool, "
-        f"{rt.quant_plan or rt.quant_backend}): {len(finished)} requests ok, "
+              f"{stats['padding_tokens_wasted']}" if sv.step == "ragged"
+              else "")
+    say(f"serve ({label}: {sv.layout}, {sv.step}, {rt.cache_dtype} cache, "
+        f"{rt.quant_plan or rt.quant_backend}, {rt.attn_impl} prefill): "
+        f"{len(finished)} requests ok, "
         f"{stats['decode_tokens']} decode tokens in {stats['wall_s']:.2f} s = "
         f"{stats['decode_tok_per_s']:.1f} tok/s; latency p50 "
         f"{stats['latency_p50_s']:.3f} s, p95 {stats['latency_p95_s']:.3f} s; "
@@ -1413,6 +1502,50 @@ def serve_run(torch, params, run: str, trace, prompt_lens, eager=False,
             fail(f"serve ({label}): {graphs} captured graphs, but the "
                  f"sentinel counted {rec['total']} compiles")
     return engine, launches, stats, {r.rid: list(r.tokens) for r in finished}
+
+
+def serve_run(torch, params, run: str, trace, prompt_lens, eager=False,
+              prefix_cache=True, telemetry=None):
+    """Serve `trace` on full-width qwen2-0.5b (`serve_engine`) as serve run
+    `run` of SERVE_RUNS, its steps captured (or eager, with `eager`), the
+    prefix cache on unless `prefix_cache` is false; checks also the
+    launches of the path: its kernels launched, the other paths' never,
+    its GEMM 7 times per layer per forward.  The model has RUN_LAYERS'
+    depth for `run` (LAYERS by default).  Returns (engine, launches,
+    stats, tokens by request id)."""
+    from repro_torch.configs import Runtime, ServingConfig, get_config
+
+    step, cache_dtype, quant, must, must_not = SERVE_RUNS[run]
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"),
+                              n_layers=RUN_LAYERS.get(run, LAYERS))
+    rt = Runtime(attn_impl="flash", cache_dtype=cache_dtype, **quant)
+    sv = ServingConfig(layout="paged", max_batch=MAX_BATCH,
+                       page_size=PAGE_SIZE, num_pages=320, max_ctx=512,
+                       prefix_cache=prefix_cache, step=step)
+    label = (f"{run}, {'eager' if eager else 'graphs'}"
+             + ("" if prefix_cache else ", prefix cache off"))
+    engine, launches, stats, tokens = serve_engine(
+        torch, cfg, params, rt, sv, trace, prompt_lens, label, eager=eager,
+        telemetry=telemetry)
+    _check_launches(label, launches, must, must_not, RUN_GEMM[run],
+                    7 * cfg.n_layers)
+    return engine, launches, stats, tokens
+
+
+def _check_launches(label, launches, must, must_not, gemm, per_forward):
+    """Fail unless every kernel of `must` launched, none of `must_not`, and
+    `gemm` a multiple of `per_forward` times."""
+    for name in must:
+        if launches[name] <= 0:
+            fail(f"serve ({label}): kernel {name} was never launched on the "
+                 "path")
+    for name in must_not:
+        if launches[name] != 0:
+            fail(f"serve ({label}): {name} launched {launches[name]} times "
+                 "on a path that does not run it")
+    if launches[gemm] % per_forward:
+        fail(f"serve ({label}): {gemm} launched {launches[gemm]} times, not "
+             f"{per_forward} per forward")
 
 
 #: the shared-prefix trace of phase 4: 8 requests, one 128-token system
@@ -1445,9 +1578,10 @@ def check_trace_json(path: str, n_slots: int) -> int:
     return len(events)
 
 
-def prefix_runs(torch, params):
+def prefix_runs(torch):
     """Shared-prefix traffic (PREFIX_TRACE) on the bucketed and the ragged
-    step, bf16 pool, W4A4 weights: each served with captured steps, with
+    step, bf16 pool, W4A4 weights at RUN_LAYERS' depth: each served with
+    captured steps, with
     eager steps and, captured, with the prefix cache off (the cold run).
     Fails unless every request is ok, prefix hits saved prefill tokens,
     the bucketed run captured a tail-prefill shape and launched flash
@@ -1468,6 +1602,7 @@ def prefix_runs(torch, params):
     trace = shared_prefix_trace(**PREFIX_TRACE,
                                 vocab=get_config("qwen2-0.5b").vocab,
                                 seed=SEED)
+    params = _w4a4_params(RUN_LAYERS["prefix_bucketed"])
     sys_len = PREFIX_TRACE["sys_len"]
     warm = PREFIX_TRACE["user_lens"] + tuple(sys_len + u for u in
                                             PREFIX_TRACE["user_lens"])
@@ -1535,9 +1670,10 @@ CHAOS_RUNS = (("bucketed", {"seed": 0, "stop_resume_at": (6, 14)}),
 RESTORE_SLACK_BYTES = 1 << 20
 
 
-def chaos_runs(torch, params):
+def chaos_runs(torch):
     """The chaos harness (`serving.chaos.run_chaos`) at full width on the
-    card, bf16 pool, W4A4 weights, exact-softmax prefill as the CLI runs
+    card (RUN_LAYERS' depth), bf16 pool, W4A4 weights, exact-softmax
+    prefill as the CLI runs
     it: seed 0 with a snapshot/restore at steps 6 and 14, bucketed and
     ragged, and CANCEL_STORM bucketed.  Each run is held to a fault-free
     reference of its own step mode (the ragged kernel's online softmax and
@@ -1556,7 +1692,9 @@ def chaos_runs(torch, params):
     from repro_torch.serving import chaos
     from repro_torch.serving.engine import InferenceEngine
 
-    cfg = get_config("qwen2-0.5b")
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"),
+                              n_layers=RUN_LAYERS["chaos"])
+    params = _w4a4_params(cfg.n_layers)
     rt = Runtime(attn_impl="chunked", attn_chunk_q=512,
                  quant_backend="w4a4_packed", cache_dtype="bfloat16")
     refs, launches = {}, []
@@ -1635,41 +1773,257 @@ def chaos_runs(torch, params):
     return {k: sum(n[k] for n in launches) for k in launches[0]}
 
 
+# --------------------------------------------- contiguous layout, Mamba ----
+#: the Poisson trace of phase 4: 8 requests, prompts 32/96/160/256 tokens,
+#: 16/32/64 new tokens, arrivals at 0.5 a step
+PROMPT_LENS = (32, 96, 160, 256)
+GEN_LENS = (16, 32, 64)
+#: the compare harness's pairs that do the same arithmetic, gated equal:
+#: exact softmax over the same dense [B, max_ctx] layout, and the fused
+#: paged decode with and without prefix sharing (random prompts miss)
+COMPARE_GATED = (("contiguous", "paged_gather"), ("paged", "paged_nocache"))
+
+
+def _sv(layout="paged", **kw):
+    """The serving config of every phase-4 run on full-width models."""
+    from repro_torch.configs import ServingConfig
+
+    return ServingConfig(layout=layout, max_batch=MAX_BATCH,
+                         page_size=PAGE_SIZE, num_pages=320, max_ctx=512,
+                         **kw)
+
+
+def _agreement(tokens, ref):
+    """(requests whose tokens equal `ref`'s, requests whose first token
+    does)."""
+    return (sum(tokens[r] == ref[r] for r in ref),
+            sum(tokens[r][0] == ref[r][0] for r in ref))
+
+
+def contiguous_runs(torch, params, trace):
+    """`--layout contiguous` on full-width qwen2-0.5b, W4A4 weights, bf16
+    cache, flash prefill, the Poisson trace: served captured, then eager;
+    every request ok, the fused W4A4 GEMM 7 times a layer a forward, flash
+    prefill launched and no decode attention kernel (the row attends with
+    PyTorch ops), tokens and launches equal to eager, and tokens equal to
+    a `paged_gather` run (both exact softmax over the same dense layout).
+    The captured engine's decode steps are profiled.  Returns the captured
+    runs' launches."""
+    import dataclasses
+
+    from repro_torch.configs import Runtime, get_config
+
+    cfg = get_config("qwen2-0.5b")
+    rt = Runtime(attn_impl="flash", quant_backend="w4a4_packed",
+                 cache_dtype="bfloat16")
+    must = ("int4_matmul_fused", "flash_prefill")
+    must_not = ("paged_decode_attention", "ragged_decode_attention",
+                "w4a16_matmul", "lut4_matmul")
+    t0 = time.perf_counter()
+    runs = {}
+    for mode in ("graphs", "eager"):
+        label = f"contiguous, {mode}"
+        engine, n, stats, tokens = serve_engine(
+            torch, cfg, params, rt, _sv("contiguous"), trace, PROMPT_LENS,
+            label, eager=mode == "eager")
+        _check_launches(label, n, must, must_not, "int4_matmul_fused",
+                        7 * LAYERS)
+        if mode == "graphs":
+            profile_steps(torch, engine, cfg.vocab, "contiguous")
+            att = engine.profile()
+            say(f"profile (contiguous): engine.profile(): decode step "
+                f"{att['decode_step_us']} us, decode attention "
+                f"{att['attn_us']} us ({cfg.n_layers} x one call), attn_frac "
+                f"{att['attn_frac']}")
+        del engine
+        runs[mode] = (n, stats, tokens)
+    (n, stats, tokens), (n_e, _, eager) = runs["graphs"], runs["eager"]
+    if eager != tokens or n_e != n:
+        diff = [r for r in eager if tokens.get(r) != eager[r]]
+        fail(f"serve (contiguous): captured vs eager: requests {diff} differ "
+             f"in tokens, launches {json.dumps(n)} vs {json.dumps(n_e)}")
+    _, n_g, _, gather = serve_engine(
+        torch, cfg, params, dataclasses.replace(rt, paged_attn="gather"),
+        _sv(), trace, PROMPT_LENS, "paged_gather, graphs")
+    if gather != tokens:
+        diff = [r for r in gather if tokens.get(r) != gather[r]]
+        fail(f"serve (contiguous): requests {diff} emit other tokens than "
+             "on the paged_gather path (the same exact attention)")
+    say("serve (contiguous): every request's tokens and the kernel launches "
+        "equal the eager run's, and its tokens the paged_gather run's; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {k: n[k] + n_g[k] for k in n}
+
+
+def compare_runs(torch, params, trace):
+    """The compare harness (`launch/serve.py --layout compare`) driven
+    path by path: full-width qwen2-0.5b, exact-softmax prefill
+    (`attn_impl="chunked"`), bf16 cache, the Poisson trace, each of
+    COMPARE_PATHS an engine with captured steps, under W4A4 (`params`) and
+    again under `--quant-plan "*=float"` (float masters from the same
+    seed).  Every path serves 8 of 8 ok; the pairs of COMPARE_GATED must
+    emit the same tokens; every other path's agreement with `contiguous`
+    is printed, not gated (the fused decode and ragged kernels run an
+    online split softmax, and bf16 W4A4 amplifies a rounding difference:
+    ROADMAP Queue 3 items 7 and 14).  Returns the runs' launches."""
+    from repro_torch.configs import Runtime, get_config
+    from repro_torch.launch.serve import COMPARE_PATHS, compare_path
+    from repro_torch.serving.engine import build_params
+
+    cfg = get_config("qwen2-0.5b")
+    launches = []
+    for plan, kw in (("W4A4", {"quant_backend": "w4a4_packed"}),
+                     ("*=float", {"quant_plan": "*=float"})):
+        t0 = time.perf_counter()
+        rt = Runtime(attn_impl="chunked", attn_chunk_q=512,
+                     cache_dtype="bfloat16", **kw)
+        weights = params if plan == "W4A4" else build_params(
+            cfg, rt, seed=SEED, device="cuda")
+        tokens = {}
+        for path in COMPARE_PATHS:
+            rt_path, sv = compare_path(path, rt, _sv())
+            _, n, _, tokens[path] = serve_engine(
+                torch, cfg, weights, rt_path, sv, trace, PROMPT_LENS,
+                f"compare {plan}, {path}")
+            launches.append(n)
+        for a, b in COMPARE_GATED:
+            if tokens[a] != tokens[b]:
+                diff = [r for r in tokens[a]
+                        if tokens[b].get(r) != tokens[a][r]]
+                fail(f"compare ({plan}): {a} and {b} differ on requests "
+                     f"{diff} (the same arithmetic)")
+        agree = {p: _agreement(tokens[p], tokens["contiguous"])
+                 for p in COMPARE_PATHS if p != "contiguous"}
+        gated = " and ".join(f"{a} = {b}" for a, b in COMPARE_GATED)
+        say(f"compare ({plan}): {gated} token for token; agreement with "
+            "contiguous (requests, first tokens, of 8): "
+            + ", ".join(f"{p} {a}/{f}" for p, (a, f) in agree.items())
+            + f"; {time.perf_counter() - t0:.1f} s")
+        del weights
+    return {k: sum(n[k] for n in launches) for k in launches[0]}
+
+
+#: mamba2-130m's projections: (K, N) of in_proj (2 * 1536 + 2 * 128 + 24
+#: columns) and out_proj, one of each a layer
+MAMBA_GEMM_SHAPES = (((768, 3352), 1), ((1536, 768), 1))
+
+
+def mamba_runs(torch):
+    """Full-width mamba2-130m (24 layers, d_model 768, 24 SSD heads of 64,
+    state 128, vocab 50280; random weights from SEED), W4A4-packed in_proj
+    and out_proj, the tied float embedding as lm_head, served through the
+    contiguous layout (its default) on the Poisson trace with exact-length
+    prefill: captured, then eager.  Every request ok with tokens in [0,
+    50280), the fused W4A4 GEMM 2 times a layer a forward, no attention
+    kernel, captured tokens and launches equal to eager, one captured
+    graph per prompt length and decode bucket, none twice.  The captured
+    engine's decode steps are profiled.  Returns the captured run's
+    launches."""
+    from repro_torch.configs import Runtime, get_config
+    from repro_torch.serving.api import poisson_trace
+    from repro_torch.serving.engine import build_params
+
+    cfg = get_config("mamba2-130m")
+    rt = Runtime(attn_impl="flash", quant_backend="w4a4_packed")
+    t0 = time.perf_counter()
+    params = build_params(cfg, rt, seed=SEED, device="cuda")
+    packed = [k for k in ("in_proj", "out_proj")
+              if "packed" in params["layers"]["u0"]["mamba"][k]]
+    if packed != ["in_proj", "out_proj"]:
+        fail(f"mamba: only {packed} of in_proj, out_proj were pre-packed")
+    say(f"mamba: built full-width {cfg.name} ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, d_inner {cfg.d_inner}, {cfg.ssm_heads} SSD heads of "
+        f"{cfg.ssm_headdim}, state {cfg.ssm_state}, vocab {cfg.vocab}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    trace = poisson_trace(8, 0.5, PROMPT_LENS, GEN_LENS, cfg.vocab,
+                          seed=SEED)
+    lens = sorted({len(it.prompt) for it in trace})
+    runs = {}
+    for mode in ("graphs", "eager"):
+        label = f"mamba, {mode}"
+        engine, n, stats, tokens = serve_engine(
+            torch, cfg, params, rt, _sv("contiguous"), trace, PROMPT_LENS,
+            label, eager=mode == "eager")
+        _check_launches(label, n, ("int4_matmul_fused",),
+                        ATTN_KERNELS + ("w4a16_matmul", "lut4_matmul"),
+                        "int4_matmul_fused", 2 * cfg.n_layers)
+        if mode == "graphs":
+            by_fn = stats["recompiles"]["by_fn"]
+            want = {"prefill": len(PROMPT_LENS),
+                    "decode": len(_sv().buckets)}
+            if by_fn != want or engine._prefill._cache_size() != \
+                    len(PROMPT_LENS):
+                fail(f"serve ({label}): captures {json.dumps(by_fn)}, want "
+                     f"one a prompt length and a decode bucket "
+                     f"{json.dumps(want)}")
+            prof = profile_steps(torch, engine, cfg.vocab, "mamba")
+            say(f"serve ({label}): prompt lengths {lens}, one prefill graph "
+                f"each; decode step {prof['ms']:.3f} ms "
+                f"({prof.get('replay_ms', float('nan')):.3f} ms a replay)")
+        del engine
+        runs[mode] = (n, tokens)
+    (n, tokens), (n_e, eager) = runs["graphs"], runs["eager"]
+    if eager != tokens or n_e != n:
+        diff = [r for r in eager if tokens.get(r) != eager[r]]
+        fail(f"serve (mamba): captured vs eager: requests {diff} differ in "
+             f"tokens, launches {json.dumps(n)} vs {json.dumps(n_e)}")
+    say("serve (mamba): every request's tokens and the kernel launches equal "
+        f"the eager run's; {time.perf_counter() - t0:.1f} s")
+    return n
+
 
 def phase_serve(torch):
     """The bucketed path (bf16 pool, Poisson trace), then the ragged path
     (int8 pool, mixed trace), on one set of full-width W4A4 weights; then
     the bucketed path on the Poisson trace under the W4A16 plan (pre-packed
     grouped weights) and under lut4 (on-the-fly weights, the same masters),
-    whose tokens must equal the W4A4 run's.  On the W4A4 weights also
+    both cut to RUN_LAYERS' depth, whose tokens must equal a W4A4 run's at
+    the same depth.  On the W4A4 weights also
     `engine.profile()` after each of the first two runs, the shared-prefix
-    runs (`prefix_runs`) and the chaos runs (`chaos_runs`).  Returns the
-    launches of all runs, summed."""
+    runs (`prefix_runs`), the chaos runs (`chaos_runs`), the contiguous
+    layout (`contiguous_runs`) and the compare harness (`compare_runs`);
+    last, full-width mamba2-130m (`mamba_runs`).  Every part's time is
+    printed.  Returns the launches of all runs, summed."""
     from repro_torch.configs import Runtime, get_config
     from repro_torch.serving.api import mixed_trace, poisson_trace
     from repro_torch.serving.engine import build_params
 
     cfg = get_config("qwen2-0.5b")
-    prompt_lens = (32, 96, 160, 256)
-    poisson = poisson_trace(8, 0.5, prompt_lens, (16, 32, 64), cfg.vocab,
+    prompt_lens = PROMPT_LENS
+    poisson = poisson_trace(8, 0.5, prompt_lens, GEN_LENS, cfg.vocab,
                             seed=SEED)
     launches, tokens = [], {}
     for runs, quant in ((("bucketed", "ragged"), "w4a4_packed"),
                         (("w4a16",), "w4a16"), (("lut4",), "lut4")):
         t0 = time.perf_counter()
-        params = build_params(cfg, Runtime(**SERVE_RUNS[runs[0]][2]),
+        cut = dataclasses.replace(cfg, n_layers=RUN_LAYERS.get(runs[0],
+                                                               LAYERS))
+        params = build_params(cut, Runtime(**SERVE_RUNS[runs[0]][2]),
                               seed=SEED, device="cuda")
         torch.cuda.synchronize()
-        say(f"serve: built full-width {cfg.name} ({cfg.n_layers} layers, "
-            f"d_model {cfg.d_model}, vocab {cfg.vocab}) for {quant} in "
+        say(f"serve: built full-width {cut.name} ({cut.n_layers} layers, "
+            f"d_model {cut.d_model}, vocab {cut.vocab}) for {quant} in "
             f"{time.perf_counter() - t0:.1f} s")
+        if quant == "lut4":
+            # the W4A4 path on the same masters at the same depth: the
+            # tokens the lut4 run must emit
+            ref = build_params(cut, Runtime(quant_backend="w4a4_packed"),
+                               seed=SEED, device="cuda")
+            _, n, _, tokens["w4a4_at_depth"] = serve_engine(
+                torch, cut, ref, Runtime(attn_impl="flash",
+                                         quant_backend="w4a4_packed"),
+                _sv(), poisson, prompt_lens,
+                f"bucketed at {cut.n_layers} layers, graphs")
+            launches.append(n)
+            del ref
         for run in runs:
+            t1 = time.perf_counter()
             trace = (mixed_trace(8, prompt_lens, (16, 32), cfg.vocab,
                                  seed=SEED) if run == "ragged" else poisson)
             engine, n, _, tokens[run] = serve_run(torch, params, run, trace,
                                                   prompt_lens)
             launches.append(n)
-            prof = {"graphs": profile_steps(torch, engine, cfg.vocab, run)}
+            prof = {"graphs": profile_steps(torch, engine, cut.vocab, run)}
             if quant == "w4a4_packed":
                 att = engine.profile()
                 say(f"profile ({run}): engine.profile(): decode step "
@@ -1701,18 +2055,31 @@ def phase_serve(torch):
                 f"{g['host_launches']:.0f} vs {e['host_launches']:.0f} host "
                 f"launches and {g['kernels']:.0f} vs {e['kernels']:.0f} "
                 f"device kernels per step, device busy {g['busy']} vs "
-                f"{e['busy']}")
+                f"{e['busy']}; the run in {time.perf_counter() - t1:.1f} s")
         if quant == "w4a4_packed":
-            launches.append(prefix_runs(torch, params))
-            launches.append(chaos_runs(torch, params))
+            for part in (prefix_runs, chaos_runs):
+                t1 = time.perf_counter()
+                launches.append(part(torch))
+                say(f"phase 4: {part.__name__} in "
+                    f"{time.perf_counter() - t1:.1f} s")
+            for part in (contiguous_runs, compare_runs):
+                t1 = time.perf_counter()
+                launches.append(part(torch, params, poisson))
+                say(f"phase 4: {part.__name__} in "
+                    f"{time.perf_counter() - t1:.1f} s")
+        say(f"phase 4: the {quant} runs in {time.perf_counter() - t0:.1f} s")
         del params
-    if tokens["lut4"] != tokens["bucketed"]:
-        diff = [rid for rid in tokens["bucketed"]
-                if tokens["lut4"].get(rid) != tokens["bucketed"][rid]]
+    ref = tokens["w4a4_at_depth"]
+    if tokens["lut4"] != ref:
+        diff = [rid for rid in ref if tokens["lut4"].get(rid) != ref[rid]]
         fail(f"serve (lut4): requests {diff} emitted other tokens than the "
-             "w4a4_packed bucketed run (the integer math is the same)")
+             "w4a4_packed bucketed run at its depth (the integer math is the "
+             "same)")
     say("serve (lut4): every request's tokens equal the w4a4_packed "
-        "bucketed run's, token for token")
+        "bucketed run's at the same depth, token for token")
+    t0 = time.perf_counter()
+    launches.append(mamba_runs(torch))
+    say(f"phase 4: mamba_runs in {time.perf_counter() - t0:.1f} s")
     return {k: sum(n[k] for n in launches) for k in launches[0]}
 
 
@@ -2124,8 +2491,9 @@ def profile_steps(torch, engine, vocab: int, run: str, steps: int = 4,
     per step (a replayed step launches its graph) and the kernels the
     device ran per step, the run's GEMM and decode attention kernels'
     device time and the kernels that take the most, and checks that the
-    run's GEMM launched 7 times per layer per step and its decode
-    attention kernel once (a replay counts its graph's launches).  Runs
+    run's GEMM launched 7 times per layer per step (GEMMS_A_LAYER) and its
+    decode attention kernel once (none for NO_DECODE_KERNEL; a replay
+    counts its graph's launches).  Runs
     after the serve run has read its launch counts.  `mode` ("graphs" or
     "eager") names the engine's steps in the output.  Returns the step's
     ms, host launches, device kernels and busy share."""
@@ -2133,7 +2501,7 @@ def profile_steps(torch, engine, vocab: int, run: str, steps: int = 4,
 
     from repro_torch.kernels import ops
 
-    step = SERVE_RUNS[run][0]
+    step = SERVE_RUNS[run][0] if run in SERVE_RUNS else "bucketed"
     label = f"{run}, {mode}"
 
     gen = torch.Generator().manual_seed(SEED + 3)
@@ -2171,16 +2539,23 @@ def profile_steps(torch, engine, vocab: int, run: str, steps: int = 4,
     per_step = {k: (after[k] - before[k]) / steps for k in after
                 if after[k] != before[k]}
     gemm = RUN_GEMM[run]
-    if per_step.get(gemm) != 7 * LAYERS or any(
+    layers = engine.cfg.n_layers
+    n_gemm = GEMMS_A_LAYER.get(run, 7) * layers
+    if per_step.get(gemm) != n_gemm or any(
             per_step.get(k) for k in ("int4_matmul_fused", "w4a16_matmul",
                                       "lut4_matmul") if k != gemm):
         fail(f"profile ({label}): kernel launches per decode step {per_step}; "
-             f"want {7 * LAYERS} of {gemm} and no other GEMM")
-    attn = ("paged_decode_attention" if step == "bucketed"
+             f"want {n_gemm} of {gemm} and no other GEMM")
+    attn = (None if run in NO_DECODE_KERNEL
+            else "paged_decode_attention" if step == "bucketed"
             else "ragged_decode_attention")
-    if per_step.get(attn) != LAYERS:
+    if attn is None:
+        if any(per_step.get(k) for k in ATTN_KERNELS):
+            fail(f"profile ({label}): kernel launches per decode step "
+                 f"{per_step}; want no attention kernel")
+    elif per_step.get(attn) != layers:
         fail(f"profile ({label}): kernel launches per decode step {per_step}; "
-             f"want {LAYERS} of {attn}, one a layer")
+             f"want {layers} of {attn}, one a layer")
     # while the batch still runs: the last step's inputs are live requests'
     replay = (_replay_ms(torch, engine._decode if step == "bucketed"
                          else engine._ragged) if mode == "graphs" else {})
@@ -2218,11 +2593,13 @@ def profile_steps(torch, engine, vocab: int, run: str, steps: int = 4,
     say(f"profile ({label}): the {gemm} kernels: "
         f"{sum(dev_us(e) for e in mine) / steps / 1e3:.3f} ms/step of device "
         f"time, {sum(e.count for e in mine) / steps:.0f} launches/step")
-    mine = [e for e in kernels
-            if attn.replace("_attention", "_kernel") in e.key]
-    say(f"profile ({label}): the {attn} kernels: "
-        f"{sum(dev_us(e) for e in mine) / steps / 1e3:.3f} ms/step of device "
-        f"time, {sum(e.count for e in mine) / steps:.0f} launches/step")
+    if attn is not None:
+        mine = [e for e in kernels
+                if attn.replace("_attention", "_kernel") in e.key]
+        say(f"profile ({label}): the {attn} kernels: "
+            f"{sum(dev_us(e) for e in mine) / steps / 1e3:.3f} ms/step of "
+            f"device time, {sum(e.count for e in mine) / steps:.0f} "
+            "launches/step")
     for e in kernels[:8]:
         say(f"profile ({label}):   {dev_us(e) / steps / 1e3:8.3f} ms/step "
             f"{e.count // steps:5d}x/step  {e.key[:90]}")
@@ -2385,6 +2762,48 @@ def _two_devices_ragged(torch, rt):
     return logits, launches
 
 
+def _two_devices_mamba(torch):
+    """Full-width mamba2-130m (all 24 layers), the serving path's W4A4
+    weights in float32, the same weights on both devices: one prefill of a
+    40-token prompt (exact length) on contiguous caches and three decode
+    steps fed fixed tokens.  Returns {device: logits [4, vocab] f32 on
+    the CPU} and the launch counts of the card's run."""
+    from repro_torch.configs import Runtime, get_config
+    from repro_torch.convert import tree_to
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import (decode_step, init_caches,
+                                                prefill)
+    from repro_torch.serving.engine import build_params
+
+    cfg = get_config("mamba2-130m")
+    rt = Runtime(quant_backend="w4a4_packed", compute_dtype="float32")
+    params_gpu = build_params(cfg, rt, seed=SEED + 5, device="cuda")
+    params_cpu = tree_to(params_gpu, "cpu")
+    gen = torch.Generator().manual_seed(SEED + 8)
+    L = 40
+    prompt = torch.randint(0, cfg.vocab, (1, L), generator=gen).to(
+        torch.int32)
+    feed = torch.randint(0, cfg.vocab, (3,), generator=gen)
+    logits = {}
+    with torch.inference_mode():
+        for dev, params in (("cuda", params_gpu), ("cpu", params_cpu)):
+            if dev == "cuda":
+                ops.reset_launch_counts()
+            caches = init_caches(cfg, rt, batch=1, seq=128, device=dev)
+            lg, caches = prefill(params, prompt.to(dev), cfg, rt, caches)
+            out = [lg.float().cpu()]
+            for i in range(len(feed)):
+                lg, caches = decode_step(
+                    params, feed[i].reshape(1, 1).to(torch.int32).to(dev),
+                    cfg, rt, caches,
+                    torch.tensor([[L + i]], dtype=torch.int32, device=dev))
+                out.append(lg.float().cpu())
+            logits[dev] = torch.cat(out)[:, :cfg.vocab]
+            if dev == "cuda":
+                launches = ops.launch_counts()
+    return logits, launches
+
+
 def _compare(torch, what, logits, launches):
     """Print the card-vs-CPU reading of one run; returns (max |diff|,
     correlation)."""
@@ -2456,7 +2875,9 @@ def phase_cpu(torch):
     pool, the logits of the emitted rows must agree within CPU_ATOL.  The
     int8 run holds the card's quantizing writes (scales and bytes) and the
     dequantizing kernel against the CPU path that the tests hold to the
-    JAX package.
+    JAX package.  Last, full-width mamba2-130m (`_two_devices_mamba`):
+    W4A4 weights in float32, a prefill and three decode steps on
+    contiguous caches, logits within CPU_W4A4_F32_ATOL.
     """
     from repro_torch.configs import Runtime
 
@@ -2502,6 +2923,17 @@ def phase_cpu(torch):
         if err > CPU_ATOL:
             fail(f"cpu: {what}: card and CPU logits differ by {err:.6g} > "
                  f"{CPU_ATOL}")
+    logits, launches = _two_devices_mamba(torch)
+    what = ("mamba2-130m, W4A4 weights, float32, 24 layers at full width, "
+            "prefill + 3 decode steps")
+    err, _ = _compare(torch, what, logits, launches)
+    readings[what] = err
+    if launches["int4_matmul_fused"] != 2 * 24 * 4:
+        fail(f"cpu: {what}: the card's run launched the W4A4 GEMM "
+             f"{launches['int4_matmul_fused']} times, want {2 * 24 * 4}")
+    if err > CPU_W4A4_F32_ATOL:
+        fail(f"cpu: {what}: card and CPU logits differ by {err:.6g} > "
+             f"{CPU_W4A4_F32_ATOL}")
     return readings
 
 
@@ -2535,19 +2967,37 @@ def main() -> None:
     t_start = time.perf_counter()
     phase_build()
     timer = Timer(torch)
-    results = {"int4_matmul_fused": check_gemm(torch, timer),
-               "flash_prefill": check_flash(torch, timer),
-               "paged_decode_attention": check_decode(torch, timer),
-               "ragged_decode_attention": check_ragged(torch, timer)}
-    results["w4a16_matmul"] = check_w4a16(torch, timer)
-    results["lut4_matmul"], results["int4_matmul"] = check_lut4_int4(torch,
-                                                                     timer)
-    results["lut_mul4"] = check_mul4(torch, timer)
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        say(f"phase 3: {fn.__name__} in {time.perf_counter() - t0:.1f} s")
+        return out
+
+    results = {"int4_matmul_fused": timed(check_gemm, torch, timer)}
+    mamba, err = timed(check_gemm_mamba, torch, timer)
+    gemm = results["int4_matmul_fused"]
+    gemm["mamba_shapes"] = mamba
+    gemm["max_abs_err"] = max(gemm["max_abs_err"], err)
+    for name, check in (("flash_prefill", check_flash),
+                        ("paged_decode_attention", check_decode),
+                        ("ragged_decode_attention", check_ragged),
+                        ("w4a16_matmul", check_w4a16)):
+        results[name] = timed(check, torch, timer)
+    results["lut4_matmul"], results["int4_matmul"] = timed(
+        check_lut4_int4, torch, timer)
+    results["lut_mul4"] = timed(check_mul4, torch, timer)
     del timer
+    say(f"phase 3 (kernels): {time.perf_counter() - t_start:.1f} s after "
+        "device checks")
     launches = phase_serve(torch)
+    say(f"phase 4 (serve runs): {time.perf_counter() - t_start:.1f} s after "
+        "device checks")
     entry = entry_points_run(torch)
     circuit = circuit_runs(torch, smi)
     launches = {k: launches[k] + entry[k] + circuit[k] for k in launches}
+    say(f"phase 4 (serve): {time.perf_counter() - t_start:.1f} s after "
+        "device checks")
     phase_cpu(torch)
     kernels = []
     for name, res in results.items():

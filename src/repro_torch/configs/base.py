@@ -76,6 +76,14 @@ class ArchConfig:
         """Vocab rounded up to a multiple of 128."""
         return -(-self.vocab // 128) * 128
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_headdim
+
     def reduced(self, **overrides) -> "ArchConfig":
         """A small same-family config for CPU tests (the JAX package's
         reduction, field for field)."""
@@ -133,9 +141,12 @@ class Runtime:
 class ServingConfig:
     """Continuous-batching serving knobs (see repro_torch.serving).
 
-    Paged layout only in this port: KV storage is fixed-size pages from a
-    shared pool with per-sequence block tables.  Decode batches pad up to
-    the nearest bucket, prompts to the nearest power-of-two length.
+    `layout="paged"` allocates KV storage as fixed-size pages from a shared
+    pool with per-sequence block tables; `"contiguous"` preallocates one
+    `max_ctx`-long cache row per batch slot (the static-slot layout, and
+    the one SSM stacks serve through).  Decode batches pad up to the
+    nearest bucket, prompts to the nearest power-of-two length (SSM stacks:
+    their exact length).
     `prefix_cache` reuses full KV pages across requests by chained prefix
     hash; `prefix_lru` keeps freed registered pages hittable until the
     free list runs dry.  `step="ragged"` packs every live request's tokens
@@ -143,7 +154,7 @@ class ServingConfig:
     ``[1, budget]`` step; `token_budget` is its padded capacity (0 = auto,
     see `budget`)."""
 
-    layout: str = "paged"
+    layout: str = "paged"           # paged | contiguous
     max_batch: int = 8
     page_size: int = 16
     num_pages: int = 128

@@ -240,8 +240,12 @@ def active_plan(arch, rt) -> QuantPlan:
 
 
 def block_leaf_sites(block_type: str, cfg) -> Tuple[str, ...]:
-    """The quantizable leaf sites inside one attention block."""
-    if block_type != "A" or cfg.family != "dense":
+    """The quantizable leaf sites inside one block of the given type
+    (relative to the block's ``block[<i>]`` prefix): attention blocks of a
+    dense stack, and Mamba-2 blocks."""
+    if block_type == "M":
+        return ("mamba.in_proj", "mamba.out_proj")
+    if block_type != "A" or cfg.family == "moe":
         raise NotImplementedError(
             f"block type {block_type!r} / family {cfg.family!r} is not "
             f"ported yet")
@@ -283,7 +287,9 @@ def plan_pack_tree(params, cfg, plan: QuantPlan, *,
     do leaves under ``min_size`` elements (counted over the layer-stacked
     leaf, as the JAX package counts them).  A repeat-uniform plan packs the
     stacked ``layers`` tree in place; any other splits it into a list of
-    per-layer trees (the JAX package's ``{"r<i>": {"u0": ...}}``)."""
+    per-block trees, block ``r * P + j`` at index ``r * P + j`` (the JAX
+    package's ``{"r<r>": {"u<j>": ...}}``).  Tail blocks pack under their
+    own sites."""
     from .qlinear import PACKABLE_NAMES, pack_weight_nd
 
     def pack_leaf(leaf, site: str, *, check_name: Optional[str] = None):
@@ -315,15 +321,20 @@ def plan_pack_tree(params, cfg, plan: QuantPlan, *,
                              check_name=comps[-1])
         return rec(bp, ())
 
+    P, R = len(cfg.pattern), cfg.n_repeats
     out = dict(params)
     if plan_repeat_uniform(plan, cfg):
         out["layers"] = {f"u{j}": pack_block(params["layers"][f"u{j}"],
                                              f"block[{j}]")
-                         for j in range(len(cfg.pattern))}
+                         for j in range(P)}
     else:
-        out["layers"] = [pack_block(layer_slice(params["layers"]["u0"], r),
-                                    f"block[{r}]")
-                         for r in range(cfg.n_repeats)]
+        out["layers"] = [
+            pack_block(layer_slice(params["layers"][f"u{j}"], r),
+                       f"block[{r * P + j}]")
+            for r in range(R) for j in range(P)]
+    for t in range(len(cfg.tail)):
+        out[f"tail{t}"] = pack_block(params[f"tail{t}"],
+                                     f"block[{R * P + t}]")
     if "lm_head" in params:
         out["lm_head"] = {"w": pack_leaf(params["lm_head"]["w"], "lm_head")}
     return out

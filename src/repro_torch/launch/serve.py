@@ -4,14 +4,27 @@ Serves synthetic traffic (Poisson arrivals, or the shared_prefix, mixed
 and bursty scenarios) under a quantization plan (``--quant``, a uniform backend,
 default W4A4-packed weights through the fused int4 GEMM; or
 ``--quant-plan``, a preset, JSON file or inline rules, which takes
-precedence) and a paged KV pool (bf16, or int8/int4 with per-token scales)
-with the prefix cache, and prints a JSON report with tokens/s and p50/p95
-request latency.  ``--step bucketed`` runs flash prefill and fused paged
-decode; ``--step ragged`` packs prefill chunks and decode tokens into one
-ragged step a token budget wide.  Runs on ``cuda`` unless ``--device cpu``
-is given; on ``cuda`` every step shape is captured in a CUDA graph and
-replayed, and the report's ``recompiles_steady_state`` counts captures of a
-shape seen before (0 in a sound run).  The report carries the engine's
+precedence) and a KV layout (``--layout paged``: a paged pool, bf16 or
+int8/int4 with per-token scales, with the prefix cache; ``contiguous``: a
+max_ctx cache row per batch slot; the default is paged for attention
+stacks and contiguous for the others, such as mamba2-130m), and prints a
+JSON report with tokens/s and p50/p95 request latency.  ``--step
+bucketed`` runs flash prefill and fused paged decode (contiguous: exact
+attention over the row); ``--step ragged`` (paged) packs prefill chunks
+and decode tokens into one ragged step a token budget wide.
+
+``--layout compare`` is the bit-identity harness: the same trace through
+five attention paths, ``paged`` (fused paged decode), ``paged_gather``
+(the gather-then-attend baseline), ``contiguous``, ``paged_nocache`` (the
+prefix cache off; with the prefix cache on) and ``ragged``, with
+exact-softmax prefill (``attn_impl="chunked"``), and ``bit_identical``
+in the report; tokens that differ between paths exit with a failure,
+unless a lossy KV dtype explains it, as the JAX package's CLI rules.
+
+Runs on ``cuda`` unless ``--device cpu`` is given; on ``cuda`` every step
+shape is captured in a CUDA graph and replayed, and the report's
+``recompiles_steady_state`` counts captures of a shape seen before (0 in
+a sound run).  The report carries the engine's
 `profile()` (one decode step's time against its decode attention alone).
 
 ``--sweep`` adds the per-site quantization sensitivity table
@@ -42,6 +55,10 @@ and the recompile sentinel.
         --trace-out /tmp/serve_trace.json
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
         --reduced --device cpu --scenario chaos --chaos-seed 3
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
+        --reduced --device cpu --layout compare
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
+        --reduced --device cpu
 """
 
 from __future__ import annotations
@@ -64,7 +81,26 @@ from ..serving.engine import InferenceEngine, build_params
 BURST, PERIOD = 4, 8
 
 
-def serve(arch: str, *, reduced=True, layers=None, max_batch=4,
+#: the five attention paths of ``--layout compare`` (``paged_nocache`` only
+#: with the prefix cache on)
+COMPARE_PATHS = ("paged", "paged_gather", "contiguous", "paged_nocache",
+                 "ragged")
+
+
+def compare_path(path: str, rt, sv):
+    """The Runtime and ServingConfig of compare path `path` over the run's
+    `rt` and a bucketed paged `sv`: its layout, its step, the gather
+    baseline for ``paged_gather``, the prefix cache off for
+    ``paged_nocache``."""
+    if path == "paged_gather":
+        rt = dataclasses.replace(rt, paged_attn="gather")
+    return rt, dataclasses.replace(
+        sv, layout="contiguous" if path == "contiguous" else "paged",
+        step="ragged" if path == "ragged" else "bucketed",
+        prefix_cache=sv.prefix_cache and path != "paged_nocache")
+
+
+def serve(arch: str, *, reduced=True, layers=None, layout=None, max_batch=4,
           page_size=16, num_pages=48, max_ctx=128, requests=8, rate=0.5,
           prompt_lens=(8, 16, 32), gen_lens=(8, 16), prefix_cache=True,
           scenario="poisson", sys_len=32, step="bucketed",
@@ -102,13 +138,17 @@ def serve(arch: str, *, reduced=True, layers=None, max_batch=4,
                 "quant": quant_plan or quant, "cache_dtype": cache_dtype,
                 "device": device,
                 **chaos_report(cfg, rt, sv, chaos, device=device)}
-    rt = Runtime(attn_impl="flash", attn_chunk_q=min(512, max_ctx),
+    if layout is None:   # an SSM state does not page
+        blocks = tuple(cfg.pattern) + tuple(cfg.tail)
+        layout = "paged" if all(bt == "A" for bt in blocks) else "contiguous"
+    # perf runs prefill through the flash kernel; the compare harness runs
+    # exact-softmax prefill ("chunked") so that its token identity compares
+    # the same arithmetic (flash's online softmax rounds otherwise, and on
+    # random weights that can flip an argmax tie in the prompt logits)
+    rt = Runtime(attn_impl="chunked" if layout == "compare" else "flash",
+                 attn_chunk_q=min(512, max_ctx),
                  quant_backend=None if quant_plan else quant,
                  quant_plan=quant_plan, cache_dtype=cache_dtype)
-    sv = ServingConfig(layout="paged", max_batch=max_batch,
-                       page_size=page_size, num_pages=num_pages,
-                       max_ctx=max_ctx, prefix_cache=prefix_cache, step=step,
-                       token_budget=token_budget, max_queue=max_queue)
     warm_lens = tuple(prompt_lens)
     if scenario == "shared_prefix":
         trace = shared_prefix_trace(requests, rate, sys_len, prompt_lens,
@@ -126,48 +166,96 @@ def serve(arch: str, *, reduced=True, layers=None, max_batch=4,
     else:
         trace = poisson_trace(requests, rate, prompt_lens, gen_lens,
                               cfg.vocab, seed=seed)
+    paths = ([p for p in COMPARE_PATHS
+              if prefix_cache or p != "paged_nocache"]
+             if layout == "compare" else [layout])
     params = build_params(cfg, rt, seed, device)
-    tm = Telemetry(metrics=metrics, trace=bool(trace_out))
-    engine = InferenceEngine(cfg, rt, sv, params=params, device=device,
-                             telemetry=tm)
-    engine.warmup(warm_lens)
-    if engine.device.type == "cuda":
-        torch.cuda.synchronize(engine.device)
-    ops.reset_launch_counts()
-    stats, _ = run_trace(engine, trace)
-    launches = ops.launch_counts()
-    # attention vs GEMM attribution of one decode step, stamped with the
-    # step it was taken at
-    stats["profile"] = engine.profile()
-    stats["profile_at_step"] = stats["profile"]["at_step"]
     report = {"arch": arch, "reduced": reduced, "n_layers": cfg.n_layers,
-              "quant": quant_plan or quant, "cache_dtype": cache_dtype,
-              "step": step, "scenario": scenario,
-              "device": str(engine.device),
-              "device_name": (torch.cuda.get_device_name(engine.device)
-                              if engine.device.type == "cuda" else "cpu"),
+              "layout": layout, "quant": quant_plan or quant,
+              "cache_dtype": cache_dtype, "step": step, "scenario": scenario,
               "requests": requests, "rate_per_step": rate,
               "prefix_cache": bool(prefix_cache),
               **({"sys_len": sys_len} if scenario == "shared_prefix"
-                 else {}),
-              "paged": stats, "kernel_launches": launches}
-    if tm.trace.enabled:
-        tm.trace.save(trace_out)
-        report["trace_out"] = trace_out
+                 else {})}
+    tokens_by_path, launches = {}, {}
+    sv = ServingConfig(layout="paged" if layout == "compare" else layout,
+                       max_batch=max_batch, page_size=page_size,
+                       num_pages=num_pages, max_ctx=max_ctx,
+                       step=step if layout == "paged" else "bucketed",
+                       token_budget=token_budget, max_queue=max_queue,
+                       prefix_cache=prefix_cache)
+    for path in paths:
+        rt_path, sv_path = (compare_path(path, rt, sv) if layout == "compare"
+                            else (rt, sv))
+        # one registry per engine; the timeline records the first path
+        tm = Telemetry(metrics=metrics,
+                       trace=bool(trace_out) and path == paths[0])
+        engine = InferenceEngine(cfg, rt_path, sv_path, params=params,
+                                 device=device, telemetry=tm)
+        engine.warmup(warm_lens)
+        if engine.device.type == "cuda":
+            torch.cuda.synchronize(engine.device)
+        ops.reset_launch_counts()
+        stats, finished = run_trace(engine, trace)
+        stats["kernel_launches"] = ops.launch_counts()
+        for name, n in stats["kernel_launches"].items():
+            launches[name] = launches.get(name, 0) + n
+        # attention vs GEMM attribution of one decode step, stamped with
+        # the step it was taken at
+        stats["profile"] = engine.profile()
+        stats["profile_at_step"] = stats["profile"]["at_step"]
+        report[path] = stats
+        tokens_by_path[path] = [r.tokens for r in finished]
+        if tm.trace.enabled:
+            tm.trace.save(trace_out)
+            report["trace_out"] = trace_out
+    report["device"] = str(engine.device)
+    report["device_name"] = (torch.cuda.get_device_name(engine.device)
+                             if engine.device.type == "cuda" else "cpu")
+    report["kernel_launches"] = launches
+    if layout == "compare":
+        _compare_report(report, paths, tokens_by_path, cache_dtype)
+    stats = report[paths[0]]
     report["tokens_per_s"] = stats["decode_tok_per_s"]
     report["latency_p50_s"] = stats["latency_p50_s"]
     report["latency_p95_s"] = stats["latency_p95_s"]
     report["prefix_hit_rate"] = stats["prefix_hit_rate"]
     report["tokens_prefilled_saved"] = stats["tokens_prefilled_saved"]
     # captures of a step shape seen before (0 unless a step's shape key
-    # drifts: see observability.jit_watch)
-    report["recompiles_steady_state"] = stats["recompiles"]["steady_state"]
+    # drifts: see observability.jit_watch); compare mode takes the largest
+    # over its engines, so one path recapturing fails the gate
+    report["recompiles_steady_state"] = max(
+        report[p]["recompiles"].get("steady_state", 0) for p in paths)
     if sweep:
         from .sensitivity import sensitivity_sweep
 
         report["sensitivity"] = sensitivity_sweep(cfg, seed=seed,
                                                   device=device)
     return report
+
+
+def _compare_report(report, paths, tokens_by_path, cache_dtype) -> None:
+    """`report["bit_identical"]`: every path's tokens equal the first's.
+    Where they differ, only the paged paths preempt and take prefix-cache
+    hits, and the ragged path always prefills over its (dequantized) pool:
+    with a lossy KV dtype that is expected and noted; otherwise the run
+    fails, as the JAX package's CLI rules."""
+    ref = tokens_by_path[paths[0]]
+    diverged = [p for p in paths[1:] if tokens_by_path[p] != ref]
+    report["bit_identical"] = not diverged
+    if not diverged:
+        return
+    lossy_paths = (report["paged"]["requests_preempted"] > 0
+                   or report["paged"]["tokens_prefilled_saved"] > 0
+                   or "ragged" in diverged)
+    if cache_dtype in ("int8", "int4") and lossy_paths:
+        report["note"] = ("paged/ragged diverged after preemption, a "
+                          "prefix-cache hit, or a chunked prefill with a "
+                          "lossy KV-cache dtype: the other path attends "
+                          "those prefixes in full precision — expected")
+    else:
+        raise SystemExit(f"FAIL: decode diverged across attention paths "
+                         f"({paths[0]} vs {diverged})")
 
 
 def main():
@@ -178,6 +266,11 @@ def main():
     grp.add_argument("--full", dest="reduced", action="store_false")
     ap.add_argument("--layers", type=int, default=None,
                     help="override the layer count (depth cut)")
+    ap.add_argument("--layout", default=None,
+                    choices=["paged", "contiguous", "compare"],
+                    help="KV layout (default: paged for attention stacks, "
+                         "else contiguous); compare serves the trace through "
+                         "the five attention paths and checks their tokens")
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--num-pages", type=int, default=48)
@@ -244,7 +337,7 @@ def main():
 
     out = serve(
         args.arch, reduced=args.reduced, layers=args.layers,
-        max_batch=args.max_batch, page_size=args.page_size,
+        layout=args.layout, max_batch=args.max_batch, page_size=args.page_size,
         num_pages=args.num_pages, max_ctx=args.max_ctx,
         requests=args.requests, rate=args.rate,
         prompt_lens=tuple(int(x) for x in args.prompt_lens.split(",")),

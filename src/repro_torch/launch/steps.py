@@ -1,13 +1,23 @@
-"""Serving step functions for the continuous-batching engine (PyTorch port
-of ``repro/launch/steps.py``: ``make_serving_steps`` and
-``make_ragged_step``, paged layout).
+"""Step functions for the model and the continuous-batching engine
+(PyTorch port of ``repro/launch/steps.py``: ``make_prefill_step``,
+``make_decode_step``, ``make_serving_steps`` for both KV layouts and
+``make_ragged_step``).
 
-Each step gathers the batch's block-table rows on the device
+Each paged serving step gathers the batch's block-table rows on the device
 (``tbl_all[slots]``), binds them to every layer, runs the model and takes
 the greedy argmax on the device, so the only device->host traffic per step
 is the engine's readback of one int32 per row.  Where the JAX package
 donates the KV pool through a jit, these steps update the pool in place
 (``serving.kv_pages.paged_write``) and return the same cache tree.
+
+The contiguous serving steps take the engine's whole cache tree and the
+batch's slots, and move the rows inside the step, where the JAX engine
+moves them around its jitted steps: prefill runs on a fresh reset row and
+scatters it into its slot; decode gathers the batch's rows, steps them and
+scatters them back (``index_select`` / ``index_copy_`` on the engine's own
+tensors, so a captured graph reads and writes the same storage every
+call).  A row whose last position is negative (padding, warm-up) writes
+back what it read; rows the step does not name are untouched.
 
 Where the JAX package compiles each step once per bucket shape
 (``jax.jit``), the engine on CUDA wraps each step in a `CapturedStep`: one
@@ -23,24 +33,98 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from ..kernels import ops
-from ..models.transformer import _logits, decode_step, forward, prefill
-from ..serving.kv_pages import with_block_tables, with_token_slots
+from ..models.transformer import (_logits, decode_step, forward,
+                                  init_caches, prefill)
+from ..serving.kv_pages import (gather_rows, scatter_rows, with_block_tables,
+                                with_token_slots)
 
 
-def make_serving_steps(cfg, rt):
+def make_prefill_step(cfg, rt):
+    """``step(params, tokens, caches, positions=None) -> (last logits,
+    caches)``: `models.transformer.prefill` under `cfg` and `rt`."""
+    @torch.inference_mode()
+    def prefill_step(params, tokens, caches, positions=None):
+        return prefill(params, tokens, cfg, rt, caches, positions)
+
+    return prefill_step
+
+
+def make_decode_step(cfg, rt):
+    """``step(params, token, caches, positions) -> (logits, caches)``:
+    `models.transformer.decode_step` under `cfg` and `rt`."""
+    @torch.inference_mode()
+    def step(params, token, caches, positions):
+        return decode_step(params, token, cfg, rt, caches, positions)
+
+    return step
+
+
+def _keep_rows(new: Dict, old: Dict, keep: torch.Tensor) -> Dict:
+    """`new`'s rows where `keep` [n] holds, `old`'s elsewhere (rep leaves
+    carry the batch at dim 1, tail leaves at dim 0)."""
+    def walk(a, b, dim):
+        out = {}
+        for key, val in a.items():
+            if isinstance(val, dict):
+                out[key] = walk(val, b[key], dim)
+            else:
+                shape = [1] * val.dim()
+                shape[dim] = keep.shape[0]
+                out[key] = torch.where(keep.reshape(shape), val,
+                                       b[key].to(val.dtype))
+        return out
+
+    return {"rep": walk(new["rep"], old["rep"], 1),
+            "tail": walk(new["tail"], old["tail"], 0)}
+
+
+def make_serving_steps(cfg, rt, paged: bool = False, max_ctx: int = 0):
     """(prefill, tail_prefill, decode) steps, each
     ``step(params, tokens, caches, positions, tbl_all, slots)
     -> (next_tokens [B] int32, caches)``.
 
-    ``tbl_all`` [max_batch, pages_per_seq] is the engine's device-resident
-    table pool and ``slots`` [B] the batch rows' slots.  The tail-prefill
-    step runs prefill with ``rt.prefill_over_cache``: the suffix queries of
-    a prefix-cache hit attend over the gathered page pool."""
+    ``paged=True``: ``tbl_all`` [max_batch, pages_per_seq] is the engine's
+    device-resident table pool and ``slots`` [B] the batch rows' slots.
+    The tail-prefill step runs prefill with ``rt.prefill_over_cache``: the
+    suffix queries of a prefix-cache hit attend over the gathered page
+    pool.
+
+    ``paged=False`` (the contiguous layout): ``caches`` is the engine's
+    whole cache tree of `max_ctx`-long rows, ``tbl_all`` is None and
+    ``slots`` [B] (distinct) the rows the batch runs on.  Prefill (B == 1)
+    runs on a fresh row (``init_caches``) and scatters it into its slot;
+    decode gathers the rows, steps them and scatters them back; a row whose
+    last position is negative writes back what it read.  The tail-prefill
+    step is None (no pages to share)."""
     vocab = cfg.vocab
-    rt_tail = dataclasses.replace(rt, prefill_over_cache=True)
 
     def greedy(logits):
         return torch.argmax(logits[:, :vocab], dim=-1).to(torch.int32)
+
+    if not paged:
+        @torch.inference_mode()
+        def prefill_rows(params, tokens, caches, positions, tbl_all, slots):
+            rows = slots.long()
+            fresh = init_caches(cfg, rt, batch=rows.shape[0], seq=max_ctx,
+                                device=tokens.device)
+            logits, row = prefill(params, tokens, cfg, rt, fresh, positions)
+            keep = positions[:, -1] >= 0
+            scatter_rows(caches, _keep_rows(row, gather_rows(caches, rows),
+                                            keep), rows)
+            return greedy(logits), caches
+
+        @torch.inference_mode()
+        def decode_rows(params, token, caches, positions, tbl_all, slots):
+            rows = slots.long()
+            sub = gather_rows(caches, rows)
+            logits, new = decode_step(params, token, cfg, rt, sub, positions)
+            keep = positions[:, -1] >= 0
+            scatter_rows(caches, _keep_rows(new, sub, keep), rows)
+            return greedy(logits), caches
+
+        return prefill_rows, None, decode_rows
+
+    rt_tail = dataclasses.replace(rt, prefill_over_cache=True)
 
     def make_prefill(rt_used):
         @torch.inference_mode()
@@ -115,7 +199,8 @@ def cuda_graph_capture(pool) -> Callable:
 def _storage(params, caches, tbl_all) -> tuple:
     """The addresses a captured graph reads and writes in place: every
     parameter tensor, every pool leaf of `caches` (the bound routing leaves
-    "tbl" and "slots" are per-call values, skipped) and the table pool."""
+    "tbl" and "slots" are per-call values, skipped) and the table pool
+    (None for the contiguous layout)."""
     ptrs: List[int] = []
 
     def walk(node):
@@ -131,7 +216,8 @@ def _storage(params, caches, tbl_all) -> tuple:
 
     walk(params)
     walk(caches)
-    ptrs.append(tbl_all.data_ptr())
+    if tbl_all is not None:
+        ptrs.append(tbl_all.data_ptr())
     return tuple(ptrs)
 
 

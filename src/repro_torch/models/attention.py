@@ -11,9 +11,13 @@ Three interchangeable attention cores:
 
 Masks come from explicit absolute positions (``-1`` = padding), which makes
 causal, window and validity masking uniform across prefill and decode.
-The paged KV cache (``serving.kv_pages``, bf16/f32 pools or int8/int4 pools
-quantized by `quantize_kv`) is the only cache layout ported; the
-contiguous ring cache waits.
+Two KV cache layouts, as in the JAX package: the paged pool
+(``serving.kv_pages``: a dict holding ``"tbl"``, updated in place) and the
+contiguous ring cache (`init_attn_cache`: one row of ``min(seq, window)``
+slots per batch row with an absolute-position tensor ``kpos``, -1 = empty;
+written functionally, as the JAX package writes it).  Both hold bf16/f32
+K/V, or int8/int4 K/V quantized by `quantize_kv` with per-(token, head)
+scales.
 """
 
 from __future__ import annotations
@@ -78,6 +82,82 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return (q.to(torch.float32) * scale).to(torch.bfloat16)
 
 
+# ------------------------------------------------ contiguous KV cache ------
+def init_attn_cache(cfg, rt, batch: int, seq: int, device="cuda") -> Dict:
+    """One attention layer's contiguous cache: a ring of ``min(seq,
+    local_window)`` slots per row (`seq` = max context), ``pos`` [B] (the
+    tokens the row has taken) and ``kpos`` [B, size] (each slot's absolute
+    position, -1 = empty), with bf16/f32 K/V, or int8 K/V / int4 nibble
+    pairs and f32 scales per (token, head)."""
+    size = min(seq, cfg.local_window) if cfg.local_window else seq
+    kv, hd = cfg.n_kv_heads, cfg.hd
+    cache = {
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+        "kpos": torch.full((batch, size), -1, dtype=torch.int32,
+                           device=device),
+    }
+    if rt.cache_dtype in ("int8", "int4"):
+        int4 = rt.cache_dtype == "int4"
+        shape = (batch, size, kv, hd // 2 if int4 else hd)
+        dt = torch.uint8 if int4 else torch.int8
+        for name in ("k", "v"):
+            cache[name] = torch.zeros(shape, dtype=dt, device=device)
+            cache[name + "_scale"] = torch.zeros(
+                (batch, size, kv, 1), dtype=torch.float32, device=device)
+    else:
+        dt = torch.bfloat16 if rt.cache_dtype == "bfloat16" else torch.float32
+        for name in ("k", "v"):
+            cache[name] = torch.zeros((batch, size, kv, hd), dtype=dt,
+                                      device=device)
+    return cache
+
+
+def _scatter_time(buf: torch.Tensor, val: torch.Tensor,
+                  slots: torch.Tensor) -> torch.Tensor:
+    """A new ``buf`` [B, size, ...] with ``val`` [B, n, ...] at slot indices
+    ``slots`` [B, n].  Slot ``size`` is the drop sentinel (padding and
+    invalid positions): the write goes to one extra slot past the ring,
+    which the result leaves out (the JAX package's ``mode="drop"``)."""
+    B, size = buf.shape[:2]
+    out = buf.new_zeros((B, size + 1) + tuple(buf.shape[2:]))
+    out[:, :size] = buf
+    bidx = torch.arange(B, device=buf.device)[:, None].expand_as(slots)
+    out[bidx, slots.long()] = val.to(buf.dtype)
+    return out[:, :size]
+
+
+def _cache_write(cache: Dict, k, v, abs_pos) -> Dict:
+    """Write k/v [B, n, KV, hd] whose absolute positions are abs_pos [B, n]
+    into a new contiguous cache: slot ``pos % size`` (the ring), negative
+    positions to the drop sentinel.  Quantized caches store `quantize_kv`'s
+    bytes and scales.  The JAX package's scatter path (``aligned=False``,
+    the serving path)."""
+    size = cache["k"].shape[1]
+    slots = torch.where(abs_pos >= 0, abs_pos % size, size)
+    out = dict(cache)
+    if "k_scale" in cache:
+        int4 = cache["k"].dtype == torch.uint8       # packed-nibble cache
+        for name, val in (("k", k), ("v", v)):
+            q, scale = quantize_kv(val, int4)
+            out[name] = _scatter_time(cache[name], q, slots)
+            out[name + "_scale"] = _scatter_time(cache[name + "_scale"],
+                                                 scale, slots)
+    else:
+        out["k"] = _scatter_time(cache["k"], k, slots)
+        out["v"] = _scatter_time(cache["v"], v, slots)
+    out["kpos"] = _scatter_time(cache["kpos"], abs_pos, slots)
+    return out
+
+
+def _cache_read(cache: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cache's K/V [B, size, KV, hd] (dequantized to bf16 when
+    quantized)."""
+    if "k_scale" in cache:
+        return (dequantize_kv(cache["k"], cache["k_scale"]),
+                dequantize_kv(cache["v"], cache["v_scale"]))
+    return cache["k"], cache["v"]
+
+
 def _gqa_block(q, k, v, mask):
     """q [B, n, KV, G, hd]; k/v [B, Skv, KV, hd]; mask [B, n, Skv] bool.
     Mixed operand dtypes (f32 queries over a dequantized bf16 pool) promote
@@ -122,8 +202,8 @@ def apply_attention(params: Dict, x: torch.Tensor, cfg, rt,
                     positions: torch.Tensor, cache: Optional[Dict] = None,
                     update_cache: bool = False, site: str = ""
                     ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """x [B, S, D], positions [B, S].  With a paged cache (a dict holding
-    ``"tbl"``) the branches are those of the JAX package.  A cache that also
+    """x [B, S, D], positions [B, S].  The branches are those of the JAX
+    package.  With a paged cache (a dict holding ``"tbl"``):  A cache that also
     holds ``"slots"`` is the ragged token-major step (B == 1, S packed rows,
     each routed through the table row ``slots`` names): write every row's
     K/V first, then attend with ``pos <= token_pos``, which is causal for
@@ -132,7 +212,13 @@ def apply_attention(params: Dict, x: torch.Tensor, cfg, rt,
     baseline with ``rt.paged_attn == "gather"``); ``rt.prefill_over_cache``
     is the tail prefill after a prefix-cache hit (write, then attend over
     the gathered pages); otherwise a fresh prefill attends in flight and
-    writes its K/V.  The page pool is updated in place."""
+    writes its K/V.  The page pool is updated in place.  With a contiguous
+    cache: S == 1 is decode (write the token into the ring, then exact
+    attention over the cache, ``impl="full"``); otherwise the prompt
+    attends in flight and, with `update_cache`, its last ``min(S, size)``
+    positions are written, those below the row's ``pos`` (already cached:
+    a resume) dropped.  The contiguous cache returned is a new dict of new
+    tensors."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     if cfg.rope != "rope":
@@ -191,13 +277,26 @@ def apply_attention(params: Dict, x: torch.Tensor, cfg, rt,
                                  chunk_q=rt.attn_chunk_q)
             if update_cache:
                 new_cache = paged_write(cache, k, v, positions)
-    elif cache is not None:
-        raise NotImplementedError(
-            "only the paged KV cache is ported; the contiguous cache waits")
+    elif cache is not None and S == 1:
+        new_cache = _cache_write(cache, k, v, positions)
+        new_cache["pos"] = cache["pos"] + 1
+        kf, vf = _cache_read(new_cache)
+        out = attention_core(q, kf, vf, q_positions=positions,
+                             k_positions=new_cache["kpos"],
+                             window=cfg.local_window, impl="full",
+                             chunk_q=rt.attn_chunk_q)
     else:
         out = attention_core(q, k, v, q_positions=positions,
                              k_positions=positions, window=cfg.local_window,
                              impl=rt.attn_impl, chunk_q=rt.attn_chunk_q)
+        if update_cache and cache is not None:
+            # the prompt's last min(S, size) positions, those the row has
+            # already cached (a resume re-presenting them) dropped
+            take = min(S, cache["k"].shape[1])
+            wpos = positions[:, -take:]
+            wpos = torch.where(wpos >= cache["pos"][:, None], wpos, -1)
+            new_cache = _cache_write(cache, k[:, -take:], v[:, -take:], wpos)
+            new_cache["pos"] = cache["pos"] + S
 
     out = out.reshape(B, S, H * hd)
     y = qdense(params["wo"], out, rt.quant_cfg(cfg, wo_site), tag=wo_site)

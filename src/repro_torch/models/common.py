@@ -1,5 +1,5 @@
-"""Shared model components: RMS norm, rotary embeddings, initializer
-(PyTorch port of ``repro/models/common.py``)."""
+"""Shared model components: RMS norm, rotary and sinusoidal position
+embeddings, initializer (PyTorch port of ``repro/models/common.py``)."""
 
 from __future__ import annotations
 
@@ -40,3 +40,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_pos_embed(positions: torch.Tensor,
+                         d_model: int) -> torch.Tensor:
+    """Non-learned absolute positional embedding [B, S, d_model] f32 (the
+    JAX package adds it to the embeddings of every ``rope="none"`` stack)."""
+    half = d_model // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions[..., None].to(torch.float32) * freqs       # [B, S, half]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)

@@ -1,16 +1,24 @@
-"""Decoder LM assembly: embedding -> attention/FFN blocks -> norm -> tied
-logits (PyTorch port of ``repro/models/transformer.py``, dense attention
-stacks).
+"""Decoder LM assembly: embedding -> repeat units of blocks -> tail blocks
+-> norm -> logits (PyTorch port of ``repro/models/transformer.py``).
 
-Parameters keep the JAX package's tree: ``params["layers"]["u0"]`` holds
-every leaf of the repeated block stacked over layers on axis 0, so weights
-carried across with ``convert.params_from_jax`` and the plan packer's size
-rule (counted over the stacked leaf) agree with the reference.  Where the
-JAX package scans over that axis, `forward` loops over layers in Python on
-per-layer views (``layer_params``); a quant plan that packs layers
-differently leaves ``params["layers"]`` a list of per-layer trees, which
-the loop walks the same way.  Paged KV pools are stacked the same
-way and updated in place.
+`cfg.pattern` is one repeat unit of block types ("A" attention + FFN, "M"
+Mamba-2), repeated ``cfg.n_repeats`` times, then ``cfg.tail``.
+Parameters keep the JAX package's tree: ``params["layers"]["u<j>"]`` holds
+every leaf of the unit's j-th block stacked over the repeats on axis 0, and
+``params["tail<t>"]`` the tail blocks, so weights carried across with
+``convert.params_from_jax`` and the plan packer's size rule (counted over
+the stacked leaf) agree with the reference.  Where the JAX package scans
+over the repeats, `forward` loops over blocks in Python on per-block views
+(`layer_params`); a quant plan that packs layers differently leaves
+``params["layers"]`` a list of per-block trees (block ``r * P + j`` at
+index ``r * P + j``), which the loop walks the same way.
+
+Caches mirror the parameters: ``{"rep": {"u<j>": {kind: {...}}}, "tail":
+{"tail<t>": {kind: {...}}}}`` with every rep leaf stacked over the repeats
+(kind ``"attn"`` or ``"mamba"``).  Paged KV pools (a cache holding
+``"tbl"``) are updated in place; contiguous caches and Mamba states are
+written functionally, as the JAX package writes them, and `forward`
+returns the new tree.
 """
 
 from __future__ import annotations
@@ -21,37 +29,80 @@ import torch
 
 from ..core.qlinear import qdense
 from ..core.quant_plan import layer_slice
-from .attention import apply_attention, init_attention
-from .common import normal_init, rms_norm
+from .attention import apply_attention, init_attention, init_attn_cache
+from .common import normal_init, rms_norm, sinusoidal_pos_embed
 from .ffn import apply_ffn, init_ffn
+from .ssm import apply_mamba, init_mamba, init_mamba_cache
+
+#: the cache key of each ported block type
+CACHE_KIND = {"A": "attn", "M": "mamba"}
+#: the routing leaves a step binds into paged caches (not stacked per layer)
+ROUTING = ("tbl", "slots")
 
 
 def _check_supported(cfg) -> None:
-    if tuple(cfg.pattern) != ("A",) or cfg.tail or cfg.family != "dense":
+    if cfg.family == "moe":
         raise NotImplementedError(
-            f"{cfg.name}: only dense attention stacks are ported "
-            f"(pattern {cfg.pattern}, tail {cfg.tail}, family {cfg.family})")
+            f"{cfg.name}: MoE blocks are not ported yet (ROADMAP Queue 1 "
+            "item 10, after RG-LRU and the attention configs)")
+    blocks = tuple(cfg.pattern) + tuple(cfg.tail)
+    if "R" in blocks:
+        raise NotImplementedError(
+            f"{cfg.name}: RG-LRU blocks are not ported yet (the next slice: "
+            "RG-LRU with recurrentgemma-9b)")
+    unknown = sorted(set(blocks) - set(CACHE_KIND))
+    if unknown:
+        raise NotImplementedError(
+            f"{cfg.name}: block types {unknown} are not ported")
 
 
 # ----------------------------------------------------------------- blocks --
-def init_block(gen: torch.Generator, cfg) -> Dict:
+def init_block(gen: torch.Generator, block_type: str, cfg) -> Dict:
     D, dev = cfg.d_model, gen.device
-    return {"norm1": torch.ones((D,), device=dev),
-            "attn": init_attention(gen, cfg),
-            "norm2": torch.ones((D,), device=dev),
-            "ffn": init_ffn(gen, cfg)}
+    p: Dict = {"norm1": torch.ones((D,), device=dev)}
+    if block_type == "A":
+        p["attn"] = init_attention(gen, cfg)
+        if cfg.d_ff:
+            p["norm2"] = torch.ones((D,), device=dev)
+            p["ffn"] = init_ffn(gen, cfg)
+    elif block_type == "M":
+        p["mamba"] = init_mamba(gen, cfg)
+    else:
+        raise ValueError(block_type)
+    return p
 
 
-def apply_block(p: Dict, x, cfg, rt, positions, cache=None,
-                update_cache: bool = False, site: str = ""):
-    """One attention + FFN block; `site` (e.g. "block[3]") prefixes the
-    sub-layers' plan sites.  Returns (x, cache)."""
-    h, nc = apply_attention(p["attn"], rms_norm(x, p["norm1"], cfg.norm_eps),
-                            cfg, rt, positions, cache, update_cache, site=site)
-    x = x + h
-    x = x + apply_ffn(p["ffn"], rms_norm(x, p["norm2"], cfg.norm_eps), cfg,
-                      rt, site=f"{site}.ffn" if site else "ffn")
-    return x, nc
+def init_block_cache(block_type: str, cfg, rt, batch: int, seq: int,
+                     device="cuda") -> Dict:
+    """One block's contiguous cache: the attention ring or the Mamba
+    state."""
+    if block_type == "A":
+        return {"attn": init_attn_cache(cfg, rt, batch, seq, device)}
+    if block_type == "M":
+        return {"mamba": init_mamba_cache(cfg, batch, device)}
+    raise ValueError(block_type)
+
+
+def apply_block(block_type: str, p: Dict, x, cfg, rt, positions,
+                cache=None, update_cache: bool = False, site: str = ""):
+    """One block; `site` (e.g. "block[3]") prefixes the sub-layers' plan
+    sites.  "A": attention, then the FFN when ``d_ff``; "M": Mamba-2 (no
+    FFN).  Returns (x, the block's new cache or None)."""
+    normed = rms_norm(x, p["norm1"], cfg.norm_eps)
+    kind = CACHE_KIND[block_type]
+    sub = cache.get(kind) if cache else None
+    if block_type == "A":
+        h, nc = apply_attention(p["attn"], normed, cfg, rt, positions, sub,
+                                update_cache, site=site)
+        x = x + h
+        if cfg.d_ff:
+            x = x + apply_ffn(p["ffn"], rms_norm(x, p["norm2"], cfg.norm_eps),
+                              cfg, rt, site=f"{site}.ffn" if site else "ffn")
+    else:
+        h, nc = apply_mamba(p["mamba"], normed, cfg, rt, sub, update_cache,
+                            site=f"{site}.mamba" if site else "mamba")
+        x = x + h
+    return x, ({kind: nc} if nc is not None else None)
 
 
 # ------------------------------------------------------------------ model --
@@ -72,32 +123,66 @@ def init_model(gen: torch.Generator, cfg) -> Dict:
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": normal_init(gen, (D, Vp))}
-    params["layers"] = {"u0": _stack([init_block(gen, cfg)
-                                      for _ in range(cfg.n_repeats)])}
+    units = [[init_block(gen, bt, cfg) for bt in cfg.pattern]
+             for _ in range(cfg.n_repeats)]
+    params["layers"] = {f"u{j}": _stack([u[j] for u in units])
+                        for j in range(len(cfg.pattern))}
+    for t, bt in enumerate(cfg.tail):
+        params[f"tail{t}"] = init_block(gen, bt, cfg)
     return params
 
 
-def layer_params(params: Dict, n_layers: int) -> List[Dict]:
-    """Per-layer views of the stacked block parameters, or the per-layer
-    trees of a plan that packs layers differently (``plan_pack_tree``)."""
+def init_caches(cfg, rt, batch: int, seq: int, device="cuda") -> Dict:
+    """The whole model's contiguous caches (`seq` = max context) on
+    `device` (the card unless the caller asks for the CPU), each rep leaf
+    stacked over the repeats (batch at dim 1), tail leaves per block
+    (batch at dim 0)."""
+    _check_supported(cfg)
+    rep = {f"u{j}": _stack([init_block_cache(bt, cfg, rt, batch, seq, device)
+                            for _ in range(cfg.n_repeats)])
+           for j, bt in enumerate(cfg.pattern)}
+    tail = {f"tail{t}": init_block_cache(bt, cfg, rt, batch, seq, device)
+            for t, bt in enumerate(cfg.tail)}
+    return {"rep": rep, "tail": tail}
+
+
+def layer_params(params: Dict, cfg) -> List[Dict]:
+    """Per-block views of the stacked repeat-unit parameters (block
+    ``r * P + j`` at index ``r * P + j``), or the per-block trees of a plan
+    that packs layers differently (``plan_pack_tree``)."""
     if isinstance(params["layers"], list):
         return params["layers"]
-    return [layer_slice(params["layers"]["u0"], r) for r in range(n_layers)]
+    P = len(cfg.pattern)
+    return [layer_slice(params["layers"][f"u{j}"], r)
+            for r in range(cfg.n_repeats) for j in range(P)]
 
 
 def with_layer_views(params: Dict, cfg) -> Dict:
-    """`params` plus its per-layer views under ``"layer_views"``, so a
+    """`params` plus its per-block views under ``"layer_views"``, so a
     serving loop slices the stacked weights once instead of every step."""
-    return {**params, "layer_views": layer_params(params, cfg.n_layers)}
+    return {**params, "layer_views": layer_params(params, cfg)}
+
+
+def _layer_cache(unit_cache: Dict, r: int) -> Dict:
+    """Repeat r's view of a unit block's stacked cache; paged routing
+    leaves are shared by every layer."""
+    return {kind: {key: val if key in ROUTING else val[r]
+                   for key, val in c.items()}
+            for kind, c in unit_cache.items()}
+
+
+def _paged(block_cache: Dict) -> bool:
+    return any("tbl" in c for c in block_cache.values())
 
 
 def forward(params: Dict, tokens: torch.Tensor, cfg, rt,
             positions: Optional[torch.Tensor] = None,
             caches: Optional[Dict] = None, update_cache: bool = False,
             return_hidden: bool = False):
-    """tokens [B, S] -> (logits_or_hidden, caches).  `caches` are paged
-    pools with bound block tables (``serving.kv_pages``), updated in place
-    and returned."""
+    """tokens [B, S] -> (logits_or_hidden, caches).  Paged pools (with
+    bound block tables, ``serving.kv_pages``) are updated in place and
+    returned; contiguous caches come back as a new tree (a block whose cache
+    did not change keeps its old one)."""
     _check_supported(cfg)
     B, S = tokens.shape
     if positions is None:
@@ -105,21 +190,39 @@ def forward(params: Dict, tokens: torch.Tensor, cfg, rt,
                                  device=tokens.device).repeat(B, 1)
     dt = torch.bfloat16 if rt.compute_dtype == "bfloat16" else torch.float32
     x = params["embed"]["tok"][tokens.long()].to(dt)
-    layers = params.get("layer_views") or layer_params(params, cfg.n_layers)
-    attn_c = caches["rep"]["u0"]["attn"] if caches is not None else None
-    for r, lp in enumerate(layers):
-        cache = None
-        if attn_c is not None:
-            # layer r's pools (and scale pools) under the shared routing
-            # leaves: the block table, and the ragged step's token slots
-            cache = {key: val if key in ("tbl", "slots") else val[r]
-                     for key, val in attn_c.items()}
-        x, _ = apply_block(lp, x, cfg, rt, positions, cache, update_cache,
-                           site=f"block[{r}]")
+    if cfg.rope == "none":
+        x = x + sinusoidal_pos_embed(positions, cfg.d_model).to(dt)
+    layers = params.get("layer_views") or layer_params(params, cfg)
+    P = len(cfg.pattern)
+    new_rep: Dict[str, List] = {f"u{j}": [] for j in range(P)}
+    for i, lp in enumerate(layers):
+        r, j = divmod(i, P)
+        cache = (_layer_cache(caches["rep"][f"u{j}"], r)
+                 if caches is not None else None)
+        x, nc = apply_block(cfg.pattern[j], lp, x, cfg, rt, positions, cache,
+                            update_cache, site=f"block[{i}]")
+        new_rep[f"u{j}"].append(nc if nc is not None else cache)
+    new_caches = None
+    if caches is not None:
+        new_caches = {"rep": {}, "tail": {}}
+        for j in range(P):
+            unit = caches["rep"][f"u{j}"]
+            # paged pools were written in place: keep the stacked tree (its
+            # routing leaves included); contiguous caches restack
+            new_caches["rep"][f"u{j}"] = (unit if _paged(unit)
+                                          else _stack(new_rep[f"u{j}"]))
+    for t, bt in enumerate(cfg.tail):
+        tc = caches["tail"][f"tail{t}"] if caches is not None else None
+        x, nc = apply_block(bt, params[f"tail{t}"], x, cfg, rt, positions,
+                            tc, update_cache,
+                            site=f"block[{cfg.n_repeats * P + t}]")
+        if new_caches is not None:
+            new_caches["tail"][f"tail{t}"] = (tc if nc is None or _paged(tc)
+                                              else nc)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if return_hidden:
-        return x, caches
-    return _logits(params, x, cfg, rt), caches
+        return x, new_caches
+    return _logits(params, x, cfg, rt), new_caches
 
 
 def _logits(params, x, cfg, rt):

@@ -1,6 +1,6 @@
 """Inference engine: runs the serving steps over the scheduled batch with
 per-request state tracking and latency/throughput stats (PyTorch port of
-``repro/serving/engine.py``, paged layout, both step modes).
+``repro/serving/engine.py``: both KV layouts, both step modes).
 
 One `step()` is a decode-step boundary.  Bucketed (``sv.step ==
 "bucketed"``): admit (+ prefill) newly arrived requests, preempt if the
@@ -15,6 +15,17 @@ or its page allocation grows, never per step; the steps gather the batch's
 rows on the device.  Decode batches pad to the nearest bucket with inactive
 rows (position -1: attention masks them, their KV writes go to the pool's
 spill page), prompts left-pad to a power-of-two bucket.
+
+The contiguous layout (``sv.layout == "contiguous"``, bucketed steps only)
+gives each batch slot a max_ctx cache row (``models.transformer.
+init_caches``); stacks with Mamba blocks serve only through it, their
+prompts prefilled at exact length (an SSM state integrates pad tokens, so
+every prompt length is its own step shape).  Its prefill runs on a fresh
+row and scatters it into the request's slot, its decode gathers the
+batch's rows, steps and scatters them back, both inside the step
+(``launch.steps.make_serving_steps(paged=False)``); a decode batch's
+padding rows name free slots, distinct from the batch's, and write back
+what they read.
 
 Device policy: the engine runs on ``cuda`` unless the caller passes
 ``device="cpu"``, and raises when no GPU is present and the CPU was not
@@ -59,10 +70,11 @@ from ..core.quant_plan import pack_for_serving
 from ..distributed.fault_tolerance import StepDeadlineExceeded, Watchdog
 from ..launch.steps import (CapturedStep, cuda_graph_capture,
                             make_ragged_step, make_serving_steps)
-from ..models.transformer import init_model, with_layer_views
+from ..models.transformer import init_caches, init_model, with_layer_views
 from ..observability import Telemetry
 from ..observability.metrics import COUNT_BUCKETS, MetricsRegistry
-from .kv_pages import PagedKVCacheManager, init_paged_caches
+from .kv_pages import (ContinuousKVCache, PagedKVCacheManager,
+                       init_paged_caches)
 from .scheduler import (CANCELLED, ERROR, OK, SHED, TIMEOUT, Request,
                         Scheduler, ShedError)
 
@@ -136,9 +148,15 @@ class InferenceEngine:
     def __init__(self, cfg, rt, sv, params=None, seed: int = 0,
                  clock=time.time, metrics: Optional[MetricsRegistry] = None,
                  device="cuda", telemetry: Optional[Telemetry] = None):
-        if sv.layout != "paged":
-            raise NotImplementedError(
-                f"only the paged layout is ported (got {sv.layout!r})")
+        # an SSM state integrates every input token, so left-padded prefill
+        # would pollute it: stacks with other blocks than attention serve
+        # through the contiguous layout with exact-length prefill
+        blocks = tuple(cfg.pattern) + tuple(cfg.tail)
+        self._all_attention = all(bt == "A" for bt in blocks)
+        if not (self._all_attention or sv.layout == "contiguous"):
+            raise ValueError(
+                f"paged KV serving requires an all-attention arch (got "
+                f"{blocks}); use layout='contiguous'")
         self.cfg, self.rt, self.sv = cfg, rt, sv
         self.device = resolve_device(device)
         self.clock = clock
@@ -158,15 +176,22 @@ class InferenceEngine:
             params = build_params(cfg, rt, seed, self.device)
         self.params = with_layer_views(params, cfg)
 
-        self.kv = PagedKVCacheManager(sv, metrics=self.metrics)
-        self.caches = init_paged_caches(cfg, rt, sv, device=self.device)
-        # rows start at the sentinel (== num_pages): writes through an
-        # unassigned slot go to the spill page, reads are zeros.  Updated in
-        # place (`_sync_tables`): one tensor for the engine's lifetime, which
-        # the captured steps read where it lies
-        self._tbl = torch.full((sv.max_batch, sv.pages_per_seq),
-                               sv.num_pages, dtype=torch.int32,
-                               device=self.device)
+        self._paged = sv.layout == "paged"
+        if self._paged:
+            self.kv = PagedKVCacheManager(sv, metrics=self.metrics)
+            self.caches = init_paged_caches(cfg, rt, sv, device=self.device)
+            # rows start at the sentinel (== num_pages): writes through an
+            # unassigned slot go to the spill page, reads are zeros.
+            # Updated in place (`_sync_tables`): one tensor for the engine's
+            # lifetime, which the captured steps read where it lies
+            self._tbl = torch.full((sv.max_batch, sv.pages_per_seq),
+                                   sv.num_pages, dtype=torch.int32,
+                                   device=self.device)
+        else:
+            self.kv = ContinuousKVCache(sv, metrics=self.metrics)
+            self.caches = init_caches(cfg, rt, batch=sv.max_batch,
+                                      seq=sv.max_ctx, device=self.device)
+            self._tbl = None
         # rid -> (slot, uploaded page ids): a row re-uploads only when the
         # allocation changed
         self._tbl_ver: Dict[int, tuple] = {}
@@ -174,7 +199,7 @@ class InferenceEngine:
                                    metrics=self.metrics,
                                    max_queue=sv.max_queue)
         self._prefill, self._prefill_tail, self._decode = make_serving_steps(
-            cfg, rt)
+            cfg, rt, paged=self._paged, max_ctx=sv.max_ctx)
         # ragged token-major step: one step function whose shape is the
         # padded token budget, whatever the batch's mix of prefill chunks
         # and decode tokens
@@ -296,21 +321,22 @@ class InferenceEngine:
         bucket, one decode per batch bucket) before the measured window,
         so first-call costs (kernel loading, allocator growth and, on CUDA,
         the shape's capture) stay out of the stats.  Every position is -1:
-        all writes go to the spill page and the pool is untouched.  The
-        ragged step has one shape, the token budget, so it warms with one
-        call whatever the prompts."""
+        all writes go to the spill page and the pool is untouched (the
+        contiguous steps write back every row they read).  The ragged step
+        has one shape, the token budget, so it warms with one call whatever
+        the prompts; an SSM stack's prompts warm at their exact lengths."""
         if self._ragged is not None:
             self._warm_ragged()
             return
         slot0 = torch.zeros((1,), dtype=torch.int32, device=self.device)
-        for L in sorted({self.sv.prompt_bucket(n) for n in prompt_lens}):
+        for L in sorted({self._prompt_pad(n) for n in prompt_lens}):
             tokens = torch.zeros((1, L), dtype=torch.int32, device=self.device)
             positions = torch.full((1, L), -1, dtype=torch.int32,
                                    device=self.device)
             _, self.caches = self._prefill(self.params, tokens, self.caches,
                                            positions, self._tbl, slot0)
             self._poll_jit("prefill", (1, L))
-            if self.sv.prefix_cache:
+            if self._paged and self.sv.prefix_cache:
                 # prefix hits run the tail-prefill step over the same
                 # buckets (a tail can land in a smaller bucket mid-run; that
                 # capture is attributed to the run)
@@ -322,9 +348,11 @@ class InferenceEngine:
             tok = torch.zeros((nb, 1), dtype=torch.int32, device=self.device)
             pos = torch.full((nb, 1), -1, dtype=torch.int32,
                              device=self.device)
-            _, self.caches = self._decode(
-                self.params, tok, self.caches, pos, self._tbl,
-                torch.zeros((nb,), dtype=torch.int32, device=self.device))
+            # nb distinct rows (the contiguous step writes each back as it
+            # read it)
+            slots = torch.arange(nb, dtype=torch.int32, device=self.device)
+            _, self.caches = self._decode(self.params, tok, self.caches, pos,
+                                          self._tbl, slots)
             self._poll_jit("decode", (nb, 1))
 
     def inject_step_fault(self, exc: Exception) -> None:
@@ -546,23 +574,25 @@ class InferenceEngine:
             m.gauge("token_utilization",
                     "useful fraction of the step's padded token capacity"
                     ).set(du / (du + dw))
-        m.gauge("kv_pool_in_use_pages", "pages held by running requests").set(
-            self.kv.in_use)
-        m.gauge("kv_pool_warm_pages", "refcount-0 pages still indexed").set(
-            len(self.kv.warm))
-        m.gauge("kv_pool_blank_pages", "free pages with no content").set(
-            len(self.kv.blank))
-        m.gauge("kv_pool_occupancy", "in-use fraction of the page pool").set(
-            self.kv.in_use / self.sv.num_pages)
-        m.gauge("kv_pool_high_water_pages",
-                "peak concurrent in-use pages").set(self.kv.high_water)
+        if self._paged:
+            m.gauge("kv_pool_in_use_pages",
+                    "pages held by running requests").set(self.kv.in_use)
+            m.gauge("kv_pool_warm_pages",
+                    "refcount-0 pages still indexed").set(len(self.kv.warm))
+            m.gauge("kv_pool_blank_pages",
+                    "free pages with no content").set(len(self.kv.blank))
+            m.gauge("kv_pool_occupancy",
+                    "in-use fraction of the page pool").set(
+                        self.kv.in_use / self.sv.num_pages)
+            m.gauge("kv_pool_high_water_pages",
+                    "peak concurrent in-use pages").set(self.kv.high_water)
         if self.trace.enabled:
             self.trace.complete(
                 "step", 0, tt0,
                 decode_rows=len(batch),
                 prefills=len(admitted) - n_tail, tail_prefills=n_tail,
                 queue_depth=len(self.scheduler.waiting),
-                pool_in_use=self.kv.in_use)
+                pool_in_use=getattr(self.kv, "in_use", 0))
 
     def _retire(self) -> None:
         now = self.clock()
@@ -628,14 +658,20 @@ class InferenceEngine:
             "run_until_idle step-budget exhaustions").inc()
         raise EngineStuckError(
             max_steps, [r.rid for r in self.scheduler.waiting],
-            list(self.scheduler.running), self.kv.in_use,
-            self.sv.num_pages)
+            list(self.scheduler.running), getattr(self.kv, "in_use", 0),
+            self.sv.num_pages if self._paged else 0)
 
     # -------------------------------------------------------- internals --
     def _poll_jit(self, name: str, shape) -> None:
         """Poll the recompile sentinel right after a step call, attributing
         any new capture to `shape` (the call's bucket signature)."""
         self.tm.jit_watch.after_call(name, shape, step=self.n_steps)
+
+    def _prompt_pad(self, L: int) -> int:
+        """Prompt lengths bucket to powers of two for attention stacks; an
+        SSM state integrates pad tokens, so other stacks prefill at exact
+        length."""
+        return self.sv.prompt_bucket(L) if self._all_attention else L
 
     def _observe_packing(self, used: int, capacity: int) -> None:
         wasted = max(capacity - used, 0)
@@ -648,7 +684,9 @@ class InferenceEngine:
     def _sync_tables(self, batch: List[Request]) -> None:
         """Upload block-table rows whose page allocation changed since the
         last upload (admission, page growth): the only host->device table
-        traffic."""
+        traffic.  The contiguous layout has no tables."""
+        if not self._paged:
+            return
         for req in batch:
             ver = (req.slot, tuple(self.kv.pages.get(req.rid, ())))
             if self._tbl_ver.get(req.rid) != ver:
@@ -663,15 +701,18 @@ class InferenceEngine:
 
     def _prefill_request(self, req: Request) -> None:
         """Prefill a (re-)admitted request's uncached prefix tail (batch of
-        one, left-padded to a power-of-two bucket) and emit its first token.
-        After a prefix-cache hit (``req.n_cached`` > 0) only the tail runs,
-        through the tail-prefill step that attends over the cached pages."""
+        one, left-padded to a power-of-two bucket; an SSM stack's at exact
+        length) and emit its first token.  After a prefix-cache hit
+        (``req.n_cached`` > 0, paged only) only the tail runs, through the
+        tail-prefill step that attends over the cached pages.  The
+        contiguous prefill runs on a fresh row, scattered into the request's
+        slot (evicting any earlier tenant's state)."""
         prefix = req.prefix
         L = len(prefix)
         hit = req.n_cached                     # page-aligned, < L by design
         tail = prefix[hit:]
         n = len(tail)
-        Lb = self.sv.prompt_bucket(n)
+        Lb = self._prompt_pad(n)
         tokens = np.zeros((1, Lb), np.int32)
         tokens[0, Lb - n:] = tail
         base = np.arange(Lb, dtype=np.int32) - (Lb - n)
@@ -722,8 +763,13 @@ class InferenceEngine:
             tok[i, 0] = req.tokens[-1]      # feed the newest generated token
             pos[i, 0] = req.n_cached        # ... at the next cache position
             slots[i] = req.slot
-        # pad rows point at slot 0: their positions are -1, so their writes
-        # spill and their (masked) attention output is discarded
+        # pad rows name free slots, distinct from the batch's: their
+        # positions are -1, so paged writes spill, the contiguous step
+        # writes back the row it read (it scatters every row it gathers),
+        # and their (masked) attention output is discarded
+        used = {r.slot for r in batch}
+        slots[n:] = [s for s in range(self.sv.max_batch)
+                     if s not in used][:nb - n]
         self._sync_tables(batch)
         nxt, self.caches = self._decode(
             self.params, self._in(tok), self.caches, self._in(pos),
@@ -738,7 +784,7 @@ class InferenceEngine:
         for i, req in enumerate(batch):
             req.n_cached += 1
             req.tokens.append(int(nxt[i]))
-            if req.n_cached % ps == 0:
+            if self._paged and req.n_cached % ps == 0:
                 # a generated-token page just filled: index it
                 self.kv.register_upto(req.rid, req.prefix, req.n_cached)
         self.n_decode_tokens += n
@@ -775,7 +821,8 @@ class InferenceEngine:
             "kv": self.kv.state(),
             "caches": [t.to("cpu", copy=True)
                        for _, t in _pool_leaves(self.caches)],
-            "tbl": self._tbl.to("cpu", copy=True),
+            "tbl": (self._tbl.to("cpu", copy=True) if self._paged
+                    else None),
             "budget": self._budget if self._ragged is not None else None,
             "next_rid": self._next_rid,
             "counters": {
@@ -834,7 +881,8 @@ class InferenceEngine:
                              "this engine's")
         for (_, dst), src in zip(leaves, snap["caches"]):
             dst.copy_(src)
-        self._tbl.copy_(snap["tbl"])
+        if self._paged:
+            self._tbl.copy_(snap["tbl"])
         # empty version map: running requests' rows upload again on their
         # next batch (versions key on slot and page ids)
         self._tbl_ver = {}
@@ -855,9 +903,11 @@ class InferenceEngine:
         """Attribute one full-context decode step's time: the whole step
         (the captured one on CUDA; ragged: the step at the token budget,
         all padding) against the decode attention op alone (the same
-        ``kernels.ops`` entry the model calls, timed once and counted
-        ``n_layers`` times), so a regression can be pinned on attention or
-        on the GEMMs and the rest.  Best of `reps` timed calls after one
+        ``kernels.ops`` entry the model calls, or for the contiguous layout
+        the exact attention over the rows; timed once and counted
+        ``n_layers`` times; 0 for a stack without attention), so a
+        regression can be pinned on attention or on the GEMMs and the
+        rest.  Best of `reps` timed calls after one
         untimed call.  Call when idle: the probe steps write through stale
         table rows and scratch the pool.  The result lands in
         ``stats()["profile"]``."""
@@ -900,7 +950,10 @@ class InferenceEngine:
         else:
             tok = np.zeros((nb, 1), np.int32)
             pos = np.full((nb, 1), sv.max_ctx - 1, np.int32)
-            slots = np.zeros((nb,), np.int32)
+            # the JAX engine's probe rows: paged, every row through slot
+            # 0's table row; contiguous, the rows 0..nb-1 (both scratched)
+            slots = (np.zeros((nb,), np.int32) if self._paged
+                     else np.arange(nb, dtype=np.int32))
 
             def step():
                 nxt, self.caches = self._decode(
@@ -911,10 +964,37 @@ class InferenceEngine:
         step_us = best_us(step)
 
         from ..kernels import ops
+        from ..models.attention import _cache_read, attention_core
 
-        attn = {k: v[0] for k, v in self.caches["rep"]["u0"]["attn"].items()
-                if k not in ("tbl", "slots")}
-        if self._ragged is not None:
+        attn = next(({k: v[0] for k, v in blk["attn"].items()
+                      if k not in ("tbl", "slots")}
+                     for blk in self.caches["rep"].values() if "attn" in blk),
+                    None)
+        if attn is None:
+            # an SSM stack: no attention to attribute, the whole step is
+            # GEMMs and the recurrence
+            self._profile = {"decode_step_us": round(step_us, 1),
+                             "attn_us": 0.0,
+                             "gemm_other_us": round(step_us, 1),
+                             "attn_frac": 0.0, "at_step": self.n_steps}
+            self._profile_step = self.n_steps
+            self.tm.jit_watch.absorb()
+            return self._profile
+        if not self._paged:
+            # contiguous: exact attention over the first nb rows' caches,
+            # every slot marked valid (a full-window attention whatever
+            # state the run left behind)
+            rows = {k: v[:nb] for k, v in attn.items() if k != "pos"}
+            kpos = torch.arange(rows["kpos"].shape[1], dtype=torch.int32,
+                                device=dev).expand_as(rows["kpos"])
+
+            def attn_op():
+                kf, vf = _cache_read(rows)
+                return attention_core(
+                    q[:, None], kf, vf, q_positions=last[:, None],
+                    k_positions=kpos, window=cfg.local_window, impl="full",
+                    chunk_q=self.rt.attn_chunk_q)
+        elif self._ragged is not None:
             T = self._budget
             qT = torch.from_numpy(rng.standard_normal(
                 (T, cfg.n_heads, cfg.hd))).to(torch.bfloat16).to(dev)
@@ -934,7 +1014,6 @@ class InferenceEngine:
                     attn.get("k_scale"), attn.get("v_scale"),
                     window=cfg.local_window)
         else:
-            from ..models.attention import attention_core
             from .kv_pages import paged_read
 
             def attn_op():
@@ -998,7 +1077,7 @@ class InferenceEngine:
             "prefix_hit_rate": (self.n_prefix_hit_tokens / demand
                                 if demand else 0.0),
             "prefix_cache": {
-                "enabled": self.sv.prefix_cache,
+                "enabled": self._paged and self.sv.prefix_cache,
                 "lookups": self.kv.n_lookups,
                 "hit_tokens": self.kv.n_hit_tokens,
                 "evictions": self.kv.n_evictions,
@@ -1013,7 +1092,7 @@ class InferenceEngine:
             "ttft_p95_s": pct(ttft, 95),
             "ttft_mean_s": mean(ttft),
             "kv_pages_high_water": self.kv.high_water,
-            "paged_attn": self.rt.paged_attn,
+            "paged_attn": self.rt.paged_attn if self._paged else None,
             "recompiles": self.tm.jit_watch.snapshot(),
             "metrics": self.metrics.snapshot(),
             **({"profile": self._profile,

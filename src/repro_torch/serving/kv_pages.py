@@ -35,6 +35,12 @@ PyTorch has neither, so both are explicit here:
 Pools are updated in place: the writes return the same tensors they were
 given (where the JAX package returns new, donated buffers).
 
+The contiguous layout (``ServingConfig.layout="contiguous"``) keeps one
+max_ctx row per batch slot (``models.transformer.init_caches``);
+`gather_rows` and `scatter_rows` move whole rows between the engine's
+cache tree and a step's batch, and ``ContinuousKVCache`` stands behind the
+page manager's interface for it.
+
 Host side, ``PagedKVCacheManager`` owns the page pool and per-request page
 lists, with refcounted, content-addressed prefix caching: full pages are
 identified by a chained hash of the tokens behind them, admission shares
@@ -199,6 +205,34 @@ def _bind(caches: Dict, leaves: Dict) -> Dict:
         return out
 
     return {"rep": walk(caches["rep"]), "tail": walk(caches["tail"])}
+
+
+def gather_rows(caches: Dict, rows: torch.Tensor) -> Dict:
+    """New tensors holding batch rows `rows` [n] (int64) of a contiguous
+    cache tree: rep leaves carry the batch at dim 1 under the repeat
+    stacking, tail leaves at dim 0."""
+    def walk(node, dim):
+        return {k: walk(v, dim) if isinstance(v, dict)
+                else v.index_select(dim, rows) for k, v in node.items()}
+
+    return {"rep": walk(caches["rep"], 1), "tail": walk(caches["tail"], 0)}
+
+
+def scatter_rows(caches: Dict, sub: Dict, rows: torch.Tensor) -> Dict:
+    """Write a gathered or fresh sub-cache tree `sub` into batch rows
+    `rows` [n] (int64, distinct) of the contiguous cache tree `caches`, in
+    place (``index_copy_``; the JAX package returns new buffers), and
+    return `caches`.  Rows not named are untouched."""
+    def walk(dst, src, dim):
+        for k, v in dst.items():
+            if isinstance(v, dict):
+                walk(v, src[k], dim)
+            else:
+                v.index_copy_(dim, rows, src[k].to(v.dtype))
+
+    walk(caches["rep"], sub["rep"], 1)
+    walk(caches["tail"], sub["tail"], 0)
+    return caches
 
 
 def with_block_tables(caches: Dict, tbl) -> Dict:
@@ -479,3 +513,45 @@ class PagedKVCacheManager:
         self.n_hit_tokens = st["n_hit_tokens"]
         self.n_evictions = st["n_evictions"]
         self.check_invariants()
+
+
+class ContinuousKVCache:
+    """The contiguous (static-slot) layout behind the page manager's
+    interface: each batch slot owns a whole max_ctx cache row, so `ensure`
+    only checks the context bound and there is nothing to allocate, share
+    or preempt."""
+
+    def __init__(self, sv, metrics=None):
+        self.sv = sv
+        self.metrics = metrics if metrics is not None else NULL_REGISTRY
+        self.high_water = 0
+        self.n_lookups = 0
+        self.n_hit_tokens = 0
+        self.n_evictions = 0
+
+    def fits_alone(self, n_tokens: int) -> bool:
+        return n_tokens <= self.sv.max_ctx
+
+    def capacity_desc(self) -> str:
+        return f"max_ctx={self.sv.max_ctx}"
+
+    def ensure(self, rid: int, n_tokens: int) -> bool:
+        return n_tokens <= self.sv.max_ctx
+
+    def release(self, rid: int) -> None:
+        pass
+
+    def admit_request(self, rid: int, tokens, n_tokens: int) -> Optional[int]:
+        return 0 if n_tokens <= self.sv.max_ctx else None
+
+    def register_upto(self, rid: int, tokens, n_valid: int) -> None:
+        pass
+
+    def check_invariants(self) -> None:
+        pass                       # nothing allocated, nothing to violate
+
+    def state(self) -> Dict:
+        return {}
+
+    def load_state(self, st: Dict) -> None:
+        pass

@@ -292,14 +292,15 @@ class Scheduler:
         assert len(set(w_rids)) == len(w_rids), "rid queued twice"
         assert not set(w_rids) & set(self.running), \
             "rid both waiting and running"
-        pages = self.kv.pages
+        # the contiguous layout's manager holds no pages
+        pages = getattr(self.kv, "pages", None)
         for req in self.waiting:
             assert req.state == WAITING, (req.rid, req.state)
-            assert req.rid not in pages, \
+            assert pages is None or req.rid not in pages, \
                 f"waiting rid {req.rid} still holds pages"
         for req in self.running.values():
             assert req.state == RUNNING, (req.rid, req.state)
-            assert (self.kv.pages_for(req.n_cached)
-                    <= len(pages.get(req.rid, []))), \
+            assert pages is None or (self.kv.pages_for(req.n_cached)
+                                     <= len(pages.get(req.rid, []))), \
                 f"rid {req.rid} cached {req.n_cached} tokens beyond its " \
                 f"{len(pages.get(req.rid, []))}-page allocation"

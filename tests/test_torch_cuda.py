@@ -1191,3 +1191,88 @@ def test_widths_on_the_card_at_the_int_mm_boundary(cuda, spec, M):
     got, err = cs.width_call(torch, spec, w, x)
     assert got.is_cuda and err <= cs.W8_RTOL, err
     assert sum(ops.launch_counts().values()) == 0
+
+
+# ------------------------------------------- contiguous layout, Mamba-2 ----
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 8, 17, 96, 256])
+@pytest.mark.parametrize("K,N", [(768, 3352), (1536, 768)])
+def test_int4_kernel_bit_exact_at_mamba_shapes(cuda, M, K, N):
+    """mamba2-130m's in_proj (N = 3352: N % 16 = 8, the 1-byte weight
+    loads) and out_proj, at decode rows and prompt lengths."""
+    test_int4_kernel_bit_exact(cuda, M, K, N)
+
+
+def _clone_tree(tree):
+    return {k: _clone_tree(v) if isinstance(v, dict) else v.clone()
+            for k, v in tree.items()}
+
+
+def _copy_tree(dst, src):
+    for k, v in dst.items():
+        if isinstance(v, dict):
+            _copy_tree(v, src[k])
+        else:
+            v.copy_(src[k])
+
+
+def _trees_equal(a, b):
+    return all(_trees_equal(v, b[k]) if isinstance(v, dict)
+               else torch.equal(v, b[k]) for k, v in a.items())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-130m", "qwen2-0.5b"])
+def test_captured_contiguous_steps_replay_equal_eager(cuda, arch):
+    """The contiguous layout's steps on the card (reduced mamba2-130m with
+    exact-length prefill, reduced qwen2-0.5b with bucketed prefill; W4A4):
+    the captured engine emits the eager engine's tokens and launches, and
+    every captured graph (each exact-length prefill and each decode
+    bucket) replayed on its last inputs gives the eager step's tokens and
+    leaves the engine's cache tree as the eager step does, from the same
+    state."""
+    from repro_torch.configs import Runtime, ServingConfig, get_config
+    from repro_torch.observability import Telemetry
+    from repro_torch.serving.api import poisson_trace, run_trace
+    from repro_torch.serving.engine import InferenceEngine
+
+    cs = _chip_smoke()
+    cfg = get_config(arch).reduced(n_layers=2, head_dim=64)
+    rt = Runtime(attn_impl="flash", quant_backend="w4a4_packed")
+    sv = ServingConfig(layout="contiguous", max_batch=4, max_ctx=96)
+    lens = (7, 20, 33)
+    out, params = {}, None
+    for mode in ("captured", "eager"):
+        make = InferenceEngine if mode == "captured" else cs.eager_engine
+        eng = make(cfg, rt, sv, params=params, device=cuda,
+                   telemetry=Telemetry(strict_recompiles=True))
+        params = eng.params
+        eng.warmup(lens)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        stats, fin = run_trace(eng, poisson_trace(8, 1.0, lens, (5, 12),
+                                                  cfg.vocab, seed=7))
+        torch.cuda.synchronize()
+        assert all(r.outcome == "ok" and len(r.tokens) == r.max_new
+                   for r in fin)
+        out[mode] = ([r.tokens for r in fin], ops.launch_counts(), stats,
+                     eng)
+    (ctok, cn, cstats, eng), (etok, en, _, _) = out["captured"], \
+        out["eager"]
+    assert ctok == etok and cn == en
+    assert cstats["recompiles"]["steady_state"] == 0
+    n_prefill = len(lens) if arch == "mamba2-130m" else len(
+        {sv.prompt_bucket(n) for n in lens})
+    assert eng._prefill._cache_size() == n_prefill
+    assert eng._decode._cache_size() == len(sv.buckets)
+    for step in (eng._prefill, eng._decode):
+        for g in step._graphs.values():
+            before = _clone_tree(eng.caches)
+            g.graph.replay()
+            replayed, after = g.out.clone(), _clone_tree(eng.caches)
+            _copy_tree(eng.caches, before)
+            tokens, positions, slots = g.static
+            want, _ = step.fn(eng.params, tokens, eng.caches, positions,
+                              None, slots)
+            assert torch.equal(replayed, want)
+            assert _trees_equal(after, eng.caches)

@@ -1,17 +1,20 @@
 """Ablations of the W4A4 tensor-core GEMM (``csrc/int4_matmul.cu``, both
 entries) on one NVIDIA GPU: what each part of a call costs.
 
-    python3 w4a4_ablation.py [variant ...]      (default: all of VARIANTS)
+    python3 w4a4_ablation.py [--mamba] [variant ...]
+                                            (default: all of VARIANTS)
 
 Each variant is a copy of ``src/repro_torch`` with edits to
 ``csrc/int4_matmul.cu`` (or to the plan in ``kernels/int4_matmul.py``),
 under the gitignored ``src/repro_torch/_build/ablation_w4a4/<variant>/``.
 All variants build at once, one ``nvcc`` each; then each is timed in its
-own process at the four projection shapes of qwen2-0.5b at M = 8, 64 and
-256, through both entries (the fused one on x, the unfused one on the same
-activations quantized beforehand: the difference is what the fused
-quantize costs): CUDA events with the L2 flushed before each call
-(``chip_smoke.Timer``), and one layer's 7 projections summed.  Variants
+own process at the four projection shapes of qwen2-0.5b (with
+``--mamba``: mamba2-130m's in_proj and out_proj,
+``chip_smoke.MAMBA_GEMM_SHAPES``) at M = 8, 64 and 256, through both
+entries (the fused one on x, the unfused one on the same activations
+quantized beforehand: the difference is what the fused quantize costs):
+CUDA events with the L2 flushed before each call (``chip_smoke.Timer``),
+and one layer's projections summed.  Variants
 that keep the function are checked bit for bit against the plain versions;
 the others (``no*``, ``floor*``) compute garbage and are only timed.
 Prints the card's name and power limit, then one JSON line per variant.
@@ -89,10 +92,11 @@ from repro_torch.kernels.int4_matmul import (
 from repro_torch.kernels.packing import pack_kmajor
 
 checked = json.loads(sys.argv[4])
+shapes = getattr(cs, sys.argv[5])
 timer = cs.Timer(torch)
 gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 20)
 res = {}
-for (K, N), per_layer in cs.GEMM_SHAPES:
+for (K, N), per_layer in shapes:
     w_km = pack_kmajor(torch.randint(-8, 8, (K, N), generator=gen,
                                      device="cuda", dtype=torch.int8))
     w_s = torch.rand((1, N), generator=gen, device="cuda") * 0.01 + 1e-3
@@ -143,7 +147,9 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         raise SystemExit("w4a4_ablation: needs an NVIDIA GPU")
-    names = sys.argv[1:] or list(VARIANTS)
+    args = sys.argv[1:]
+    shapes = "MAMBA_GEMM_SHAPES" if "--mamba" in args else "GEMM_SHAPES"
+    names = [a for a in args if a != "--mamba"] or list(VARIANTS)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -160,7 +166,7 @@ def main() -> None:
     for n, tree in trees.items():
         out = subprocess.run(
             [sys.executable, "-c", _TIME, str(tree), str(ROOT),
-             json.dumps(ROWS), json.dumps(VARIANTS[n][1])],
+             json.dumps(ROWS), json.dumps(VARIANTS[n][1]), shapes],
             capture_output=True, text=True, timeout=600)
         if out.returncode != 0:
             raise SystemExit(f"{n}: {out.stderr[-2000:]}")
