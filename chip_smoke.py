@@ -16,14 +16,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
                  and a method gate: `cuobjdump -sass` shows IMMA in every
                  w4a4_ kernel; then at mamba2-130m's in_proj (768, 3352:
                  1-byte weight loads) and out_proj (1536, 768) at M = 1, 8,
-                 32, 96, 160 and 256, timed at 8 and 256), the attention
-                 kernels
+                 32, 96, 160 and 256, timed at 8 and 256; then at
+                 recurrentgemma-9b's (4096, 4096), (4096, 256), (4096,
+                 12288) and (12288, 4096) at M = 8 and 256, timed, two
+                 calls bit-equal), the attention kernels
                  within atol 2e-2 (bf16) on bf16, int8 and int4 pools with
                  padding rows exactly 0 (flash prefill at the prompt
-                 buckets 32, 128 and 256, a prefix-hit tail and qwen3-4b's
-                 hd 128, each with and without a window, two calls
-                 bit-equal, each shape's plan printed, its ptxas report,
-                 and a method gate: `cuobjdump -sass` shows HMMA in every
+                 buckets 32, 128 and 256, a prefix-hit tail, qwen3-4b's
+                 hd 128 and recurrentgemma-9b's hd 256 (16 heads over 1)
+                 fresh and on the tail, each with and without a window,
+                 two calls bit-equal, each shape's plan printed, its ptxas
+                 report (any spill fails), and a method gate: `cuobjdump
+                 -sass` shows HMMA in every
                  flash kernel), paged decode and the ragged kernel with
                  and without a window, two calls bit-equal, each one's
                  split plan, ptxas report (no spill) and floor (an empty
@@ -141,7 +145,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
                  prefill, W4A4 in_proj/out_proj, the Poisson trace,
                  captured and eager, one graph per prompt length and
                  decode bucket, no attention kernel, the GEMM 2 times a
-                 layer a forward).
+                 layer a forward).  Then full-width recurrentgemma-9b
+                 (`hybrid_runs`: 38 layers, (R, R, A) x 12 + (R, R),
+                 W4A4-packed projections, float lm_head, the contiguous
+                 layout with exact-length prefill and flash prefill at hd
+                 256, the Poisson trace, captured and eager, the build's
+                 time and peak memory printed; the GEMM 8 times an R layer
+                 and 7 an A layer a forward, flash once an attention layer
+                 a prefill, no decode attention kernel).
   5. cpu      -- full width cut to 2 layers, on cuda and on cpu with the
                  same weights.  Bucketed: one prefill and three decode
                  steps with float weights in bf16 (logits within CPU_ATOL),
@@ -156,7 +167,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
                  pool (logits of the emitted rows within CPU_ATOL on both).
                  Mamba: full-width mamba2-130m (24 layers), W4A4 weights in
                  float32, a prefill and three decode steps on contiguous
-                 caches, logits within CPU_W4A4_F32_ATOL.
+                 caches, logits within CPU_W4A4_F32_ATOL.  Hybrid:
+                 full-width recurrentgemma-9b at one (R, R, A) unit and the
+                 (R, R) tail (5 layers), the same reading and bound.
 
 The line before the last is a JSON object with every kernel's launches,
 error and times; the last line is {"ok": true, "device": {...}}.
@@ -446,24 +459,33 @@ def check_gemm(torch, timer):
 #: M = 8 and 256
 MAMBA_GEMM_ROWS = (1, MAX_BATCH) + (32, 96, 160, 256)
 MAMBA_TIMED_ROWS = (MAX_BATCH, PROMPT_BUCKET)
+#: recurrentgemma-9b's projections, (K, N) and how many of each a layer
+#: runs: (4096, 4096) the RG-LRU's in_x, in_g, w_a, w_x and out (5 a
+#: recurrent layer) and the attention's wq and wo (2 an attention layer);
+#: (4096, 256) wk and wv; (4096, 12288) w_in and w_gate; (12288, 4096)
+#: w_out.  The counts are one recurrent layer's, and an attention layer's
+HYBRID_GEMM_SHAPES = (((4096, 4096), (5, 2)), ((4096, 256), (0, 2)),
+                      ((4096, 12288), (2, 2)), ((12288, 4096), (1, 1)))
+HYBRID_GEMM_ROWS = (MAX_BATCH, PROMPT_BUCKET)
 
 
-def check_gemm_mamba(torch, timer):
-    """The fused W4A4 kernel on mamba2-130m's two projections
-    (MAMBA_GEMM_SHAPES: in_proj N = 3352, whose N % 16 = 8 takes the
-    1-byte weight loads, and out_proj) bit for bit against its plain
-    version at every M of MAMBA_GEMM_ROWS (each shape's plan printed),
-    and timed at M = 8 and 256 beside the bound and the yardstick
-    (_int_mm, at M <= 16 a float32 torch.matmul on the int values).
-    Returns {"M=<m> K=<k> N=<n>": {ms, plain_ms, bound_ms, bound_by,
-    library_ms}} and the worst |diff| (0)."""
+def check_gemm_at(torch, timer, label, shapes, rows, timed, seed):
+    """The fused W4A4 kernel on one model's projections (`shapes`: ((K, N),
+    count) pairs) bit for bit against its plain version at every M of
+    `rows` (each shape's plan printed), and timed at the M of `timed`
+    beside the bound and the yardstick (_int_mm, at M <= 16 a float32
+    torch.matmul on the int values).  mamba2-130m's in_proj, N = 3352,
+    takes the 1-byte weight loads (N % 16 = 8); recurrentgemma-9b's
+    w_out has K = 12288, the longest K the kernel meets.  Returns
+    {"M=<m> K=<k> N=<n>": {ms, plain_ms, bound_ms, bound_by, library_ms}}
+    and the worst |diff| (0)."""
     from repro_torch.kernels.int4_matmul import (
         int4_matmul_fused_cuda, int4_matmul_fused_plain, w4a4_plan)
 
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     out, worst = {}, 0.0
-    for M in MAMBA_GEMM_ROWS:
-        for (K, N), _ in MAMBA_GEMM_SHAPES:
+    for M in rows:
+        for (K, N), _ in shapes:
             x, w_q, w_km, w_scale = _gemm_inputs(torch, gen, M, K, N)
             p = w4a4_plan(M, K, N, w_km.shape[0], w_km.data_ptr() % 16 == 0)
             got = int4_matmul_fused_cuda(x, w_km, w_scale)
@@ -471,12 +493,17 @@ def check_gemm_mamba(torch, timer):
             err = (got - want).abs().max().item()
             worst = max(worst, err)
             if not torch.equal(got, want):
-                fail(f"int4_matmul_fused (mamba) M={M} K={K} N={N}: kernel "
+                fail(f"int4_matmul_fused ({label}) M={M} K={K} N={N}: kernel "
                      f"differs from the plain version (max |diff| {err})")
-            line = (f"gemm (mamba) M={M:4d} K={K:5d} N={N:5d}: bit-exact; "
+            if M in timed and not torch.equal(
+                    got, int4_matmul_fused_cuda(x, w_km, w_scale)):
+                fail(f"int4_matmul_fused ({label}) M={M} K={K} N={N}: two "
+                     "calls on the same inputs differ")
+            line = (f"gemm ({label}) M={M:4d} K={K:5d} N={N:5d}: bit-exact; "
                     f"plan {p.bm} x {p.bn} tiles, {p.vec}-byte weight loads, "
-                    f"{p.splits} splits, {p.ctas} CTAs")
-            if M in MAMBA_TIMED_ROWS:
+                    f"{p.splits} splits of {p.rows} packed rows, {p.ctas} "
+                    "CTAs")
+            if M in timed:
                 n_bytes = M * K * 4 + w_km.numel() + N * 4 + M * N * 4
                 b_ms, b_by = bound_ms(n_bytes, 2.0 * M * K * N,
                                       INT8_OPS_PER_S)
@@ -1202,12 +1229,17 @@ def check_ragged(torch, timer):
 #: buckets (32, 128, 256 holding 32, 96 and 200 real tokens, left-padded);
 #: the tail is 64 suffix queries over a gathered 512-slot cache after a
 #: 160-token prefix hit; hd128 is qwen3-4b's attention (32 heads over 8 KV
-#: heads) on the 256 bucket
+#: heads) on the 256 bucket; hd256 recurrentgemma-9b's (16 heads over 1,
+#: G = 16) on the 256 bucket and on the tail, where the window (48)
+#: masks most of the 512 keys (at serving its 2048 window never bites at
+#: max_ctx 512)
 FLASH_CASES = {"fresh32": (32, 32, 32, 0, H, KV, HD),
                "fresh128": (128, 128, 96, 0, H, KV, HD),
                "fresh256": (PROMPT_BUCKET, PROMPT_BUCKET, 200, 0, H, KV, HD),
                "tail": (64, 512, 50, 160, H, KV, HD),
-               "hd128": (PROMPT_BUCKET, PROMPT_BUCKET, 200, 0, 32, 8, 128)}
+               "hd128": (PROMPT_BUCKET, PROMPT_BUCKET, 200, 0, 32, 8, 128),
+               "hd256": (PROMPT_BUCKET, PROMPT_BUCKET, 200, 0, 16, 1, 256),
+               "hd256_tail": (64, 512, 50, 160, 16, 1, 256)}
 #: the window every shape is also checked at
 FLASH_WINDOW = 48
 
@@ -1269,11 +1301,11 @@ def check_flash(torch, timer):
     """Flash prefill against its plain version at every FLASH_CASES shape,
     with and without a window: within ATTN_ATOL, padding rows exactly zero,
     two calls bit-equal.  Prints each shape's `flash_plan`, the ptxas
-    registers, spill and static shared memory of each instantiation, and
-    runs the SASS gate (HMMA in every flash kernel).  Times the kernel, the
-    plain version and SDPA (GQA expanded) at every shape.  The result's
-    top level is fresh256, the main path's largest prefill; `shapes` holds
-    every shape's row."""
+    registers, spill and static shared memory of each instantiation (any
+    spill fails), and runs the SASS gate (HMMA in every flash kernel).
+    Times the kernel, the plain version and SDPA (GQA expanded) at every
+    shape.  The result's top level is fresh256, the main path's largest
+    prefill; `shapes` holds every shape's row."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.autotune import attn_default_blocks
     from repro_torch.kernels.paged_attention import (
@@ -1287,6 +1319,8 @@ def check_flash(torch, timer):
     for name, (regs, spill, smem) in sorted(ptxas.items()):
         say(f"flash ptxas {name}: {regs} registers, {spill} bytes spill, "
             f"{smem} bytes static smem")
+        if spill:
+            fail(f"flash: {name} spills {spill} bytes")
     n_sass = flash_sass_gate()
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
@@ -1346,7 +1380,10 @@ def check_flash(torch, timer):
     return {"max_abs_err": max(r["max_abs_err"] for r in out.values()),
             **{key: top[key] for key in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
-            "sass_kernels_checked": n_sass, "shapes": out}
+            "sass_kernels_checked": n_sass,
+            "ptxas": {name: {"registers": r, "spill_bytes": sp}
+                      for name, (r, sp, _) in sorted(ptxas.items())},
+            "shapes": out}
 
 
 # ------------------------------------------------------------ phase 4 ----
@@ -1396,20 +1433,32 @@ SERVE_RUNS = {
                       ("flash_prefill", "paged_decode_attention",
                        "w4a16_matmul", "lut4_matmul")),
 }
-#: the GEMM each serve run's projections go through: 7 launches per layer
-#: per forward
+#: the GEMM each serve run's projections go through (GEMMS_A_BLOCK
+#: launches a block a forward)
 RUN_GEMM = {"bucketed": "int4_matmul_fused", "ragged": "int4_matmul_fused",
             "w4a16": "w4a16_matmul", "lut4": "lut4_matmul",
             "prefix_bucketed": "int4_matmul_fused",
             "prefix_ragged": "int4_matmul_fused",
-            "contiguous": "int4_matmul_fused", "mamba": "int4_matmul_fused"}
-#: the GEMM launches a layer a forward where not 7 (mamba2-130m: in_proj
-#: and out_proj)
-GEMMS_A_LAYER = {"mamba": 2}
+            "contiguous": "int4_matmul_fused", "mamba": "int4_matmul_fused",
+            "hybrid": "int4_matmul_fused"}
+#: GEMM launches of one block a forward: attention (wq, wk, wv, wo) and
+#: its FFN (w_in, w_gate, w_out); Mamba-2 (in_proj, out_proj); RG-LRU
+#: (in_x, in_g, w_a, w_x, out) and its FFN
+GEMMS_A_BLOCK = {"A": 7, "M": 2, "R": 8}
+
+
+def gemms_a_forward(cfg) -> int:
+    """The GEMM launches of one forward of `cfg`'s stack (recurrentgemma-9b
+    at 38 layers: 26 x 8 + 12 x 7 = 292)."""
+    blocks = tuple(cfg.pattern) * cfg.n_repeats + tuple(cfg.tail)
+    return sum(GEMMS_A_BLOCK[bt] for bt in blocks)
+
+
 #: the decode attention kernel of the runs that launch none: the
 #: contiguous layout attends with PyTorch ops (exact attention over the
-#: row, as the JAX package's XLA path), mamba2-130m has no attention
-NO_DECODE_KERNEL = ("contiguous", "mamba")
+#: row, as the JAX package's XLA path; recurrentgemma-9b's attention
+#: layers too), mamba2-130m has no attention
+NO_DECODE_KERNEL = ("contiguous", "mamba", "hybrid")
 #: the device kernels behind each GEMM wrapper, by a prefix of their name
 #: (the W4A16 wrapper's M <= 16 path and the lut4 wrapper's split calls
 #: launch two: split K, then reduce)
@@ -1972,6 +2021,106 @@ def mamba_runs(torch):
     return n
 
 
+#: recurrentgemma-9b's served depth: all 38 layers, (R, R, A) x 12 and the
+#: (R, R) tail (a cut must keep 2 + 3k)
+HYBRID_LAYERS = 38
+
+
+def hybrid_runs(torch):
+    """Full-width recurrentgemma-9b (HYBRID_LAYERS layers of (R, R, A)
+    units and an (R, R) tail, d_model 4096, RG-LRU width 4096, 16 heads
+    over 1 KV head at head dim 256, window 2048, d_ff 12288, vocab 256000;
+    random weights from SEED), W4A4-packed projections, the untied lm_head
+    float (the plan's default), served through the contiguous layout (its
+    default) on the Poisson trace with exact-length prefill and flash
+    prefill at hd 256: captured, then eager.  Prints the build's time and
+    the card's peak memory.  Every request ok with tokens in [0, 256000),
+    the fused W4A4 GEMM 8 times an R layer and 7 an A layer a forward,
+    flash prefill once an attention layer a prefill, no decode attention,
+    W4A16 or lut4 kernel, captured tokens and launches equal to eager, one
+    captured graph per prompt length and decode bucket, none twice.  The
+    captured engine's decode steps are profiled.  Returns the captured
+    run's launches."""
+    from repro_torch.configs import Runtime, get_config
+    from repro_torch.serving.api import poisson_trace
+    from repro_torch.serving.engine import build_params
+
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b"),
+                              n_layers=HYBRID_LAYERS)
+    rt = Runtime(attn_impl="flash", quant_backend="w4a4_packed")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = build_params(cfg, rt, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    held = torch.cuda.memory_allocated() - base
+    lru = ("in_x", "in_g", "w_a", "w_x", "out")
+    blocks = [params["layers"]["u0"], params["layers"]["u1"],
+              params["tail0"], params["tail1"]]
+    unpacked = [k for b in blocks for k in lru if "packed" not in b["lru"][k]]
+    unpacked += [k for k in ("wq", "wk", "wv", "wo")
+                 if "packed" not in params["layers"]["u2"]["attn"][k]]
+    if unpacked or isinstance(params["lm_head"]["w"], dict):
+        fail(f"hybrid: {unpacked} were not pre-packed, or the lm_head was")
+    n_attn = sum(bt == "A" for bt in cfg.pattern) * cfg.n_repeats
+    per_forward = gemms_a_forward(cfg)
+    say(f"hybrid: built full-width {cfg.name} ({cfg.n_layers} layers: "
+        f"{cfg.n_layers - n_attn} RG-LRU, {n_attn} attention; d_model "
+        f"{cfg.d_model}, lru_width {cfg.lru_width}, {cfg.n_heads} heads over "
+        f"{cfg.n_kv_heads} at hd {cfg.hd}, window {cfg.local_window}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}) in {build_s:.1f} s; the card's peak "
+        f"during the build {peak / 2**30:.2f} GiB, held after it "
+        f"{held / 2**30:.2f} GiB")
+    trace = poisson_trace(8, 0.5, PROMPT_LENS, GEN_LENS, cfg.vocab,
+                          seed=SEED)
+    lens = sorted({len(it.prompt) for it in trace})
+    runs = {}
+    for mode in ("graphs", "eager"):
+        label = f"hybrid, {mode}"
+        engine, n, stats, tokens = serve_engine(
+            torch, cfg, params, rt, _sv("contiguous"), trace, PROMPT_LENS,
+            label, eager=mode == "eager")
+        _check_launches(label, n, ("int4_matmul_fused", "flash_prefill"),
+                        ("paged_decode_attention", "ragged_decode_attention",
+                         "w4a16_matmul", "lut4_matmul"),
+                        "int4_matmul_fused", per_forward)
+        if n["flash_prefill"] != n_attn * len(trace):
+            fail(f"serve ({label}): flash_prefill launched "
+                 f"{n['flash_prefill']} times, want {n_attn} a prefill")
+        if mode == "graphs":
+            by_fn = stats["recompiles"]["by_fn"]
+            want = {"prefill": len(PROMPT_LENS),
+                    "decode": len(_sv().buckets)}
+            if by_fn != want or engine._prefill._cache_size() != \
+                    len(PROMPT_LENS):
+                fail(f"serve ({label}): captures {json.dumps(by_fn)}, want "
+                     f"one a prompt length and a decode bucket "
+                     f"{json.dumps(want)}")
+            prof = profile_steps(torch, engine, cfg.vocab, "hybrid")
+            att = engine.profile()
+            say(f"serve ({label}): prompt lengths {lens}, one prefill graph "
+                f"each; decode step {prof['ms']:.3f} ms "
+                f"({prof.get('replay_ms', float('nan')):.3f} ms a replay); "
+                f"engine.profile(): decode step {att['decode_step_us']} us, "
+                f"decode attention {att['attn_us']} us ({n_attn} x one "
+                f"call), attn_frac {att['attn_frac']}")
+        del engine
+        runs[mode] = (n, tokens)
+    (n, tokens), (n_e, eager) = runs["graphs"], runs["eager"]
+    if eager != tokens or n_e != n:
+        diff = [r for r in eager if tokens.get(r) != eager[r]]
+        fail(f"serve (hybrid): captured vs eager: requests {diff} differ in "
+             f"tokens, launches {json.dumps(n)} vs {json.dumps(n_e)}")
+    say("serve (hybrid): every request's tokens and the kernel launches "
+        f"equal the eager run's; {time.perf_counter() - t0:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+    return n
+
+
 def phase_serve(torch):
     """The bucketed path (bf16 pool, Poisson trace), then the ragged path
     (int8 pool, mixed trace), on one set of full-width W4A4 weights; then
@@ -1982,8 +2131,9 @@ def phase_serve(torch):
     `engine.profile()` after each of the first two runs, the shared-prefix
     runs (`prefix_runs`), the chaos runs (`chaos_runs`), the contiguous
     layout (`contiguous_runs`) and the compare harness (`compare_runs`);
-    last, full-width mamba2-130m (`mamba_runs`).  Every part's time is
-    printed.  Returns the launches of all runs, summed."""
+    last, full-width mamba2-130m (`mamba_runs`) and full-width
+    recurrentgemma-9b (`hybrid_runs`).  Every part's time is printed.
+    Returns the launches of all runs, summed."""
     from repro_torch.configs import Runtime, get_config
     from repro_torch.serving.api import mixed_trace, poisson_trace
     from repro_torch.serving.engine import build_params
@@ -2077,9 +2227,10 @@ def phase_serve(torch):
              "same)")
     say("serve (lut4): every request's tokens equal the w4a4_packed "
         "bucketed run's at the same depth, token for token")
-    t0 = time.perf_counter()
-    launches.append(mamba_runs(torch))
-    say(f"phase 4: mamba_runs in {time.perf_counter() - t0:.1f} s")
+    for part in (mamba_runs, hybrid_runs):
+        t0 = time.perf_counter()
+        launches.append(part(torch))
+        say(f"phase 4: {part.__name__} in {time.perf_counter() - t0:.1f} s")
     return {k: sum(n[k] for n in launches) for k in launches[0]}
 
 
@@ -2491,8 +2642,8 @@ def profile_steps(torch, engine, vocab: int, run: str, steps: int = 4,
     per step (a replayed step launches its graph) and the kernels the
     device ran per step, the run's GEMM and decode attention kernels'
     device time and the kernels that take the most, and checks that the
-    run's GEMM launched 7 times per layer per step (GEMMS_A_LAYER) and its
-    decode attention kernel once (none for NO_DECODE_KERNEL; a replay
+    run's GEMM launched `gemms_a_forward` times per step and its
+    decode attention kernel once a layer (none for NO_DECODE_KERNEL; a replay
     counts its graph's launches).  Runs
     after the serve run has read its launch counts.  `mode` ("graphs" or
     "eager") names the engine's steps in the output.  Returns the step's
@@ -2540,7 +2691,7 @@ def profile_steps(torch, engine, vocab: int, run: str, steps: int = 4,
                 if after[k] != before[k]}
     gemm = RUN_GEMM[run]
     layers = engine.cfg.n_layers
-    n_gemm = GEMMS_A_LAYER.get(run, 7) * layers
+    n_gemm = gemms_a_forward(engine.cfg)
     if per_step.get(gemm) != n_gemm or any(
             per_step.get(k) for k in ("int4_matmul_fused", "w4a16_matmul",
                                       "lut4_matmul") if k != gemm):
@@ -2804,6 +2955,52 @@ def _two_devices_mamba(torch):
     return logits, launches
 
 
+def _two_devices_hybrid(torch):
+    """Full-width recurrentgemma-9b cut to one (R, R, A) unit and the (R, R)
+    tail (5 layers; the full depth's CPU forward would need ~40 GB of host
+    memory), the serving path's W4A4 weights in float32 and a float32
+    cache, the same weights on both devices: one prefill of a 40-token
+    prompt (exact length, chunked exact attention: flash is bf16 only) on
+    contiguous caches and three decode steps fed fixed tokens.  Returns
+    {device: logits [4, vocab] f32 on the CPU} and the launch counts of
+    the card's run."""
+    from repro_torch.configs import Runtime, get_config
+    from repro_torch.convert import tree_to
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import (decode_step, init_caches,
+                                                prefill)
+    from repro_torch.serving.engine import build_params
+
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b"), n_layers=5)
+    rt = Runtime(quant_backend="w4a4_packed", compute_dtype="float32",
+                 cache_dtype="float32")
+    params_gpu = build_params(cfg, rt, seed=SEED + 6, device="cuda")
+    params_cpu = tree_to(params_gpu, "cpu")
+    gen = torch.Generator().manual_seed(SEED + 9)
+    L = 40
+    prompt = torch.randint(0, cfg.vocab, (1, L), generator=gen).to(
+        torch.int32)
+    feed = torch.randint(0, cfg.vocab, (3,), generator=gen)
+    logits = {}
+    with torch.inference_mode():
+        for dev, params in (("cuda", params_gpu), ("cpu", params_cpu)):
+            if dev == "cuda":
+                ops.reset_launch_counts()
+            caches = init_caches(cfg, rt, batch=1, seq=128, device=dev)
+            lg, caches = prefill(params, prompt.to(dev), cfg, rt, caches)
+            out = [lg.float().cpu()]
+            for i in range(len(feed)):
+                lg, caches = decode_step(
+                    params, feed[i].reshape(1, 1).to(torch.int32).to(dev),
+                    cfg, rt, caches,
+                    torch.tensor([[L + i]], dtype=torch.int32, device=dev))
+                out.append(lg.float().cpu())
+            logits[dev] = torch.cat(out)[:, :cfg.vocab]
+            if dev == "cuda":
+                launches = ops.launch_counts()
+    return logits, launches, gemms_a_forward(cfg)
+
+
 def _compare(torch, what, logits, launches):
     """Print the card-vs-CPU reading of one run; returns (max |diff|,
     correlation)."""
@@ -2875,9 +3072,11 @@ def phase_cpu(torch):
     pool, the logits of the emitted rows must agree within CPU_ATOL.  The
     int8 run holds the card's quantizing writes (scales and bytes) and the
     dequantizing kernel against the CPU path that the tests hold to the
-    JAX package.  Last, full-width mamba2-130m (`_two_devices_mamba`):
+    JAX package.  Then full-width mamba2-130m (`_two_devices_mamba`):
     W4A4 weights in float32, a prefill and three decode steps on
-    contiguous caches, logits within CPU_W4A4_F32_ATOL.
+    contiguous caches, logits within CPU_W4A4_F32_ATOL; last, full-width
+    recurrentgemma-9b at 5 layers (`_two_devices_hybrid`), the same
+    reading and bound.
     """
     from repro_torch.configs import Runtime
 
@@ -2934,6 +3133,17 @@ def phase_cpu(torch):
     if err > CPU_W4A4_F32_ATOL:
         fail(f"cpu: {what}: card and CPU logits differ by {err:.6g} > "
              f"{CPU_W4A4_F32_ATOL}")
+    logits, launches, per_forward = _two_devices_hybrid(torch)
+    what = ("recurrentgemma-9b, W4A4 weights, float32, one (R, R, A) unit "
+            "and the (R, R) tail at full width, prefill + 3 decode steps")
+    err, _ = _compare(torch, what, logits, launches)
+    readings[what] = err
+    if launches["int4_matmul_fused"] != per_forward * 4:
+        fail(f"cpu: {what}: the card's run launched the W4A4 GEMM "
+             f"{launches['int4_matmul_fused']} times, want {per_forward * 4}")
+    if err > CPU_W4A4_F32_ATOL:
+        fail(f"cpu: {what}: card and CPU logits differ by {err:.6g} > "
+             f"{CPU_W4A4_F32_ATOL}")
     return readings
 
 
@@ -2975,10 +3185,18 @@ def main() -> None:
         return out
 
     results = {"int4_matmul_fused": timed(check_gemm, torch, timer)}
-    mamba, err = timed(check_gemm_mamba, torch, timer)
     gemm = results["int4_matmul_fused"]
-    gemm["mamba_shapes"] = mamba
-    gemm["max_abs_err"] = max(gemm["max_abs_err"], err)
+    for key, label, shapes, rows, timed_rows, seed in (
+            ("mamba_shapes", "mamba", MAMBA_GEMM_SHAPES, MAMBA_GEMM_ROWS,
+             MAMBA_TIMED_ROWS, SEED + 30),
+            ("hybrid_shapes", "recurrentgemma", HYBRID_GEMM_SHAPES,
+             HYBRID_GEMM_ROWS, HYBRID_GEMM_ROWS, SEED + 31)):
+        t0 = time.perf_counter()
+        gemm[key], err = check_gemm_at(torch, timer, label, shapes, rows,
+                                       timed_rows, seed)
+        gemm["max_abs_err"] = max(gemm["max_abs_err"], err)
+        say(f"phase 3: check_gemm_at ({label}) in "
+            f"{time.perf_counter() - t0:.1f} s")
     for name, check in (("flash_prefill", check_flash),
                         ("paged_decode_attention", check_decode),
                         ("ragged_decode_attention", check_ragged),

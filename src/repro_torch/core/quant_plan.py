@@ -242,14 +242,17 @@ def active_plan(arch, rt) -> QuantPlan:
 def block_leaf_sites(block_type: str, cfg) -> Tuple[str, ...]:
     """The quantizable leaf sites inside one block of the given type
     (relative to the block's ``block[<i>]`` prefix): attention blocks of a
-    dense stack, and Mamba-2 blocks."""
+    dense or hybrid stack, Mamba-2 blocks and RG-LRU blocks."""
     if block_type == "M":
         return ("mamba.in_proj", "mamba.out_proj")
-    if block_type != "A" or cfg.family == "moe":
+    if block_type == "R":
+        sites = ["lru.in_x", "lru.in_g", "lru.w_a", "lru.w_x", "lru.out"]
+    elif block_type == "A" and cfg.family != "moe":
+        sites = ["attn.qkv", "attn.wo"]
+    else:
         raise NotImplementedError(
             f"block type {block_type!r} / family {cfg.family!r} is not "
             f"ported yet")
-    sites = ["attn.qkv", "attn.wo"]
     if cfg.d_ff:
         sites += ["ffn.w_in", "ffn.w_gate", "ffn.w_out"]
     return tuple(sites)

@@ -36,14 +36,27 @@
 //    chain a tile by WK; at the end the slices merge through shared memory
 //    in slice order (M = max m_w; O and L summed with weights
 //    exp(m_w - M); out = O * (1 / L), within an f32 step of O / L), so two
-//    calls give the same bits.  The plan picks KS (16 at hd 64, 32 at hd
-//    128) and the row tiles a CTA.
+//    calls give the same bits.  The plan picks KS (16 at hd 64 and 256,
+//    32 at hd 128) and the row tiles a CTA.
 //  - QK and PV run as mma.sync.m16n8k16 (bf16 in, f32 sums).  Q fragments
 //    come once from the CTA's staged Q tile by ldmatrix and stay in
-//    registers; K fragments by ldmatrix (K [key][d] is the B operand
-//    column-major), V fragments by ldmatrix.trans.  P's A fragments are
-//    the score accumulators themselves (the m16n8k16 C layout of two
-//    n-tiles is the A layout of one k-step), split into hi and lo.
+//    registers (hd 64 and 128; at hd 256 see below); K fragments by
+//    ldmatrix (K [key][d] is the B operand column-major), V fragments by
+//    ldmatrix.trans.  P's A fragments are the score accumulators
+//    themselves (the m16n8k16 C layout of two n-tiles is the A layout of
+//    one k-step), split into hi and lo.
+//  - Head dim 256 (recurrentgemma-9b: 16 query heads over 1 KV head): a
+//    thread's output accumulators alone are o[HD / 8][4] = 128 registers,
+//    and held Q fragments would add qf[HD / 16][4] = 64 more, past what
+//    ptxas can keep beside the scores and addresses without spilling.  So
+//    at hd 256 the Q fragments are not held: each QK k-step reads its
+//    fragment again from the staged Q tile by ldmatrix (the tile stays in
+//    shared memory until the merge), and the warp takes 16 keys of each
+//    tile (key split 4, s[2][4]), the fewest score registers.  The
+//    arithmetic is the same MMA on the same fragments, so the bits are
+//    those of a held fragment.  The K/V ring is 132.5 KB at hd 256, so one
+//    CTA fills an SM's shared memory; the plan cuts the rows so that the
+//    grid runs in as few waves as it can (16 or 32 rows a CTA).
 //  - The softmax lives in registers: a thread holds two rows' scores, the
 //    row max goes over the four threads of a quad by shuffles, the row sum
 //    is kept per thread and summed over the quad once at the end.  Every
@@ -159,6 +172,11 @@ __device__ __forceinline__ void split_pair(float p0, float p1, uint32_t& hi,
 __device__ __forceinline__ bool sees(int qp, int kp, int window) {
   return kp >= 0 && qp >= kp && (window == 0 || qp - kp < window);
 }
+
+// hd 64 and 128 hold the warp's Q fragments in registers; hd 256 reads
+// each k-step's fragment from the staged Q tile (see the header)
+template <int HD>
+__host__ __device__ constexpr bool q_in_registers() { return HD <= 128; }
 
 template <int HD, int KS>
 __global__ void __launch_bounds__(MAX_WARPS * 32) flash_prefill_kernel(
@@ -304,11 +322,14 @@ __global__ void __launch_bounds__(MAX_WARPS * 32) flash_prefill_kernel(
   }
   cp_async_wait<STAGES - 1>();         // this thread's Q copies have landed
   __syncthreads();                     // and every other thread's
-  uint32_t qf[HD / 16][4];
+  constexpr bool QREG = q_in_registers<HD>();
+  const __nv_bfloat16* qrow = Qs + (wr * 16 + lane % 16) * LD
+                              + (lane / 16) * 8;
+  uint32_t qf[QREG ? HD / 16 : 1][4];
+  if constexpr (QREG) {
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk)
-    ldmatrix_x4(qf[kk], Qs + (wr * 16 + lane % 16) * LD + 16 * kk
-                            + (lane / 16) * 8);
+    for (int kk = 0; kk < HD / 16; ++kk) ldmatrix_x4(qf[kk], qrow + 16 * kk);
+  }
 
   float o[HD / 8][4];
 #pragma unroll
@@ -340,13 +361,20 @@ __global__ void __launch_bounds__(MAX_WARPS * 32) flash_prefill_kernel(
       for (int j = 0; j < KS / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {
+        uint32_t qk[4];
+        if constexpr (QREG) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) qk[e] = qf[kk][e];
+        } else {
+          ldmatrix_x4(qk, qrow + 16 * kk);
+        }
 #pragma unroll
         for (int nn = 0; nn < KS / 16; ++nn) {
           uint32_t kf[4];
           ldmatrix_x4(kf, Kt + (16 * nn + lane % 8 + (lane / 16) * 8) * LD
                               + 16 * kk + ((lane / 8) % 2) * 8);
-          mma_bf16(s[2 * nn], qf[kk], kf[0], kf[1]);
-          mma_bf16(s[2 * nn + 1], qf[kk], kf[2], kf[3]);
+          mma_bf16(s[2 * nn], qk, kf[0], kf[1]);
+          mma_bf16(s[2 * nn + 1], qk, kf[2], kf[3]);
         }
       }
       // mask, bf16-round then scale; bit 4j + e: row a, 4j + 2 + e: row b
@@ -501,18 +529,25 @@ int launch_hd(const void* q, const void* k, const void* v, const void* qpos,
               const void* kpos, void* out, int B, int Sq, int Skv, int H,
               int KV, int window, float scale, int warps, int key_split,
               cudaStream_t st) {
-  switch (key_split) {
+  if constexpr (!q_in_registers<HD>()) {
+    // 16 keys a warp: the only split whose scores fit beside o[HD / 8][4]
+    if (key_split != 4) return (int)cudaErrorInvalidValue;
+    return launch<HD, BK / 4>(q, k, v, qpos, kpos, out, B, Sq, Skv, H, KV, window, scale, warps, st);
+  } else {
+    switch (key_split) {
     case 1: return launch<HD, BK>(q, k, v, qpos, kpos, out, B, Sq, Skv, H, KV, window, scale, warps, st);
     case 2: return launch<HD, BK / 2>(q, k, v, qpos, kpos, out, B, Sq, Skv, H, KV, window, scale, warps, st);
     case 4: return launch<HD, BK / 4>(q, k, v, qpos, kpos, out, B, Sq, Skv, H, KV, window, scale, warps, st);
     default: return (int)cudaErrorInvalidValue;
+    }
   }
 }
 
 }  // namespace
 
-// Returns a cudaError_t; cudaErrorInvalidValue for a head dim other than 64
-// or 128, a key split other than 1, 2 or 4 (warps sharing a row tile), or
+// Returns a cudaError_t; cudaErrorInvalidValue for a head dim other than 64,
+// 128 or 256, a key split other than 1, 2 or 4 (only 4 at hd 256; warps
+// sharing a row tile), or
 // warps that are not 1, 2, 4 or 8 row tiles' worth, at most MAX_WARPS (the
 // plan's choices).  q, k and v must start 16-byte aligned.
 extern "C" int flash_prefill_launch(const void* q, const void* k,
@@ -530,6 +565,7 @@ extern "C" int flash_prefill_launch(const void* q, const void* k,
   switch (hd) {
     case 64: return launch_hd<64>(q, k, v, qpos, kpos, out, B, Sq, Skv, H, KV, window, scale, warps, key_split, st);
     case 128: return launch_hd<128>(q, k, v, qpos, kpos, out, B, Sq, Skv, H, KV, window, scale, warps, key_split, st);
+    case 256: return launch_hd<256>(q, k, v, qpos, kpos, out, B, Sq, Skv, H, KV, window, scale, warps, key_split, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -360,7 +360,13 @@ FLASH_MAX_WARPS = 8
 FLASH_BK = 64
 FLASH_STAGES = 2
 #: the head dims the kernel is instantiated for
-FLASH_HEAD_DIMS = (64, 128)
+FLASH_HEAD_DIMS = (64, 128, 256)
+#: head dims past this read each QK k-step's Q fragment from shared memory
+#: and take one key split, FLASH_WIDE_KEY_SPLIT (16 keys a warp): their
+#: output accumulators fill the registers (csrc/flash_prefill.cu
+#: q_in_registers)
+FLASH_Q_REGS_MAX_HD = 128
+FLASH_WIDE_KEY_SPLIT = 4
 #: dynamic shared memory a block may use on an H100
 MAX_SMEM_BYTES = 232_448
 
@@ -406,19 +412,31 @@ def flash_plan(B: int, Sq: int, Skv: int, H: int, KV: int,
     chain of MMAs and exponentials; an hd 128 warp holds twice the
     accumulators, 170 to 220 registers, so half as many fit an SM, and four
     a tile would run qwen3-4b's 256-token grid in two waves); the split is
-    halved until the CTA holds at most FLASH_MAX_WARPS warps."""
+    halved until the CTA holds at most FLASH_MAX_WARPS warps.
+
+    At hd 256 a warp takes 16 keys (FLASH_WIDE_KEY_SPLIT; its scores must
+    fit beside 128 output registers), so a CTA holds 16 or 32 rows, and
+    the K/V ring (132.5 KB) leaves room for one CTA an SM: the rows are
+    16 while that grid fits in one wave of FLASH_TARGET_CTAS, else 32,
+    which halves the waves (recurrentgemma-9b's 256-token prompt: 128
+    CTAs of 8 warps, one wave)."""
     if B < 1 or Sq < 1 or KV < 1 or H % KV or hd not in FLASH_HEAD_DIMS:
         raise ValueError(f"flash_plan: B = {B}, Sq = {Sq}, H = {H}, "
                          f"KV = {KV}, hd = {hd}")
     R = H // KV * Sq
-    rows = FLASH_ROWS[-1]
-    for r in FLASH_ROWS:
-        if -(-R // r) * KV * B >= FLASH_TARGET_CTAS:
-            rows = r
-            break
-    key_split = FLASH_BK // (hd // 4)
-    while rows // 16 * key_split > FLASH_MAX_WARPS:
-        key_split //= 2
+    if hd > FLASH_Q_REGS_MAX_HD:
+        key_split = FLASH_WIDE_KEY_SPLIT
+        rows = 16 if -(-R // 16) * KV * B <= FLASH_TARGET_CTAS \
+            else FLASH_MAX_WARPS // key_split * 16
+    else:
+        rows = FLASH_ROWS[-1]
+        for r in FLASH_ROWS:
+            if -(-R // r) * KV * B >= FLASH_TARGET_CTAS:
+                rows = r
+                break
+        key_split = FLASH_BK // (hd // 4)
+        while rows // 16 * key_split > FLASH_MAX_WARPS:
+            key_split //= 2
     warps = rows // 16 * key_split
     grid = (-(-R // rows), KV, B)
     return FlashPlan(rows, key_split, FLASH_BK, warps, grid,
@@ -436,7 +454,7 @@ def _bind_flash(lib: ctypes.CDLL) -> None:
 def flash_prefill_cuda(q, k, v, q_positions, k_positions,
                        window: int = 0) -> torch.Tensor:
     """Launch the flash prefill kernel: q [B, Sq, H, hd] bf16, k/v
-    [B, Skv, KV, hd] bf16 (hd 64 or 128, 16-byte aligned), positions
+    [B, Skv, KV, hd] bf16 (hd 64, 128 or 256, 16-byte aligned), positions
     [B, S] int32 (-1 = padding); cut by `flash_plan`."""
     bf, i32 = torch.bfloat16, torch.int32
     _check_cuda("flash_prefill_cuda", (q, k, v, q_positions, k_positions),

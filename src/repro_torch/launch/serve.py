@@ -7,7 +7,8 @@ default W4A4-packed weights through the fused int4 GEMM; or
 precedence) and a KV layout (``--layout paged``: a paged pool, bf16 or
 int8/int4 with per-token scales, with the prefix cache; ``contiguous``: a
 max_ctx cache row per batch slot; the default is paged for attention
-stacks and contiguous for the others, such as mamba2-130m), and prints a
+stacks and contiguous for the others: mamba2-130m and the hybrid
+recurrentgemma-9b, whose prompts prefill at exact length), and prints a
 JSON report with tokens/s and p50/p95 request latency.  ``--step
 bucketed`` runs flash prefill and fused paged decode (contiguous: exact
 attention over the row); ``--step ragged`` (paged) packs prefill chunks
@@ -59,6 +60,9 @@ and the recompile sentinel.
         --reduced --device cpu --layout compare
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
         --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch recurrentgemma-9b --full --max-ctx 512 --max-batch 8 \
+        --num-pages 320 --prompt-lens 32,96,160,256 --gen-lens 16,32,64
 """
 
 from __future__ import annotations
@@ -100,6 +104,24 @@ def compare_path(path: str, rt, sv):
         prefix_cache=sv.prefix_cache and path != "paged_nocache")
 
 
+def model_config(arch: str, reduced: bool = True, layers=None):
+    """The arch's config (reduced or full width) at its own depth or at
+    `layers`, which must be a whole number of repeat units plus the tail:
+    recurrentgemma-9b stacks (R, R, A) units and an (R, R) tail, so its
+    depths are 2 + 3k."""
+    cfg = get_config(arch)
+    if layers:
+        P, T = len(cfg.pattern), len(cfg.tail)
+        if layers < P + T or (layers - T) % P:
+            raise ValueError(
+                f"--layers {layers}: {arch} stacks units of {P} blocks "
+                f"{cfg.pattern} and then a tail of {T} {cfg.tail}, so its "
+                f"depth is {T} + {P} * k with k >= 1")
+    if reduced:
+        return cfg.reduced(**({"n_layers": layers} if layers else {}))
+    return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+
+
 def serve(arch: str, *, reduced=True, layers=None, layout=None, max_batch=4,
           page_size=16, num_pages=48, max_ctx=128, requests=8, rate=0.5,
           prompt_lens=(8, 16, 32), gen_lens=(8, 16), prefix_cache=True,
@@ -107,11 +129,7 @@ def serve(arch: str, *, reduced=True, layers=None, layout=None, max_batch=4,
           token_budget=0, cache_dtype="bfloat16", quant="w4a4_packed",
           quant_plan=None, seed=0, chaos_seed=0, max_queue=0,
           trace_out=None, metrics=True, sweep=False, device="cuda"):
-    cfg = get_config(arch)
-    if reduced:
-        cfg = cfg.reduced(**({"n_layers": layers} if layers else {}))
-    elif layers:
-        cfg = dataclasses.replace(cfg, n_layers=layers)
+    cfg = model_config(arch, reduced, layers)
     if scenario in ("chaos", "cancel_storm"):
         # the seeded fault-injection harness in both step modes against one
         # fault-free bucketed reference, with exact-softmax prefill
@@ -334,6 +352,10 @@ def main():
     ap.add_argument("--out", default=None,
                     help="also write the JSON report to this path")
     args = ap.parse_args()
+    try:
+        model_config(args.arch, args.reduced, args.layers)
+    except (KeyError, ValueError) as e:
+        ap.error(str(e))
 
     out = serve(
         args.arch, reduced=args.reduced, layers=args.layers,

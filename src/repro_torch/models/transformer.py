@@ -2,7 +2,8 @@
 -> norm -> logits (PyTorch port of ``repro/models/transformer.py``).
 
 `cfg.pattern` is one repeat unit of block types ("A" attention + FFN, "M"
-Mamba-2), repeated ``cfg.n_repeats`` times, then ``cfg.tail``.
+Mamba-2, "R" RG-LRU + FFN), repeated ``cfg.n_repeats`` times, then
+``cfg.tail`` (recurrentgemma: (R, R, A) x 12, then (R, R)).
 Parameters keep the JAX package's tree: ``params["layers"]["u<j>"]`` holds
 every leaf of the unit's j-th block stacked over the repeats on axis 0, and
 ``params["tail<t>"]`` the tail blocks, so weights carried across with
@@ -15,10 +16,14 @@ index ``r * P + j``), which the loop walks the same way.
 
 Caches mirror the parameters: ``{"rep": {"u<j>": {kind: {...}}}, "tail":
 {"tail<t>": {kind: {...}}}}`` with every rep leaf stacked over the repeats
-(kind ``"attn"`` or ``"mamba"``).  Paged KV pools (a cache holding
+(kind ``"attn"``, ``"mamba"`` or ``"lru"``).  Paged KV pools (a cache holding
 ``"tbl"``) are updated in place; contiguous caches and Mamba states are
 written functionally, as the JAX package writes them, and `forward`
 returns the new tree.
+
+`init_model` allocates each stacked leaf once and fills repeat r's slice
+in place as the generator draws it, so a build holds one copy of the
+repeat weights (recurrentgemma-9b's are 31.5 GB in float32).
 """
 
 from __future__ import annotations
@@ -28,14 +33,15 @@ from typing import Dict, List, Optional
 import torch
 
 from ..core.qlinear import qdense
-from ..core.quant_plan import layer_slice
+from ..core.quant_plan import join_site, layer_slice
 from .attention import apply_attention, init_attention, init_attn_cache
 from .common import normal_init, rms_norm, sinusoidal_pos_embed
 from .ffn import apply_ffn, init_ffn
+from .rglru import apply_rglru, init_rglru, init_rglru_cache
 from .ssm import apply_mamba, init_mamba, init_mamba_cache
 
 #: the cache key of each ported block type
-CACHE_KIND = {"A": "attn", "M": "mamba"}
+CACHE_KIND = {"A": "attn", "M": "mamba", "R": "lru"}
 #: the routing leaves a step binds into paged caches (not stacked per layer)
 ROUTING = ("tbl", "slots")
 
@@ -44,12 +50,8 @@ def _check_supported(cfg) -> None:
     if cfg.family == "moe":
         raise NotImplementedError(
             f"{cfg.name}: MoE blocks are not ported yet (ROADMAP Queue 1 "
-            "item 10, after RG-LRU and the attention configs)")
+            "item 3, after the attention configs)")
     blocks = tuple(cfg.pattern) + tuple(cfg.tail)
-    if "R" in blocks:
-        raise NotImplementedError(
-            f"{cfg.name}: RG-LRU blocks are not ported yet (the next slice: "
-            "RG-LRU with recurrentgemma-9b)")
     unknown = sorted(set(blocks) - set(CACHE_KIND))
     if unknown:
         raise NotImplementedError(
@@ -67,6 +69,11 @@ def init_block(gen: torch.Generator, block_type: str, cfg) -> Dict:
             p["ffn"] = init_ffn(gen, cfg)
     elif block_type == "M":
         p["mamba"] = init_mamba(gen, cfg)
+    elif block_type == "R":
+        p["lru"] = init_rglru(gen, cfg)
+        if cfg.d_ff:
+            p["norm2"] = torch.ones((D,), device=dev)
+            p["ffn"] = init_ffn(gen, cfg)
     else:
         raise ValueError(block_type)
     return p
@@ -74,34 +81,36 @@ def init_block(gen: torch.Generator, block_type: str, cfg) -> Dict:
 
 def init_block_cache(block_type: str, cfg, rt, batch: int, seq: int,
                      device="cuda") -> Dict:
-    """One block's contiguous cache: the attention ring or the Mamba
-    state."""
+    """One block's contiguous cache: the attention ring, the Mamba state or
+    the RG-LRU state."""
     if block_type == "A":
         return {"attn": init_attn_cache(cfg, rt, batch, seq, device)}
     if block_type == "M":
         return {"mamba": init_mamba_cache(cfg, batch, device)}
+    if block_type == "R":
+        return {"lru": init_rglru_cache(cfg, batch, device)}
     raise ValueError(block_type)
 
 
 def apply_block(block_type: str, p: Dict, x, cfg, rt, positions,
                 cache=None, update_cache: bool = False, site: str = ""):
     """One block; `site` (e.g. "block[3]") prefixes the sub-layers' plan
-    sites.  "A": attention, then the FFN when ``d_ff``; "M": Mamba-2 (no
-    FFN).  Returns (x, the block's new cache or None)."""
+    sites.  "A": attention, "R": RG-LRU, each then the FFN when ``d_ff``;
+    "M": Mamba-2 (no FFN).  Returns (x, the block's new cache or None)."""
     normed = rms_norm(x, p["norm1"], cfg.norm_eps)
     kind = CACHE_KIND[block_type]
     sub = cache.get(kind) if cache else None
     if block_type == "A":
         h, nc = apply_attention(p["attn"], normed, cfg, rt, positions, sub,
                                 update_cache, site=site)
-        x = x + h
-        if cfg.d_ff:
-            x = x + apply_ffn(p["ffn"], rms_norm(x, p["norm2"], cfg.norm_eps),
-                              cfg, rt, site=f"{site}.ffn" if site else "ffn")
     else:
-        h, nc = apply_mamba(p["mamba"], normed, cfg, rt, sub, update_cache,
-                            site=f"{site}.mamba" if site else "mamba")
-        x = x + h
+        mixer = apply_mamba if block_type == "M" else apply_rglru
+        h, nc = mixer(p[kind], normed, cfg, rt, sub, update_cache,
+                      site=join_site(site, kind))
+    x = x + h
+    if block_type != "M" and cfg.d_ff:
+        x = x + apply_ffn(p["ffn"], rms_norm(x, p["norm2"], cfg.norm_eps),
+                          cfg, rt, site=join_site(site, "ffn"))
     return x, ({kind: nc} if nc is not None else None)
 
 
@@ -113,8 +122,27 @@ def _stack(trees: List[Dict]) -> Dict:
     return torch.stack(trees)
 
 
+def _fill_slice(stacked: Optional[Dict], tree: Dict, r: int,
+                n: int) -> Dict:
+    """`tree` written as slice r of `stacked` (allocated [n, ...] leaf by
+    leaf when None)."""
+    if stacked is None:
+        stacked = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            stacked[k] = _fill_slice(stacked.get(k), v, r, n)
+        else:
+            if k not in stacked:
+                stacked[k] = v.new_empty((n,) + tuple(v.shape))
+            stacked[k][r] = v
+    return stacked
+
+
 def init_model(gen: torch.Generator, cfg) -> Dict:
-    """Random f32 parameters on the generator's device."""
+    """Random f32 parameters on the generator's device.  The generator is
+    drawn block by block (repeat 0's unit, repeat 1's, ..., then the tail);
+    each block's leaves are copied into their stacked leaf at once, so the
+    build never holds more than one block beside the stack."""
     _check_supported(cfg)
     Vp, D = cfg.vocab_padded, cfg.d_model
     params: Dict = {
@@ -123,10 +151,13 @@ def init_model(gen: torch.Generator, cfg) -> Dict:
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": normal_init(gen, (D, Vp))}
-    units = [[init_block(gen, bt, cfg) for bt in cfg.pattern]
-             for _ in range(cfg.n_repeats)]
-    params["layers"] = {f"u{j}": _stack([u[j] for u in units])
-                        for j in range(len(cfg.pattern))}
+    P, R = len(cfg.pattern), cfg.n_repeats
+    stacked: List[Optional[Dict]] = [None] * P
+    for r in range(R):
+        for j, bt in enumerate(cfg.pattern):
+            stacked[j] = _fill_slice(stacked[j], init_block(gen, bt, cfg),
+                                     r, R)
+    params["layers"] = {f"u{j}": stacked[j] for j in range(P)}
     for t, bt in enumerate(cfg.tail):
         params[f"tail{t}"] = init_block(gen, bt, cfg)
     return params

@@ -905,7 +905,8 @@ class InferenceEngine:
         all padding) against the decode attention op alone (the same
         ``kernels.ops`` entry the model calls, or for the contiguous layout
         the exact attention over the rows; timed once and counted
-        ``n_layers`` times; 0 for a stack without attention), so a
+        once for each attention block, the hybrid's 12 of 38 included; 0
+        for a stack without attention), so a
         regression can be pinned on attention or on the GEMMs and the
         rest.  Best of `reps` timed calls after one
         untimed call.  Call when idle: the probe steps write through stale
@@ -1025,7 +1026,9 @@ class InferenceEngine:
                     impl="full", chunk_q=self.rt.attn_chunk_q)
 
         with torch.inference_mode():
-            attn_us = best_us(attn_op) * cfg.n_layers
+            n_attn = sum(bt == "A" for bt in cfg.pattern) * cfg.n_repeats \
+                + sum(bt == "A" for bt in cfg.tail)
+            attn_us = best_us(attn_op) * n_attn
         self._profile = {
             "decode_step_us": round(step_us, 1),
             "attn_us": round(attn_us, 1),

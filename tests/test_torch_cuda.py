@@ -269,7 +269,9 @@ def _flash_positions(B, Sq, Skv, pads, hit):
 #: (B, Sq, Skv, H, KV, hd, left paddings, prefix hit, window): G = 1, 2, 7
 #: and 8, hd 64 and 128, one query, 17 and 70 queries over a longer cache
 #: (a prefix hit), the 256 bucket fresh and over a 512-slot cache, rows of a
-#: batch padded differently
+#: batch padded differently; hd 256 at G = 16 over one KV head
+#: (recurrentgemma-9b's attention: Q fragments read from shared memory at
+#: each k-step), with the window off and on, fresh and over a cache
 FLASH_SHAPES = {
     "g1": (2, 70, 70, 4, 4, 64, (0, 6), 0, 0),
     "g2_window": (2, 70, 70, 4, 2, 64, (0, 6), 0, 24),
@@ -280,6 +282,10 @@ FLASH_SHAPES = {
     "sq70_tail_hd128_window": (2, 70, 200, 14, 2, 128, (2, 8), 64, 24),
     "sq256": (1, 256, 256, 14, 2, 64, (56,), 0, 0),
     "sq256_tail": (2, 256, 512, 14, 2, 64, (0, 40), 100, 0),
+    "g16_hd256": (2, 70, 70, 16, 1, 256, (0, 9), 0, 0),
+    "g16_hd256_window": (1, 256, 256, 16, 1, 256, (56,), 0, 48),
+    "g16_hd256_tail_window": (2, 64, 512, 16, 1, 256, (0, 14), 160, 48),
+    "g16_hd256_tail": (1, 17, 300, 16, 1, 256, (3,), 120, 0),
 }
 
 
@@ -1203,6 +1209,18 @@ def test_int4_kernel_bit_exact_at_mamba_shapes(cuda, M, K, N):
     test_int4_kernel_bit_exact(cuda, M, K, N)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [8, 256])
+@pytest.mark.parametrize("K,N", [(4096, 4096), (4096, 256), (4096, 12288),
+                                 (12288, 4096)])
+def test_int4_kernel_bit_exact_at_hybrid_shapes(cuda, M, K, N):
+    """recurrentgemma-9b's projections (the RG-LRU's five and the
+    attention's wq / wo at (4096, 4096), wk / wv at (4096, 256), the FFN's
+    at (4096, 12288) and (12288, 4096): the longest K the kernel meets) at
+    the decode batch and the 256-token prompt."""
+    test_int4_kernel_bit_exact(cuda, M, K, N)
+
+
 def _clone_tree(tree):
     return {k: _clone_tree(v) if isinstance(v, dict) else v.clone()
             for k, v in tree.items()}
@@ -1222,10 +1240,13 @@ def _trees_equal(a, b):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["mamba2-130m", "qwen2-0.5b"])
+@pytest.mark.parametrize("arch", ["mamba2-130m", "qwen2-0.5b",
+                                  "recurrentgemma-9b"])
 def test_captured_contiguous_steps_replay_equal_eager(cuda, arch):
-    """The contiguous layout's steps on the card (reduced mamba2-130m with
-    exact-length prefill, reduced qwen2-0.5b with bucketed prefill; W4A4):
+    """The contiguous layout's steps on the card (reduced mamba2-130m and
+    the reduced hybrid recurrentgemma-9b, its 5 layers at head dim 256
+    with its 16-slot window wrapping, with exact-length prefill; reduced
+    qwen2-0.5b with bucketed prefill; W4A4):
     the captured engine emits the eager engine's tokens and launches, and
     every captured graph (each exact-length prefill and each decode
     bucket) replayed on its last inputs gives the eager step's tokens and
@@ -1237,7 +1258,9 @@ def test_captured_contiguous_steps_replay_equal_eager(cuda, arch):
     from repro_torch.serving.engine import InferenceEngine
 
     cs = _chip_smoke()
-    cfg = get_config(arch).reduced(n_layers=2, head_dim=64)
+    cfg = (get_config(arch).reduced(head_dim=256)
+           if arch == "recurrentgemma-9b"
+           else get_config(arch).reduced(n_layers=2, head_dim=64))
     rt = Runtime(attn_impl="flash", quant_backend="w4a4_packed")
     sv = ServingConfig(layout="contiguous", max_batch=4, max_ctx=96)
     lens = (7, 20, 33)
@@ -1261,7 +1284,7 @@ def test_captured_contiguous_steps_replay_equal_eager(cuda, arch):
         out["eager"]
     assert ctok == etok and cn == en
     assert cstats["recompiles"]["steady_state"] == 0
-    n_prefill = len(lens) if arch == "mamba2-130m" else len(
+    n_prefill = len(lens) if arch != "qwen2-0.5b" else len(
         {sv.prompt_bucket(n) for n in lens})
     assert eng._prefill._cache_size() == n_prefill
     assert eng._decode._cache_size() == len(sv.buckets)

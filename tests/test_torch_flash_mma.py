@@ -3,8 +3,10 @@ without a GPU: its plan (``flash_plan``), and its arithmetic emulated in
 PyTorch on the CPU against the JAX package on the same seeded numpy inputs.
 
 (a) The plan: every (query, head) row of every (b, KV head) lies in
-exactly one CTA, the shared memory fits, the rule picks the row tile, and
-the CTA counts at qwen2-0.5b's serving shapes are the ones PERF.md cites.
+exactly one CTA, the shared memory fits, the rule picks the row tile (at
+hd 256 its own rule: 16 keys a warp, 16 or 32 rows), and the CTA counts
+at qwen2-0.5b's and recurrentgemma-9b's serving shapes are the ones
+PERF.md cites.
 
 (b) ``emulate`` repeats the kernel's arithmetic step by step: the plan's
 CTAs and 16-row tiles, rows query-major (r = i * G + g), the CTA's K/V
@@ -21,6 +23,10 @@ one bf16 p would move the output.
 
 (c) The port's plain version against the Pallas kernel at hd 64 and 128
 with G = 7 (``test_torch_kernels`` holds it at hd 16 against the twin).
+
+At hd 256 the kernel reads each QK k-step's Q fragment from shared memory
+instead of registers: the same MMA on the same fragments, so (b)'s
+emulation holds it unchanged, at G = 16 over one KV head.
 
 Tolerances: the outputs are bf16.  The emulation, the plain version and
 the JAX kernels sum the same f32 products in other orders, so the QK dot
@@ -44,9 +50,10 @@ import numpy as np  # noqa: E402
 
 from repro.kernels import paged_attention as jpa  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
-    FLASH_BK, FLASH_HEAD_DIMS, FLASH_KEY_SPLITS, FLASH_MAX_WARPS, FLASH_ROWS,
-    FLASH_STAGES, FLASH_TARGET_CTAS, MAX_SMEM_BYTES, NEG_INF,
-    flash_plan, flash_prefill_plain, flash_smem)
+    FLASH_BK, FLASH_HEAD_DIMS, FLASH_KEY_SPLITS, FLASH_MAX_WARPS,
+    FLASH_Q_REGS_MAX_HD, FLASH_ROWS, FLASH_STAGES, FLASH_TARGET_CTAS,
+    FLASH_WIDE_KEY_SPLIT, MAX_SMEM_BYTES, NEG_INF, flash_plan,
+    flash_prefill_plain, flash_smem)
 
 ROOT = Path(__file__).resolve().parent.parent
 CU = ROOT / "src" / "repro_torch" / "csrc" / "flash_prefill.cu"
@@ -62,8 +69,11 @@ SINGLE_MIN_RTOL = 2.0 ** -12
 
 #: (B, Sq, Skv, H, KV, hd, left paddings, prefix hit, window): G = 1, 2, 7,
 #: hd 64 and 128, left padding, windows, Skv not a multiple of FLASH_BK,
-#: Sq = 1, and rows of one batch padded differently
+#: Sq = 1, and rows of one batch padded differently; G = 16 over one KV
+#: head at hd 256 (recurrentgemma-9b), fresh and over a cache with a window
 CASES = {
+    "g16_hd256": (1, 13, 13, 16, 1, 256, (3,), 0, 0),
+    "g16_hd256_tail_window": (1, 6, 70, 16, 1, 256, (1,), 50, 16),
     "g1": (2, 40, 40, 2, 2, 64, (0, 5), 0, 0),
     "g2_window": (2, 40, 40, 4, 2, 64, (0, 5), 0, 12),
     "g7_hd128": (1, 33, 33, 7, 1, 128, (4,), 0, 0),
@@ -88,7 +98,9 @@ def _cta_rows(plan, G, Sq):
 @pytest.mark.parametrize("B,Sq,Skv,H,KV,hd", [
     (1, 32, 32, 14, 2, 64), (1, 256, 256, 14, 2, 64), (3, 70, 100, 14, 2, 64),
     (1, 1, 70, 7, 1, 128), (8, 256, 256, 14, 2, 64), (1, 2048, 2048, 32, 8, 128),
-    (2, 17, 17, 16, 2, 128), (1, 5, 5, 1, 1, 64)])
+    (2, 17, 17, 16, 2, 128), (1, 5, 5, 1, 1, 64), (1, 256, 256, 16, 1, 256),
+    (1, 64, 512, 16, 1, 256), (2, 17, 17, 16, 1, 256), (8, 256, 256, 16, 1, 256),
+    (1, 96, 96, 16, 1, 256), (1, 2048, 2048, 16, 1, 256)])
 def test_plan_covers_every_row_once_and_fits(B, Sq, Skv, H, KV, hd):
     plan = flash_plan(B, Sq, Skv, H, KV, hd)
     G = H // KV
@@ -100,6 +112,15 @@ def test_plan_covers_every_row_once_and_fits(B, Sq, Skv, H, KV, hd):
     seen = _cta_rows(plan, G, Sq)
     assert set(seen) == {(i, g) for i in range(Sq) for g in range(G)}
     assert plan.smem <= MAX_SMEM_BYTES
+    if hd > FLASH_Q_REGS_MAX_HD:
+        # hd 256: 16 keys a warp; 16 rows while that grid fits one wave of
+        # FLASH_TARGET_CTAS (one CTA an SM: the K/V ring alone is 132.5 KB,
+        # so two never fit), else 32, which halves the waves
+        assert plan.key_split == FLASH_WIDE_KEY_SPLIT
+        assert 2 * plan.smem > MAX_SMEM_BYTES
+        one_wave = -(-G * Sq // 16) * KV * B <= FLASH_TARGET_CTAS
+        assert plan.rows == (16 if one_wave else 32)
+        return
     # the rule: the largest row tile that still fills the card, else 16;
     # hd / 4 keys a warp, as few warps a tile as MAX_WARPS needs
     fills = [r for r in FLASH_ROWS
@@ -123,6 +144,12 @@ def test_plan_mirrors_the_kernel_source():
     for ks in FLASH_KEY_SPLITS:
         kt = "BK" if ks == 1 else f"BK / {ks}"
         assert f"case {ks}: return launch<HD, {kt}>" in src
+    # past FLASH_Q_REGS_MAX_HD the Q fragments are read from shared memory
+    # at each k-step and the one key split is FLASH_WIDE_KEY_SPLIT
+    assert f"q_in_registers() {{ return HD <= {FLASH_Q_REGS_MAX_HD}; }}" \
+        in src
+    assert f"if (key_split != {FLASH_WIDE_KEY_SPLIT}) return" in src
+    assert f"return launch<HD, BK / {FLASH_WIDE_KEY_SPLIT}>" in src
     # Smem<HD>::bytes: K and V rings of HD + 8 bf16 rows, positions and the
     # CTA's Q tile, or the merge's partials if larger
     for hd in FLASH_HEAD_DIMS:
@@ -139,11 +166,17 @@ def test_plan_mirrors_the_kernel_source():
     ("fresh128", 128, 128, 14, 2, 64, 112, 16, 4),
     ("fresh256", 256, 256, 14, 2, 64, 224, 16, 4),
     ("tail", 64, 512, 14, 2, 64, 56, 16, 4),
-    ("hd128", 256, 256, 32, 8, 128, 256, 32, 2)])
+    ("hd128", 256, 256, 32, 8, 128, 256, 32, 2),
+    ("hd256", 256, 256, 16, 1, 256, 128, 32, 4),
+    ("hd256_tail", 64, 512, 16, 1, 256, 64, 16, 4),
+    ("hd256_fresh96", 96, 96, 16, 1, 256, 96, 16, 4),
+    ("hd256_fresh160", 160, 160, 16, 1, 256, 80, 32, 4)])
 def test_plan_ctas_at_the_serving_shapes(case, Sq, Skv, H, KV, hd, ctas,
                                          rows, key_split):
-    """chip_smoke.FLASH_CASES' shapes (B = 1); the first port ran 58
-    two-warp CTAs at fresh 256."""
+    """chip_smoke.FLASH_CASES' shapes (B = 1) and recurrentgemma-9b's exact
+    prompt lengths 96 and 160; the first port ran 58 two-warp CTAs at
+    fresh 256.  At hd 256 the 256-token prompt runs 128 CTAs of 8 warps,
+    one wave."""
     plan = flash_plan(1, Sq, Skv, H, KV, hd)
     assert (plan.ctas, plan.rows, plan.key_split) == (ctas, rows, key_split)
 

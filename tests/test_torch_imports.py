@@ -57,7 +57,9 @@ def test_port_imports_neither_jax_nor_the_reference():
                  "repro_torch.core.timing",
                  "repro_torch.core.area",
                  "repro_torch.core.pipeline_mult",
-                 "repro_torch.launch.sensitivity"):
+                 "repro_torch.launch.sensitivity",
+                 "repro_torch.models.rglru",
+                 "repro_torch.configs.recurrentgemma_9b"):
         assert name in report["modules"]
 
 
