@@ -19,16 +19,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
                  32, 96, 160 and 256, timed at 8 and 256; then at
                  recurrentgemma-9b's (4096, 4096), (4096, 256), (4096,
                  12288) and (12288, 4096) at M = 8 and 256, timed, two
-                 calls bit-equal), the attention kernels
+                 calls bit-equal, and so at qwen3-4b's, qwen2-vl-2b's and
+                 internlm2-20b's projections, DENSE_GEMM_SHAPES), the
+                 attention kernels
                  within atol 2e-2 (bf16) on bf16, int8 and int4 pools with
                  padding rows exactly 0 (flash prefill at the prompt
-                 buckets 32, 128 and 256, a prefix-hit tail, qwen3-4b's
-                 hd 128 and recurrentgemma-9b's hd 256 (16 heads over 1)
+                 buckets 32, 128 and 256, a prefix-hit tail, hd 128 at
+                 qwen3-4b's 32 heads over 8, qwen2-vl-2b's 12 over 2 and
+                 internlm2-20b's 48 over 8, and recurrentgemma-9b's hd 256
+                 (16 heads over 1)
                  fresh and on the tail, each with and without a window,
                  two calls bit-equal, each shape's plan printed, its ptxas
                  report (any spill fails), and a method gate: `cuobjdump
                  -sass` shows HMMA in every
-                 flash kernel), paged decode and the ragged kernel with
+                 flash kernel), paged decode and the ragged kernel at
+                 every DECODE_SHAPES shape (hd 64 at qwen2-0.5b's 14 heads
+                 over 2 and at G = 1, hd 128 at G = 4, 6 and 9) with
                  and without a window, two calls bit-equal, each one's
                  split plan, ptxas report (no spill) and floor (an empty
                  launch of the same grid and cluster) printed, and a
@@ -132,12 +138,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
                  a float64 integer GEMM, w4a16/w8 within 1e-5 relative; (e)
                  the sensitivity sweep at full width (batch 2, seq 16): the
                  int_sim and lut4 rows equal, every MSE finite and above 0.
-                 Also on the W4A4 weights, after the chaos runs: the
-                 contiguous KV layout (`contiguous_runs`: the Poisson
-                 trace, flash prefill, captured and eager, tokens equal
-                 to a paged_gather run, no decode attention kernel) and
-                 the compare harness (`compare_runs`: the five attention
-                 paths of `serve --layout compare`, exact-softmax prefill,
+                 Also on W4A4 weights at 8 of the 24 layers (RUN_LAYERS),
+                 after the chaos runs: the contiguous KV layout
+                 (`contiguous_runs`: the Poisson trace, flash prefill,
+                 captured and eager, tokens equal to a paged_gather run,
+                 no decode attention kernel) and the compare harness
+                 (`compare_runs`: the five attention paths of `serve
+                 --layout compare`, exact-softmax prefill,
                  under W4A4 and under float weights in bf16; contiguous =
                  paged_gather and paged = paged_nocache gated, the other
                  agreements printed).  Last, full-width mamba2-130m
@@ -152,7 +159,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
                  256, the Poisson trace, captured and eager, the build's
                  time and peak memory printed; the GEMM 8 times an R layer
                  and 7 an A layer a forward, flash once an attention layer
-                 a prefill, no decode attention kernel).
+                 a prefill, no decode attention kernel).  Then the dense
+                 head-dim-128 configs (`dense_runs`) on the paged layout
+                 and the Poisson trace, W4A4-packed projections, flash
+                 prefill, bf16 pool, bucketed, captured and eager:
+                 qwen3-4b (36 layers, qk_norm; also the mixed trace on the
+                 ragged step with an int8 pool, and its captured decode
+                 step profiled), qwen2-vl-2b (28 layers, M-RoPE) and
+                 internlm2-20b at 12 of its 48 layers (RUN_LAYERS); the
+                 GEMM 7 times a layer a forward, flash once a layer a
+                 prefill, paged decode (or the ragged kernel) once a layer
+                 a step.
   5. cpu      -- full width cut to 2 layers, on cuda and on cpu with the
                  same weights.  Bucketed: one prefill and three decode
                  steps with float weights in bf16 (logits within CPU_ATOL),
@@ -170,6 +187,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
                  caches, logits within CPU_W4A4_F32_ATOL.  Hybrid:
                  full-width recurrentgemma-9b at one (R, R, A) unit and the
                  (R, R) tail (5 layers), the same reading and bound.
+                 Dense: qwen3-4b and qwen2-vl-2b at full width, 2 layers,
+                 bucketed: W4A4 weights in float32 (within
+                 CPU_W4A4_F32_ATOL: qk_norm and M-RoPE against the CPU
+                 path) and float weights in bf16 through flash prefill and
+                 paged decode at hd 128 (within CPU_ATOL).
 
 The line before the last is a JSON object with every kernel's launches,
 error and times; the last line is {"ok": true, "device": {...}}.
@@ -213,9 +235,14 @@ LAYERS = 24
 #: the serve runs cut in depth (full width), so that the script keeps its
 #: time as later slices add runs: the W4A16, lut4, shared-prefix and chaos
 #: runs at 8 of 24 layers (the lut4 run's tokens are held to a W4A4 run at
-#: the same depth)
-RUN_LAYERS = dict.fromkeys(("w4a16", "lut4", "prefix_bucketed",
-                            "prefix_ragged", "chaos"), 8)
+#: the same depth), and since the dense hd-128 runs the contiguous layout's
+#: and the compare harness's; internlm2-20b at 12 of its 48 layers (its
+#: full-depth f32 masters, ~79 GB, do not fit the 80 GB card beside the
+#: packed weights)
+RUN_LAYERS = {**dict.fromkeys(("w4a16", "lut4", "prefix_bucketed",
+                               "prefix_ragged", "chaos", "contiguous",
+                               "compare"), 8),
+              "internlm2-20b": 12}
 
 
 def _w4a4_params(n_layers: int):
@@ -467,6 +494,17 @@ MAMBA_TIMED_ROWS = (MAX_BATCH, PROMPT_BUCKET)
 HYBRID_GEMM_SHAPES = (((4096, 4096), (5, 2)), ((4096, 256), (0, 2)),
                       ((4096, 12288), (2, 2)), ((12288, 4096), (1, 1)))
 HYBRID_GEMM_ROWS = (MAX_BATCH, PROMPT_BUCKET)
+#: the dense hd-128 configs' projections, (K, N) and how many of each a
+#: layer runs: wq and wo; wk and wv; w_in and w_gate; w_out (qwen2-vl-2b's
+#: wq and wo share a shape, as do internlm2-20b's)
+DENSE_GEMM_SHAPES = {
+    "qwen3-4b": (((2560, 4096), 1), ((2560, 1024), 2), ((4096, 2560), 1),
+                 ((2560, 9728), 2), ((9728, 2560), 1)),
+    "qwen2-vl-2b": (((1536, 1536), 2), ((1536, 256), 2), ((1536, 8960), 2),
+                    ((8960, 1536), 1)),
+    "internlm2-20b": (((6144, 6144), 2), ((6144, 1024), 2),
+                      ((6144, 16384), 2), ((16384, 6144), 1)),
+}
 
 
 def check_gemm_at(torch, timer, label, shapes, rows, timed, seed):
@@ -944,13 +982,13 @@ def check_mul4(torch, timer):
             "library_ms": lib, "floor_ms": floor, "unaligned_ms": t_odd}
 
 
-def _pools(torch, gen, P, ps):
+def _pools(torch, gen, P, ps, kv=KV, hd=HD):
     """{pool dtype: (k, v, k_scale, v_scale)}: one set of seeded normal K/V
-    values as a bf16 pool and quantized per (token, head) into int8 and
-    int4 pools, as the serving writes store them."""
+    values [P, ps, kv, hd] as a bf16 pool and quantized per (token, head)
+    into int8 and int4 pools, as the serving writes store them."""
     from repro_torch.models.attention import quantize_kv
 
-    vals = [torch.randn((P, ps, KV, HD), generator=gen, device="cuda")
+    vals = [torch.randn((P, ps, kv, hd), generator=gen, device="cuda")
             for _ in range(2)]
     out = {"bfloat16": (vals[0].to(torch.bfloat16),
                         vals[1].to(torch.bfloat16), None, None)}
@@ -975,20 +1013,20 @@ def _table(torch, gen, rows, P, pps, last_pos):
 
 def _gather_dense(torch, pool, scale, tbl, P):
     """Yardstick helper: each table row's pages as a dense bf16
-    [rows, pps * ps, KV, HD], dequantized like the reference's gather."""
+    [rows, pps * ps, KV, hd], dequantized like the reference's gather."""
     from repro_torch.models.attention import dequantize_kv
 
     idx = tbl.clamp(max=P - 1).long()
     g = pool[idx]                                   # [rows, pps, ps, KV, w]
     if scale is not None:
         g = dequantize_kv(g, scale[idx])
-    return g.reshape(tbl.shape[0], -1, KV, HD)
+    return g.reshape(tbl.shape[0], -1, *g.shape[-2:])
 
 
 def _sdpa(torch, q, kf, vf, mask):
-    """q [rows, H, HD] against dense kf/vf [rows, S, KV, HD] with a
+    """q [rows, H, hd] against dense kf/vf [rows, S, KV, hd] with a
     [rows, S] mask, GQA expanded: the yardstick's one library call."""
-    G = H // KV
+    G = q.shape[1] // kf.shape[2]
     kt = kf.repeat_interleave(G, dim=2).transpose(1, 2)
     vt = vf.repeat_interleave(G, dim=2).transpose(1, 2)
     return torch.nn.functional.scaled_dot_product_attention(
@@ -1019,48 +1057,77 @@ def decode_ptxas(lib: str, entry: str):
             for name, (r, sp, sm) in sorted(report.items())}
 
 
-def decode_inputs(torch, gen):
-    """The paged decode check's operands at the serving shape: q [8, H, HD]
-    bf16, a table of DECODE_PPS pages a row over DECODE_PAGES pages, the
-    rows' last positions, and the pools of `_pools`."""
+def decode_inputs(torch, gen, shape=(H, KV, HD)):
+    """The paged decode check's operands at the serving shape: q [8, H, hd]
+    bf16 (`shape` = (H, KV, hd)), a table of DECODE_PPS pages a row over
+    DECODE_PAGES pages, the rows' last positions, and the pools of
+    `_pools`."""
+    nh, nkv, hd = shape
     B = len(DECODE_LAST)
-    q = torch.randn((B, H, HD), generator=gen, device="cuda").to(
+    q = torch.randn((B, nh, hd), generator=gen, device="cuda").to(
         torch.bfloat16)
     tbl = _table(torch, gen, B, DECODE_PAGES, DECODE_PPS, DECODE_LAST)
     lp = torch.tensor(DECODE_LAST, dtype=torch.int32, device="cuda")
-    return q, tbl, lp, _pools(torch, gen, DECODE_PAGES, PAGE_SIZE)
+    return q, tbl, lp, _pools(torch, gen, DECODE_PAGES, PAGE_SIZE, nkv, hd)
+
+
+#: the decode kernels' checked shapes, label -> (H, KV, hd): qwen2-0.5b's
+#: (the top level of the kernels line), the three dense hd-128 configs
+#: served in phase 4, starcoder2-7b's G = 9 (the most a KV head at hd 128)
+#: and musicgen-large's G = 1 at hd 64 (both built, not yet served)
+DECODE_SHAPES = {"qwen2-0.5b": (H, KV, HD), "qwen3-4b": (32, 8, 128),
+                 "qwen2-vl-2b": (12, 2, 128), "internlm2-20b": (48, 8, 128),
+                 "G=9 (starcoder2-7b)": (36, 4, 128),
+                 "G=1 (musicgen-large)": (32, 32, 64)}
 
 
 def check_decode(torch, timer):
-    """The paged decode kernel against its plain version on bf16, int8 and
-    int4 pools at the serving shape, with and without a window: within
-    ATTN_ATOL, idle rows exactly zero, two calls bit-equal.  Prints the
-    split plan, the ptxas report of both decode kernels (fails on spill),
-    and times the kernel, the plain version, gather + SDPA and the floor
-    (an empty launch of the same grid and cluster)."""
-    from repro_torch.kernels.autotune import attn_default_blocks
-    from repro_torch.kernels.paged_attention import (
-        decode_floor_cuda, decode_plan, paged_decode_attention_cuda,
-        paged_decode_attention_plain)
+    """The paged decode kernel against its plain version at every
+    DECODE_SHAPES shape on bf16, int8 and int4 pools at the serving
+    table, with and without a window: within ATTN_ATOL, idle rows exactly
+    zero, two calls bit-equal.  Prints the split plan, the ptxas report of
+    both decode kernels (fails on spill), and times the kernel, the plain
+    version, gather + SDPA and the floor (an empty launch of the same grid
+    and cluster) at every shape.  The result's top level is qwen2-0.5b's
+    shape; `shapes` holds every shape's row."""
+    from repro_torch.kernels.paged_attention import decode_plan
 
     ptxas = decode_ptxas("paged_decode", "paged_decode_kernel")
+    ps, pps = PAGE_SIZE, DECODE_PPS
+    B = len(DECODE_LAST)
+    plan = decode_plan(pps * ps, ps)
+    say(f"paged decode plan (table {pps * ps} tokens, ps {ps}): {plan}, grid "
+        f"({B}, KV, {plan.nsplit})")
+    shapes = {label: _decode_at(torch, timer, label, shape)
+              for label, shape in DECODE_SHAPES.items()}
+    top = shapes["qwen2-0.5b"]
+    return {**top,
+            "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
+            "ptxas": ptxas, "shapes": shapes}
+
+
+def _decode_at(torch, timer, label, shape):
+    """`check_decode` at one (H, KV, hd) shape."""
+    from repro_torch.kernels.autotune import attn_default_blocks
+    from repro_torch.kernels.paged_attention import (
+        decode_floor_cuda, paged_decode_attention_cuda,
+        paged_decode_attention_plain)
+
+    nh, nkv, hd = shape
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     ps, P, pps = PAGE_SIZE, DECODE_PAGES, DECODE_PPS
     last_pos = DECODE_LAST
     B = len(last_pos)
-    q, tbl, lp, pools = decode_inputs(torch, gen)
-    plan = decode_plan(pps * ps, ps)
-    say(f"paged decode plan (table {pps * ps} tokens, ps {ps}): {plan}, grid "
-        f"({B}, {KV}, {plan.nsplit}) = {B * KV * plan.nsplit} CTAs")
-    pp = max(1, attn_default_blocks("attn.paged_decode", B, pps * ps, H * HD,
-                                    group_size=ps)["bk"] // ps)
+    q, tbl, lp, pools = decode_inputs(torch, gen, shape)
+    pp = max(1, attn_default_blocks("attn.paged_decode", B, pps * ps,
+                                    nh * hd, group_size=ps)["bk"] // ps)
     idle = [b for b, x in enumerate(last_pos) if x < 0]
     n_tok = sum(x + 1 for x in last_pos if x >= 0)
     n_pages = sum(-(-(x + 1) // ps) for x in last_pos if x >= 0)
     S = pps * ps
     mask = torch.arange(S, device="cuda")[None, :] <= lp[:, None]
     dev = torch.device("cuda")
-    floor = timer.ms(lambda: decode_floor_cuda(B, KV, ps, pps, dev))
+    floor = timer.ms(lambda: decode_floor_cuda(B, nkv, ps, pps, dev))
     res = {}
     for dt in POOL_DTYPES:
         k, v, ks, vs = pools[dt]
@@ -1074,20 +1141,20 @@ def check_decode(torch, timer):
                                                 window=window, pp=pp)
             err = (got.float() - want.float()).abs().max().item()
             if err > ATTN_ATOL or not torch.all(got[idle] == 0):
-                fail(f"paged_decode_attention ({dt} pool, window {window}): "
-                     f"max |diff| {err} > {ATTN_ATOL} or an idle row is not "
-                     "zero")
+                fail(f"paged_decode_attention ({label}, {dt} pool, window "
+                     f"{window}): max |diff| {err} > {ATTN_ATOL} or an idle "
+                     "row is not zero")
             if not torch.equal(got, again):
-                fail(f"paged_decode_attention ({dt} pool, window {window}): "
-                     "two calls differ")
+                fail(f"paged_decode_attention ({label}, {dt} pool, window "
+                     f"{window}): two calls differ")
             errs.append(err)
         # q of the live rows in, every row out, the live pages' K/V, scales
         # and table entries, and last_pos: idle rows only write zeros
         elem, sbytes = POOL_BYTES[dt]
-        n_bytes = ((B - len(idle)) * H * HD * 2 + B * H * HD * 2
-                   + 2 * n_tok * KV * (HD * elem + sbytes)
+        n_bytes = ((B - len(idle)) * nh * hd * 2 + B * nh * hd * 2
+                   + 2 * n_tok * nkv * (hd * elem + sbytes)
                    + n_pages * 4 + B * 4)
-        n_ops = 4.0 * H * HD * n_tok
+        n_ops = 4.0 * nh * hd * n_tok
         b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
         t = timer.ms(lambda: paged_decode_attention_cuda(q, k, v, tbl, lp, ks,
                                                          vs))
@@ -1096,20 +1163,19 @@ def check_decode(torch, timer):
         lib = timer.ms(lambda: _sdpa(
             torch, q, _gather_dense(torch, k, ks, tbl, P),
             _gather_dense(torch, v, vs, tbl, P), mask))
-        say(f"paged decode {dt} pool B={B} H={H} KV={KV} hd={HD} ps={ps}: "
-            f"max |diff| {errs[0]:.3g} (window {errs[1]:.3g}), two calls "
-            f"bit-equal; kernel {t:.4f} ms, plain {tp:.4f} ms, bound "
-            f"{b_ms:.5f} ms ({b_by}), gather+SDPA {lib:.4f} ms, floor "
+        say(f"paged decode {label} {dt} pool B={B} H={nh} KV={nkv} hd={hd} "
+            f"ps={ps}: max |diff| {errs[0]:.3g} (window {errs[1]:.3g}), two "
+            f"calls bit-equal; kernel {t:.4f} ms, plain {tp:.4f} ms, bound "
+            f"{b_ms:.5g} ms ({b_by}), gather+SDPA {lib:.4f} ms, floor "
             f"{floor:.4f} ms")
         res[dt] = {"max_abs_err": max(errs), "ms": t, "plain_ms": tp,
                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
-    return {"shape": f"B={B}, H={H}, KV={KV}, hd={HD}, ps={ps}, "
+    return {"shape": f"B={B}, H={nh}, KV={nkv}, hd={hd}, ps={ps}, "
                      f"{n_tok} live tokens, bf16 pool (int8/int4 under "
                      f"'pools')",
             **res["bfloat16"],
             "max_abs_err": max(r["max_abs_err"] for r in res.values()),
             "floor_ms": floor,
-            "ptxas": ptxas,
             "pools": {dt: res[dt] for dt in ("int8", "int4")}}
 
 
@@ -1129,33 +1195,50 @@ def _ragged_pack(torch):
 
 def check_ragged(torch, timer):
     """The ragged kernel against its plain version on the serving step's
-    pack (bf16, int8 and int4 pools): within ATTN_ATOL, padding rows
-    exactly zero, two calls bit-equal, and a decode-only pack bit-equal to
-    the paged decode kernel.  Prints the split plan and the ptxas report
-    (fails on spill); times the kernel, the plain version, gather + SDPA
-    and the floor (an empty launch of the same grid and cluster)."""
+    pack at every DECODE_SHAPES shape (bf16, int8 and int4 pools, with and
+    without a window): within ATTN_ATOL, padding rows exactly zero, two
+    calls bit-equal, and a decode-only pack bit-equal to the paged decode
+    kernel.  Prints the split plan and the ptxas report (fails on spill);
+    times the kernel, the plain version, gather + SDPA and the floor (an
+    empty launch of the same grid and cluster) at every shape.  The
+    result's top level is qwen2-0.5b's shape; `shapes` holds every
+    shape's row."""
+    from repro_torch.kernels.paged_attention import decode_plan
+
+    ptxas = decode_ptxas("ragged_decode", "ragged_decode_kernel")
+    ps, pps = PAGE_SIZE, 512 // PAGE_SIZE
+    plan = decode_plan(pps * ps, ps)
+    say(f"ragged plan (table {pps * ps} tokens, ps {ps}): {plan}, grid "
+        f"({BUDGET}, KV, {plan.nsplit})")
+    shapes = {label: _ragged_at(torch, timer, label, shape)
+              for label, shape in DECODE_SHAPES.items()}
+    top = shapes["qwen2-0.5b"]
+    return {**top,
+            "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
+            "ptxas": ptxas, "shapes": shapes}
+
+
+def _ragged_at(torch, timer, label, shape):
+    """`check_ragged` at one (H, KV, hd) shape."""
     from repro_torch.kernels.autotune import attn_default_blocks
     from repro_torch.kernels.paged_attention import (
-        decode_floor_cuda, decode_plan, paged_decode_attention_cuda)
+        decode_floor_cuda, paged_decode_attention_cuda)
     from repro_torch.kernels.ragged_attention import (
         ragged_decode_attention_cuda, ragged_decode_attention_plain)
 
-    ptxas = decode_ptxas("ragged_decode", "ragged_decode_kernel")
+    nh, nkv, hd = shape
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     ps = PAGE_SIZE
     P, pps = 320, 512 // PAGE_SIZE
     slot, pos, row_last = _ragged_pack(torch)
     T = slot.shape[0]
-    plan = decode_plan(pps * ps, ps)
-    say(f"ragged plan (table {pps * ps} tokens, ps {ps}): {plan}, grid "
-        f"({T}, {KV}, {plan.nsplit}) = {T * KV * plan.nsplit} CTAs")
-    floor = timer.ms(lambda: decode_floor_cuda(T, KV, ps, pps,
+    floor = timer.ms(lambda: decode_floor_cuda(T, nkv, ps, pps,
                                                torch.device("cuda")))
     tbl = _table(torch, gen, len(row_last), P, pps, row_last)
-    q = torch.randn((T, H, HD), generator=gen, device="cuda").to(
+    q = torch.randn((T, nh, hd), generator=gen, device="cuda").to(
         torch.bfloat16)
-    pools = _pools(torch, gen, P, ps)
-    pp = max(1, attn_default_blocks("attn.ragged", T, pps * ps, H * HD,
+    pools = _pools(torch, gen, P, ps, nkv, hd)
+    pp = max(1, attn_default_blocks("attn.ragged", T, pps * ps, nh * hd,
                                     group_size=ps)["bk"] // ps)
     pad = (slot < 0) | (pos < 0)
     n_dec = len(row_last) - 1
@@ -1170,34 +1253,43 @@ def check_ragged(torch, timer):
     res = {}
     for dt in POOL_DTYPES:
         k, v, ks, vs = pools[dt]
-        got = ragged_decode_attention_cuda(q, k, v, tbl, slot, pos, ks, vs)
-        again = ragged_decode_attention_cuda(q, k, v, tbl, slot, pos, ks, vs)
-        want = ragged_decode_attention_plain(q, k, v, tbl, slot, pos, ks, vs,
-                                             pp=pp)
-        err = (got.float() - want.float()).abs().max().item()
-        if err > ATTN_ATOL or not torch.all(got[pad] == 0):
-            fail(f"ragged_decode_attention ({dt} pool): max |diff| {err} > "
-                 f"{ATTN_ATOL} or a padding row is not exactly zero")
-        if not torch.equal(got, again):
-            fail(f"ragged_decode_attention ({dt} pool): two calls differ")
-        # a decode-only pack: the paged decode kernel's output, bit for bit
-        dec_rows = ragged_decode_attention_cuda(
-            q[:n_dec].contiguous(), k, v, tbl, slot[:n_dec].contiguous(),
-            pos[:n_dec].contiguous(), ks, vs)
-        paged = paged_decode_attention_cuda(
-            q[:n_dec].contiguous(), k, v, tbl[:n_dec].contiguous(),
-            pos[:n_dec].contiguous(), ks, vs)
-        if not torch.equal(dec_rows, paged):
-            fail(f"ragged_decode_attention ({dt} pool): a decode-only pack "
-                 "differs from the paged decode kernel's output (max |diff| "
-                 f"{(dec_rows.float() - paged.float()).abs().max().item()})")
+        errs = []
+        for window in (0, 40):
+            got = ragged_decode_attention_cuda(q, k, v, tbl, slot, pos, ks,
+                                               vs, window=window)
+            again = ragged_decode_attention_cuda(q, k, v, tbl, slot, pos, ks,
+                                                 vs, window=window)
+            want = ragged_decode_attention_plain(q, k, v, tbl, slot, pos, ks,
+                                                 vs, window=window, pp=pp)
+            err = (got.float() - want.float()).abs().max().item()
+            if err > ATTN_ATOL or not torch.all(got[pad] == 0):
+                fail(f"ragged_decode_attention ({label}, {dt} pool, window "
+                     f"{window}): max |diff| {err} > {ATTN_ATOL} or a "
+                     "padding row is not exactly zero")
+            if not torch.equal(got, again):
+                fail(f"ragged_decode_attention ({label}, {dt} pool, window "
+                     f"{window}): two calls differ")
+            # a decode-only pack: the paged decode kernel's output, bit for
+            # bit
+            dec_rows = ragged_decode_attention_cuda(
+                q[:n_dec].contiguous(), k, v, tbl, slot[:n_dec].contiguous(),
+                pos[:n_dec].contiguous(), ks, vs, window=window)
+            paged = paged_decode_attention_cuda(
+                q[:n_dec].contiguous(), k, v, tbl[:n_dec].contiguous(),
+                pos[:n_dec].contiguous(), ks, vs, window=window)
+            if not torch.equal(dec_rows, paged):
+                fail(f"ragged_decode_attention ({label}, {dt} pool, window "
+                     f"{window}): a decode-only pack differs from the paged "
+                     "decode kernel's output (max |diff| "
+                     f"{(dec_rows.float() - paged.float()).abs().max()})")
+            errs.append(err)
         # q of the live rows in, every row out, each live page's K/V, scales
         # and table entry once, and slot/pos: padding rows only write zeros
         elem, sbytes = POOL_BYTES[dt]
-        n_bytes = (n_live * H * HD * 2 + T * H * HD * 2
-                   + 2 * live_tok * KV * (HD * elem + sbytes)
+        n_bytes = (n_live * nh * hd * 2 + T * nh * hd * 2
+                   + 2 * live_tok * nkv * (hd * elem + sbytes)
                    + n_pages * 4 + T * 4 * 2)
-        n_ops = 4.0 * H * HD * pairs
+        n_ops = 4.0 * nh * hd * pairs
         b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
         t = timer.ms(lambda: ragged_decode_attention_cuda(q, k, v, tbl, slot,
                                                           pos, ks, vs))
@@ -1206,21 +1298,21 @@ def check_ragged(torch, timer):
         lib = timer.ms(lambda: _sdpa(
             torch, q, _gather_dense(torch, k, ks, rows, P),
             _gather_dense(torch, v, vs, rows, P), mask))
-        say(f"ragged {dt} pool T={T} ({n_dec} decode rows, one "
+        say(f"ragged {label} {dt} pool T={T} ({n_dec} decode rows, one "
             f"{int((slot == n_dec).sum())}-row chunk, {int(pad.sum())} "
-            f"padding) H={H} KV={KV} hd={HD} ps={ps}: max |diff| {err:.3g}, "
-            f"two calls bit-equal, decode-only pack == paged decode; kernel "
-            f"{t:.4f} ms, plain {tp:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
-            f"gather+SDPA {lib:.4f} ms, floor {floor:.4f} ms")
-        res[dt] = {"max_abs_err": err, "ms": t, "plain_ms": tp,
+            f"padding) H={nh} KV={nkv} hd={hd} ps={ps}: max |diff| "
+            f"{errs[0]:.3g} (window {errs[1]:.3g}), two calls bit-equal, "
+            f"decode-only pack == paged decode; kernel {t:.4f} ms, plain "
+            f"{tp:.4f} ms, bound {b_ms:.5g} ms ({b_by}), gather+SDPA "
+            f"{lib:.4f} ms, floor {floor:.4f} ms")
+        res[dt] = {"max_abs_err": max(errs), "ms": t, "plain_ms": tp,
                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
     return {"shape": f"T={T}: {n_dec} decode rows, a 48-row prefill chunk, "
-                     f"{int(pad.sum())} padding; H={H}, KV={KV}, hd={HD}, "
+                     f"{int(pad.sum())} padding; H={nh}, KV={nkv}, hd={hd}, "
                      f"ps={ps}, int8 pool (bf16/int4 under 'pools')",
             **res["int8"],
             "max_abs_err": max(r["max_abs_err"] for r in res.values()),
             "floor_ms": floor,
-            "ptxas": ptxas,
             "pools": {dt: res[dt] for dt in ("bfloat16", "int4")}}
 
 
@@ -1229,15 +1321,20 @@ def check_ragged(torch, timer):
 #: buckets (32, 128, 256 holding 32, 96 and 200 real tokens, left-padded);
 #: the tail is 64 suffix queries over a gathered 512-slot cache after a
 #: 160-token prefix hit; hd128 is qwen3-4b's attention (32 heads over 8 KV
-#: heads) on the 256 bucket; hd256 recurrentgemma-9b's (16 heads over 1,
-#: G = 16) on the 256 bucket and on the tail, where the window (48)
-#: masks most of the 512 keys (at serving its 2048 window never bites at
-#: max_ctx 512)
+#: heads) on the 256 bucket, hd128_12x2 qwen2-vl-2b's (12 over 2, G = 6)
+#: and hd128_48x8 internlm2-20b's (48 over 8, G = 6); hd256
+#: recurrentgemma-9b's (16 heads over 1, G = 16) on the 256 bucket and on
+#: the tail, where the window (48) masks most of the 512 keys (at serving
+#: its 2048 window never bites at max_ctx 512)
 FLASH_CASES = {"fresh32": (32, 32, 32, 0, H, KV, HD),
                "fresh128": (128, 128, 96, 0, H, KV, HD),
                "fresh256": (PROMPT_BUCKET, PROMPT_BUCKET, 200, 0, H, KV, HD),
                "tail": (64, 512, 50, 160, H, KV, HD),
                "hd128": (PROMPT_BUCKET, PROMPT_BUCKET, 200, 0, 32, 8, 128),
+               "hd128_12x2": (PROMPT_BUCKET, PROMPT_BUCKET, 200, 0, 12, 2,
+                              128),
+               "hd128_48x8": (PROMPT_BUCKET, PROMPT_BUCKET, 200, 0, 48, 8,
+                              128),
                "hd256": (PROMPT_BUCKET, PROMPT_BUCKET, 200, 0, 16, 1, 256),
                "hd256_tail": (64, 512, 50, 160, 16, 1, 256)}
 #: the window every shape is also checked at
@@ -1440,7 +1537,7 @@ RUN_GEMM = {"bucketed": "int4_matmul_fused", "ragged": "int4_matmul_fused",
             "prefix_bucketed": "int4_matmul_fused",
             "prefix_ragged": "int4_matmul_fused",
             "contiguous": "int4_matmul_fused", "mamba": "int4_matmul_fused",
-            "hybrid": "int4_matmul_fused"}
+            "hybrid": "int4_matmul_fused", "dense": "int4_matmul_fused"}
 #: GEMM launches of one block a forward: attention (wq, wk, wv, wo) and
 #: its FFN (w_in, w_gate, w_out); Mamba-2 (in_proj, out_proj); RG-LRU
 #: (in_x, in_g, w_a, w_x, out) and its FFN
@@ -1850,7 +1947,8 @@ def _agreement(tokens, ref):
 
 
 def contiguous_runs(torch, params, trace):
-    """`--layout contiguous` on full-width qwen2-0.5b, W4A4 weights, bf16
+    """`--layout contiguous` on full-width qwen2-0.5b at RUN_LAYERS' depth
+    (`params` at that depth), W4A4 weights, bf16
     cache, flash prefill, the Poisson trace: served captured, then eager;
     every request ok, the fused W4A4 GEMM 7 times a layer a forward, flash
     prefill launched and no decode attention kernel (the row attends with
@@ -1858,11 +1956,10 @@ def contiguous_runs(torch, params, trace):
     a `paged_gather` run (both exact softmax over the same dense layout).
     The captured engine's decode steps are profiled.  Returns the captured
     runs' launches."""
-    import dataclasses
-
     from repro_torch.configs import Runtime, get_config
 
-    cfg = get_config("qwen2-0.5b")
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"),
+                              n_layers=RUN_LAYERS["contiguous"])
     rt = Runtime(attn_impl="flash", quant_backend="w4a4_packed",
                  cache_dtype="bfloat16")
     must = ("int4_matmul_fused", "flash_prefill")
@@ -1876,7 +1973,7 @@ def contiguous_runs(torch, params, trace):
             torch, cfg, params, rt, _sv("contiguous"), trace, PROMPT_LENS,
             label, eager=mode == "eager")
         _check_launches(label, n, must, must_not, "int4_matmul_fused",
-                        7 * LAYERS)
+                        7 * cfg.n_layers)
         if mode == "graphs":
             profile_steps(torch, engine, cfg.vocab, "contiguous")
             att = engine.profile()
@@ -1906,7 +2003,8 @@ def contiguous_runs(torch, params, trace):
 
 def compare_runs(torch, params, trace):
     """The compare harness (`launch/serve.py --layout compare`) driven
-    path by path: full-width qwen2-0.5b, exact-softmax prefill
+    path by path: full-width qwen2-0.5b at RUN_LAYERS' depth (`params` at
+    that depth), exact-softmax prefill
     (`attn_impl="chunked"`), bf16 cache, the Poisson trace, each of
     COMPARE_PATHS an engine with captured steps, under W4A4 (`params`) and
     again under `--quant-plan "*=float"` (float masters from the same
@@ -1919,7 +2017,8 @@ def compare_runs(torch, params, trace):
     from repro_torch.launch.serve import COMPARE_PATHS, compare_path
     from repro_torch.serving.engine import build_params
 
-    cfg = get_config("qwen2-0.5b")
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"),
+                              n_layers=RUN_LAYERS["compare"])
     launches = []
     for plan, kw in (("W4A4", {"quant_backend": "w4a4_packed"}),
                      ("*=float", {"quant_plan": "*=float"})):
@@ -2121,6 +2220,132 @@ def hybrid_runs(torch):
     return n
 
 
+#: the dense hd-128 configs served in phase 4, at full width: their depth
+#: (RUN_LAYERS cuts internlm2-20b) and whether the run also serves the
+#: ragged step on an int8 pool and profiles its captured decode step
+DENSE_RUNS = (("qwen3-4b", True), ("qwen2-vl-2b", False),
+              ("internlm2-20b", False))
+
+
+def _dense_launches(label, n, step, layers):
+    """The dense runs' launch gates: the W4A4 GEMM 7 times a layer a
+    forward; bucketed: flash prefill once a layer a prefill and paged
+    decode once a layer a decode step (every forward is one or the other:
+    the two counts together are the GEMM's over 7), no ragged kernel;
+    ragged: the ragged kernel once a layer a step, no flash or paged
+    decode; never the W4A16 or lut4 GEMMs."""
+    gemm = n["int4_matmul_fused"]
+    if step == "bucketed":
+        must = ("int4_matmul_fused", "flash_prefill", "paged_decode_attention")
+        must_not = ("ragged_decode_attention", "w4a16_matmul", "lut4_matmul")
+        attn = n["flash_prefill"] + n["paged_decode_attention"]
+        per = (n["flash_prefill"] % layers, n["paged_decode_attention"]
+               % layers)
+    else:
+        must = ("int4_matmul_fused", "ragged_decode_attention")
+        must_not = ("flash_prefill", "paged_decode_attention",
+                    "w4a16_matmul", "lut4_matmul")
+        attn = n["ragged_decode_attention"]
+        per = (attn % layers,)
+    _check_launches(label, n, must, must_not, "int4_matmul_fused",
+                    7 * layers)
+    if any(per) or 7 * attn != gemm:
+        fail(f"serve ({label}): attention launches {json.dumps(n)} are not "
+             f"one a layer a forward ({gemm // (7 * layers)} forwards of "
+             f"{layers} layers)")
+    return gemm // (7 * layers)
+
+
+def dense_runs(torch):
+    """The dense head-dim-128 configs at full width (random weights from
+    SEED), W4A4-packed projections, served through the paged layout on the
+    Poisson trace (page 16, max_ctx 512, max batch 8, flash prefill, bf16
+    pool, the bucketed step): qwen3-4b (36 layers, qk_norm, 32 heads over
+    8, untied float lm_head), qwen2-vl-2b (28 layers, M-RoPE on the text
+    positions, 12 heads over 2, qkv bias, tied embeddings) and
+    internlm2-20b (48 heads over 8, d_model 6144, cut to RUN_LAYERS' 12 of
+    48 layers).  Each run captured, then eager: every request ok with
+    tokens in [0, vocab), launches per `_dense_launches`, captured tokens
+    and launches equal to eager.  qwen3-4b also serves the mixed trace on
+    the ragged step with an int8 pool (captured, then eager) and
+    `profile_steps` runs on its captured bucketed decode step.  Prints
+    each build's time and the card's peak memory.  Returns the captured
+    runs' launches, summed."""
+    from repro_torch.configs import Runtime, get_config
+    from repro_torch.serving.api import mixed_trace, poisson_trace
+    from repro_torch.serving.engine import build_params
+
+    launches = []
+    for arch, more in DENSE_RUNS:
+        t0 = time.perf_counter()
+        base = get_config(arch)
+        cfg = dataclasses.replace(base, n_layers=RUN_LAYERS.get(
+            arch, base.n_layers))
+        rt = Runtime(attn_impl="flash", quant_backend="w4a4_packed",
+                     cache_dtype="bfloat16")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        params = build_params(cfg, rt, seed=SEED, device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - mem0
+        held = torch.cuda.memory_allocated() - mem0
+        block = params["layers"]["u0"]
+        unpacked = [k for k in ("wq", "wk", "wv", "wo")
+                    if "packed" not in block["attn"][k]]
+        unpacked += [k for k in ("w_in", "w_gate", "w_out")
+                     if "packed" not in block["ffn"][k]]
+        if unpacked:
+            fail(f"dense ({arch}): {unpacked} were not pre-packed")
+        say(f"dense: built full-width {arch} ({cfg.n_layers} of "
+            f"{base.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
+            f"heads over {cfg.n_kv_heads} at hd {cfg.hd}, d_ff {cfg.d_ff}, "
+            f"vocab {cfg.vocab}, qk_norm {cfg.qk_norm}, rope {cfg.rope}, "
+            f"tied {cfg.tie_embeddings}) in {build_s:.1f} s; the card's peak "
+            f"during the build {peak / 2**30:.2f} GiB, held after it "
+            f"{held / 2**30:.2f} GiB")
+        runs = [("bucketed", "bfloat16", poisson_trace(
+            8, 0.5, PROMPT_LENS, GEN_LENS, cfg.vocab, seed=SEED))]
+        if more:
+            runs.append(("ragged", "int8", mixed_trace(
+                8, PROMPT_LENS, (16, 32), cfg.vocab, seed=SEED)))
+        for step, pool, trace in runs:
+            rt_run = dataclasses.replace(rt, cache_dtype=pool)
+            sv = _sv(step=step)
+            out = {}
+            for mode in ("graphs", "eager"):
+                label = f"{arch}, {step}, {pool} pool, {mode}"
+                engine, n, stats, tokens = serve_engine(
+                    torch, cfg, params, rt_run, sv, trace, PROMPT_LENS,
+                    label, eager=mode == "eager")
+                forwards = _dense_launches(label, n, step, cfg.n_layers)
+                if mode == "graphs" and more and step == "bucketed":
+                    prof = profile_steps(torch, engine, cfg.vocab, "dense")
+                    att = engine.profile()
+                    say(f"serve ({label}): {forwards} forwards; decode step "
+                        f"{prof['ms']:.3f} ms ({prof.get('replay_ms', 0):.3f}"
+                        f" ms a replay); engine.profile(): decode step "
+                        f"{att['decode_step_us']} us, decode attention "
+                        f"{att['attn_us']} us ({cfg.n_layers} x one call), "
+                        f"attn_frac {att['attn_frac']}")
+                del engine
+                out[mode] = (n, tokens)
+            (n, tokens), (n_e, eager) = out["graphs"], out["eager"]
+            if eager != tokens or n_e != n:
+                diff = [r for r in eager if tokens.get(r) != eager[r]]
+                fail(f"serve ({arch}, {step}): captured vs eager: requests "
+                     f"{diff} differ in tokens, launches {json.dumps(n)} vs "
+                     f"{json.dumps(n_e)}")
+            launches.append(n)
+            say(f"serve ({arch}, {step}): every request's tokens and the "
+                "kernel launches equal the eager run's")
+        del params
+        torch.cuda.empty_cache()
+        say(f"dense: {arch} in {time.perf_counter() - t0:.1f} s")
+    return {k: sum(n[k] for n in launches) for k in launches[0]}
+
+
 def phase_serve(torch):
     """The bucketed path (bf16 pool, Poisson trace), then the ragged path
     (int8 pool, mixed trace), on one set of full-width W4A4 weights; then
@@ -2212,11 +2437,13 @@ def phase_serve(torch):
                 launches.append(part(torch))
                 say(f"phase 4: {part.__name__} in "
                     f"{time.perf_counter() - t1:.1f} s")
+            cut_params = _w4a4_params(RUN_LAYERS["contiguous"])
             for part in (contiguous_runs, compare_runs):
                 t1 = time.perf_counter()
-                launches.append(part(torch, params, poisson))
+                launches.append(part(torch, cut_params, poisson))
                 say(f"phase 4: {part.__name__} in "
                     f"{time.perf_counter() - t1:.1f} s")
+            del cut_params
         say(f"phase 4: the {quant} runs in {time.perf_counter() - t0:.1f} s")
         del params
     ref = tokens["w4a4_at_depth"]
@@ -2227,7 +2454,7 @@ def phase_serve(torch):
              "same)")
     say("serve (lut4): every request's tokens equal the w4a4_packed "
         "bucketed run's at the same depth, token for token")
-    for part in (mamba_runs, hybrid_runs):
+    for part in (mamba_runs, hybrid_runs, dense_runs):
         t0 = time.perf_counter()
         launches.append(part(torch))
         say(f"phase 4: {part.__name__} in {time.perf_counter() - t0:.1f} s")
@@ -2798,12 +3025,12 @@ def _replay_ms(torch, captured):
 
 
 # ------------------------------------------------------------ phase 5 ----
-def _two_devices(torch, rt):
-    """Full width cut to 2 layers, the same weights on both devices: one
-    prefill of a left-padded prompt and three decode steps fed fixed tokens
-    (so a flipped argmax cannot send the two runs down different paths).
-    Returns {device: logits [4, vocab] f32 on the CPU} and the launch
-    counts of the card's run."""
+def _two_devices(torch, rt, arch="qwen2-0.5b"):
+    """`arch` at full width cut to 2 layers, the same weights on both
+    devices: one prefill of a left-padded prompt and three decode steps fed
+    fixed tokens (so a flipped argmax cannot send the two runs down
+    different paths).  Returns {device: logits [4, vocab] f32 on the CPU}
+    and the launch counts of the card's run."""
     from repro_torch.configs import ServingConfig, get_config
     from repro_torch.convert import tree_to
     from repro_torch.kernels import ops
@@ -2812,7 +3039,7 @@ def _two_devices(torch, rt):
     from repro_torch.serving.kv_pages import (init_paged_caches,
                                               with_block_tables)
 
-    cfg = dataclasses.replace(get_config("qwen2-0.5b"), n_layers=2)
+    cfg = dataclasses.replace(get_config(arch), n_layers=2)
     sv = ServingConfig(layout="paged", max_batch=1, page_size=PAGE_SIZE,
                        num_pages=8, max_ctx=128)
     params_gpu = build_params(cfg, rt, seed=SEED + 5, device="cuda")
@@ -3122,6 +3349,26 @@ def phase_cpu(torch):
         if err > CPU_ATOL:
             fail(f"cpu: {what}: card and CPU logits differ by {err:.6g} > "
                  f"{CPU_ATOL}")
+    for arch in ("qwen3-4b", "qwen2-vl-2b"):
+        for what, rt, atol, kernel in (
+                ("W4A4 weights, float32", Runtime(
+                    attn_impl="chunked", paged_attn="gather",
+                    quant_backend="w4a4_packed", compute_dtype="float32",
+                    cache_dtype="float32"), CPU_W4A4_F32_ATOL,
+                 "int4_matmul_fused"),
+                ("float weights, bf16", Runtime(
+                    attn_impl="flash", quant_backend="float"), CPU_ATOL,
+                 "paged_decode_attention")):
+            logits, launches = _two_devices(torch, rt, arch)
+            what = (f"{arch}, {what}, 2 layers at full width, prefill + 3 "
+                    "decode steps")
+            err, _ = _compare(torch, what, logits, launches)
+            readings[what] = err
+            if launches[kernel] <= 0:
+                fail(f"cpu: {what}: the card's run never launched {kernel}")
+            if err > atol:
+                fail(f"cpu: {what}: card and CPU logits differ by {err:.6g} "
+                     f"> {atol}")
     logits, launches = _two_devices_mamba(torch)
     what = ("mamba2-130m, W4A4 weights, float32, 24 layers at full width, "
             "prefill + 3 decode steps")
@@ -3190,7 +3437,11 @@ def main() -> None:
             ("mamba_shapes", "mamba", MAMBA_GEMM_SHAPES, MAMBA_GEMM_ROWS,
              MAMBA_TIMED_ROWS, SEED + 30),
             ("hybrid_shapes", "recurrentgemma", HYBRID_GEMM_SHAPES,
-             HYBRID_GEMM_ROWS, HYBRID_GEMM_ROWS, SEED + 31)):
+             HYBRID_GEMM_ROWS, HYBRID_GEMM_ROWS, SEED + 31),
+            *((f"{arch}_shapes", arch, shapes, HYBRID_GEMM_ROWS,
+               HYBRID_GEMM_ROWS, SEED + 32 + i)
+              for i, (arch, shapes) in enumerate(
+                  DENSE_GEMM_SHAPES.items()))):
         t0 = time.perf_counter()
         gemm[key], err = check_gemm_at(torch, timer, label, shapes, rows,
                                        timed_rows, seed)

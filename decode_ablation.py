@@ -4,9 +4,16 @@ elementwise table kernel (``csrc/lut_mul4.cu``) on one NVIDIA GPU: what
 each part of a call costs.
 
     python3 decode_ablation.py [variant ...]    (default: all of VARIANTS)
+    python3 decode_ablation.py --baseline DIR [variant ...]
 
 A variant named more than once is timed again at each place, so two
 variants can be timed in turns (``onecopy lanecopies onecopy lanecopies``).
+With ``--baseline DIR`` (a directory holding another checkout's
+``repro_torch``, e.g. ``git archive <commit> src/repro_torch | tar -x -C
+dir`` and DIR = dir/src) the variant ``baseline`` is that package as it
+stands (``baseline base base baseline`` times the two in turns), and every
+decode variant's outputs at qwen2-0.5b's shape (both kernels, three pools,
+with and without a window) are held bit for bit to the baseline's.
 
 Each variant is a copy of ``src/repro_torch`` with edits to a kernel source
 (or to a plan in ``kernels/``), under the gitignored
@@ -73,12 +80,12 @@ VARIANTS = {
     "pv1": ([(CUH, "      for (int j = 0; j < n; ++j) {\n",
               "      for (int j = 0; j < min(n, 1); ++j) {\n")],
             "decode", False, ("paged_decode", "ragged_decode")),
-    # no merge: each CTA writes from its partial and leaves, no wait, no
-    # cluster barrier, no distributed shared-memory read
+    # no merge: each CTA writes from its partial and leaves, no cluster
+    # barrier, no distributed shared-memory read
     "nomerge": ([(CUH, "  cg::cluster_group cluster = cg::this_cluster();\n",
                   "  if (nsplit > 0) {\n"
-                  "    if (warp < G) out[warp * HD + 2 * lane] = "
-                  "__float2bfloat16_rn(acc0 + acc1 + l + m);\n"
+                  "    if (warp < G) out[warp * HD + DPL * lane] = "
+                  "__float2bfloat16_rn(acc[0][0] + l[0] + m[0]);\n"
                   "    return;\n  }\n"
                   "  cg::cluster_group cluster = cg::this_cluster();\n")],
                 "decode", False, ("paged_decode", "ragged_decode")),
@@ -128,6 +135,8 @@ timer = cs.Timer(torch)
 dev = torch.device("cuda")
 res = {}
 if kind.startswith("decode"):
+    import hashlib
+
     from repro_torch.kernels.paged_attention import (
         decode_floor_cuda, decode_plan, paged_decode_attention_cuda,
         paged_decode_attention_plain)
@@ -152,8 +161,17 @@ if kind.startswith("decode"):
         res["ragged_ms"] = timer.ms(lambda: decode_floor_cuda(T, cs.KV, ps,
                                                               pps, dev))
     else:
+        digest = hashlib.sha256()
+        slots = torch.arange(q.shape[0], dtype=torch.int32, device="cuda")
         for dt in cs.POOL_DTYPES:
             k, v, ks, vs = pools[dt]
+            for window in (0, 40):
+                for out in (paged_decode_attention_cuda(
+                        q, k, v, tbl, lp, ks, vs, window=window),
+                        ragged_decode_attention_cuda(
+                            q, k, v, tbl, slots, lp, ks, vs, window=window)):
+                    digest.update(out.cpu().view(torch.int16).numpy()
+                                  .tobytes())
             if checked:
                 got = paged_decode_attention_cuda(q, k, v, tbl, lp, ks, vs)
                 want = paged_decode_attention_plain(q, k, v, tbl, lp, ks, vs)
@@ -162,6 +180,7 @@ if kind.startswith("decode"):
                     raise SystemExit(f"paged {dt}: max |diff| {err}")
             res[f"paged_{dt}_ms"] = timer.ms(
                 lambda: paged_decode_attention_cuda(q, k, v, tbl, lp, ks, vs))
+        res["digest"] = digest.hexdigest()
         k, v, ks, vs = rpools["int8"]
         if checked:
             got = ragged_decode_attention_cuda(rq, k, v, rtbl, slot, pos, ks,
@@ -217,8 +236,16 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         raise SystemExit("decode_ablation: needs an NVIDIA GPU")
-    names = sys.argv[1:] or list(VARIANTS)
-    unknown = set(names) - set(VARIANTS)
+    args = sys.argv[1:]
+    baseline = None
+    if args[:1] == ["--baseline"]:
+        baseline, args = Path(args[1]).resolve(), args[2:]
+        if not (baseline / "repro_torch").is_dir():
+            raise SystemExit(f"decode_ablation: {baseline} holds no "
+                             "repro_torch")
+    names = args or list(VARIANTS)
+    unknown = set(names) - set(VARIANTS) - ({"baseline"} if baseline
+                                            else set())
     if unknown:
         raise SystemExit(f"decode_ablation: unknown variants "
                          f"{sorted(unknown)}")
@@ -226,27 +253,36 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip(), flush=True)
-    trees = {n: _variant_tree(n) for n in names}
+    spec = dict(VARIANTS, baseline=VARIANTS["base"])
+    trees = {n: baseline if n == "baseline" else _variant_tree(n)
+             for n in names}
     builds = {n: subprocess.Popen(
         [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
          "from repro_torch.kernels import _build; "
          "_build.build_all(sys.argv[2].split(','))", str(tree),
-         ",".join(VARIANTS[n][3])])
+         ",".join(spec[n][3])])
         for n, tree in trees.items()}
     for n, proc in builds.items():
         if proc.wait() != 0:
             raise SystemExit(f"{n}: build failed")
+    digests = {}
     for n in names:
         tree = trees[n]
-        _, kind, checked, _ = VARIANTS[n]
+        _, kind, checked, _ = spec[n]
         out = subprocess.run(
             [sys.executable, "-c", _TIME, str(tree), str(ROOT), kind,
              json.dumps(checked)], capture_output=True, text=True,
             timeout=600)
         if out.returncode != 0:
             raise SystemExit(f"{n}: {out.stderr[-2000:]}")
-        print(json.dumps({"variant": n,
-                          **json.loads(out.stdout.strip().splitlines()[-1])}),
+        res = json.loads(out.stdout.strip().splitlines()[-1])
+        if checked and "digest" in res:
+            digests.setdefault(n, set()).add(res.pop("digest"))
+        print(json.dumps({"variant": n, **res}), flush=True)
+    if baseline:
+        want = digests.get("baseline", set())
+        print(json.dumps({"bits_equal_baseline": {
+            n: d == want for n, d in digests.items() if n != "baseline"}}),
               flush=True)
 
 

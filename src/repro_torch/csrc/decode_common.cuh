@@ -32,18 +32,26 @@
 //      at a time: every thread issues its share of the chunk's K and V rows
 //      as LOAD_BYTES-byte loads back to back, then dequantizes them to bf16
 //      rows in shared memory (pitch HD + 8, so the QK reads below hit 32
-//      banks); thread (token j, heads h and h + 4) takes the two dots of
-//      token j in one f32 FMA chain over the dims; warp g then runs head
-//      g's online softmax over the chunk (token j in lane j % 32) and its
-//      PV, lane l holding dims 2l and 2l + 1, one FMA chain in token order,
-//   3. writes its partial (m, l, acc) per head (m = -1e30, l = 0, acc = 0
-//      for a CTA with no live token) into rank 0's shared memory through
-//      distributed shared memory; after one cluster barrier rank 0 merges
-//      the partials in rank order, so two calls give the same bits, and
-//      writes the row's G * HD outputs.
+//      banks); thread (token j, heads h, h + 4, h + 8) takes the dots of
+//      token j with its heads (h = warp / 2; a third head only at G = 9),
+//      each one f32 FMA chain over the dims; warp w then runs the online
+//      softmax of heads w and w + 8 (the second only at G = 9) over the
+//      chunk (token j in lane j % 32) and their PV, lane l holding dims
+//      HD / 32 * l .. HD / 32 * l + HD / 32 - 1 (two at HD 64, four at HD
+//      128), one FMA chain in token order per dim,
+//   3. writes its partial (m, l per head; acc per output element; m =
+//      -1e30, l = 0, acc = 0 for a CTA with no live token) through
+//      distributed shared memory into the rank that merges each element:
+//      the row's G * HD outputs are cut into nsplit slices, rank r merging
+//      the r-th; after one cluster barrier each rank merges its slice in
+//      rank order, so two calls give the same bits, and writes it.
 // Distributed shared memory may be written only once every CTA of the
 // cluster is known to run: each CTA arrives on a cluster barrier before its
 // walk and waits on it before its push, so the wait costs little.
+// The arithmetic at HD 64 is that of the first design (G <= 8: two heads a
+// thread in QK, one head a warp, rank 0 merging every element), so its
+// outputs are bit for bit those.  Shared memory is static (Smem below):
+// 46,944 bytes at HD 128 and G <= 9.
 // A row with lp < 0 (idle, or padding) is written as zeros by rank 0 and
 // its whole cluster returns before any barrier.  The arithmetic is written
 // with the _rn intrinsics so no compiler contraction can make the two
@@ -93,11 +101,12 @@ inline bool plan_ok(int pps, int ps, int split_tok, int nsplit) {
 
 // Launch `kernel` on grid (rows, KV, nsplit), the nsplit CTAs of a
 // (row, KV head) one cluster, with `dyn_smem` bytes of dynamic shared
-// memory (the split's table entries); returns the launch's cudaError_t.
+// memory (the split's table entries) beside `static_smem` bytes of static
+// shared memory; returns the launch's cudaError_t.
 template <typename Kernel, typename... Args>
 int launch_split(Kernel kernel, int rows, int KV, int nsplit, int dyn_smem,
-                 cudaStream_t st, Args... args) {
-  if (dyn_smem > 48 * 1024) {
+                 int static_smem, cudaStream_t st, Args... args) {
+  if (static_smem + dyn_smem > 48 * 1024) {
     const cudaError_t attr = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn_smem);
     if (attr != cudaSuccess) return (int)attr;
@@ -182,9 +191,65 @@ template <int NB> struct Vec;
 template <> struct Vec<16> { using T = uint4; };
 template <> struct Vec<4> { using T = uint32_t; };
 
-template <int MAXG, int HD> struct Partial {
-  float m[MAXG], l[MAXG], acc[MAXG][HD];
+// What one rank of a row's cluster receives to merge: every rank's running
+// max and sum of each head, and every rank's partial PV of the rank's slice
+// of the row's G * HD outputs (per = ceil(G * HD / nsplit) elements: rank
+// r's element i of the slice at acc[r * per + i]).
+template <int MAXG, int HD> struct Merge {
+  float m[MAX_SPLITS][MAXG], l[MAX_SPLITS][MAXG];
+  float acc[MAXG * HD + MAX_SPLITS];
 };
+
+// A CTA's static shared memory: the staged K/V chunk (pitch HD + 8 bf16),
+// q as f32, the chunk's scores and probabilities, and what the CTA's peers
+// push for it to merge.  46,944 bytes at HD 128, MAXG 9 (25,120 at HD 64,
+// MAXG 8).
+template <int HD, int MAXG> struct Smem {
+  __nv_bfloat16 kv[2][CHUNK][HD + 8];
+  float q[MAXG][HD];
+  float p[MAXG][CHUNK];
+  Merge<MAXG, HD> merge;
+};
+
+// The (head dim, most query heads a KV head) pairs the kernels are built
+// for: hd 64 up to G = 8 (qwen2-0.5b's 7, musicgen-large's 1) and hd 128
+// up to G = 9 (qwen3-4b's 4, qwen2-vl-2b's and internlm2-20b's 6,
+// starcoder2-7b's 9).  The entry points refuse any other shape.
+constexpr int HD_SMALL = 64, MAXG_SMALL = 8;
+constexpr int HD_LARGE = 128, MAXG_LARGE = 9;
+// The CTAs an SM each head dim's kernels are compiled for
+// (`__launch_bounds__`): ptxas, left to itself, took the int8 ragged kernel
+// at HD 128 down to 64 registers and spilled 36 bytes; at 2 CTAs an SM it
+// takes 96 to 127 registers at HD 128 (int4, int8, bf16) and no spill, and
+// at 4 the HD 64 kernels keep to 64.
+template <int HD> constexpr int MIN_CTAS = HD == HD_LARGE ? 2 : 4;
+inline bool shape_ok(int hd, int H, int KV) {
+  if (KV < 1 || H % KV) return false;
+  const int G = H / KV;
+  return (hd == HD_SMALL && G <= MAXG_SMALL)
+      || (hd == HD_LARGE && G <= MAXG_LARGE);
+}
+
+// DPL consecutive bf16 dims of a staged row as f32: 2 (one 32-bit word)
+// at HD 64, 4 (one 64-bit word) at HD 128.
+template <int DPL>
+__device__ __forceinline__ void load_dims(const __nv_bfloat16* row,
+                                          float* out) {
+  static_assert(DPL == 2 || DPL == 4, "two or four dims a lane");
+  uint32_t w[DPL / 2];
+  if constexpr (DPL == 2) {
+    w[0] = *reinterpret_cast<const uint32_t*>(row);
+  } else {
+    const uint2 v = *reinterpret_cast<const uint2*>(row);
+    w[0] = v.x;
+    w[1] = v.y;
+  }
+#pragma unroll
+  for (int i = 0; i < DPL / 2; ++i) {
+    out[2 * i] = __uint_as_float(w[i] << 16);
+    out[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+  }
+}
 
 // One split of one row's attention for the G query heads of KV head hk: q
 // and out point at the row's [G, HD] slice, tbl_row at its block-table row
@@ -197,22 +262,28 @@ __device__ __forceinline__ void attend_split(
     const float* __restrict__ vscale, const int* __restrict__ tbl_row, int lp,
     __nv_bfloat16* __restrict__ out, int hk, int KV, int G, int P, int ps,
     int pps, int window, float scale, int split_tok, int* tbl_s) {
-  static_assert(HD == 64 && MAXG <= 8, "one lane holds two dims of a head, "
-                "and a thread two heads of a token");
+  static_assert((HD == HD_SMALL && MAXG <= MAXG_SMALL)
+                || (HD == HD_LARGE && MAXG <= MAXG_LARGE),
+                "an instantiated (head dim, G) pair");
   using R = Row<PoolT, HD>;
   constexpr int LD = HD + 8;                    // bf16 pitch of a staged row
   constexpr int VPR = R::BYTES / LOAD_BYTES;    // loads per pool row
   constexpr int WPL = LOAD_BYTES / 4;           // pool words per load
   constexpr int NLOAD = 2 * CHUNK * VPR;        // loads per chunk, K and V
   constexpr int PER_T = (NLOAD + THREADS - 1) / THREADS;
+  constexpr int TOK_WARPS = CHUNK / 32;         // warps a head's tokens take
+  constexpr int QK_SLOTS = NW / TOK_WARPS;      // heads a QK pass takes
+  constexpr int HPT = (MAXG + QK_SLOTS - 1) / QK_SLOTS;  // QK heads a thread
+  constexpr int HPW = (MAXG + NW - 1) / NW;     // softmax/PV heads a warp
+  constexpr int DPL = HD / 32;                  // PV dims a lane
   static_assert(R::BYTES % LOAD_BYTES == 0, "whole loads per row");
+  static_assert(NW % TOK_WARPS == 0 && HD % 32 == 0, "the warp mappings");
   using V = typename Vec<LOAD_BYTES>::T;
 
-  __shared__ __align__(16) __nv_bfloat16 kv_s[2][CHUNK][LD];
-  __shared__ __align__(16) float q_s[MAXG][HD];
-  __shared__ float p_s[MAXG][CHUNK];
-  // rank 0's: every rank's partial
-  __shared__ __align__(16) Partial<MAXG, HD> parts[MAX_SPLITS];
+  __shared__ __align__(16) Smem<HD, MAXG> sm;
+  auto& kv_s = sm.kv;
+  auto& q_s = sm.q;
+  auto& p_s = sm.p;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int rank = blockIdx.z, nsplit = gridDim.z;
@@ -238,7 +309,16 @@ __device__ __forceinline__ void attend_split(
   const int t_lo = max(s0, t_start);
   const int t_hi = min(min(s0 + split_tok, width), lp + 1);   // exclusive
 
-  float m = NEG_INF, l = 0.0f, acc0 = 0.0f, acc1 = 0.0f;   // warp's head
+  // the warp's heads warp, warp + NW, ...: their running max, sum and
+  // the lane's DPL dims of each one's PV
+  float m[HPW], l[HPW], acc[HPW][DPL];
+#pragma unroll
+  for (int i = 0; i < HPW; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int x = 0; x < DPL; ++x) acc[i][x] = 0.0f;
+  }
   for (int c0 = t_lo; c0 < t_hi; c0 += CHUNK) {
     const int n = min(CHUNK, t_hi - c0);
     __syncthreads();                     // table, q, and the last chunk read
@@ -288,12 +368,14 @@ __device__ __forceinline__ void attend_split(
       }
     }
     __syncthreads();
-    // QK: thread (token j, heads h and h + 4), one FMA chain per head
+    // QK: thread (token j, heads h, h + QK_SLOTS, ...), one FMA chain per
+    // head
     {
-      const int j = (warp & 1) * 32 + lane, h = warp >> 1;
+      const int j = (warp % TOK_WARPS) * 32 + lane, h = warp / TOK_WARPS;
       if (j < n && h < G) {
-        float d0 = 0.0f, d1 = 0.0f;
-        const bool two = h + 4 < G;
+        float d[HPT];
+#pragma unroll
+        for (int i = 0; i < HPT; ++i) d[i] = 0.0f;
 #pragma unroll
         for (int c = 0; c < HD; c += 8) {
           const uint4 kw = *reinterpret_cast<const uint4*>(&kv_s[0][j][c]);
@@ -302,80 +384,96 @@ __device__ __forceinline__ void attend_split(
           for (int x = 0; x < 8; ++x) {
             const float kf = __uint_as_float(
                 x % 2 ? kk[x / 2] & 0xFFFF0000u : kk[x / 2] << 16);
-            d0 = __fmaf_rn(q_s[h][c + x], kf, d0);
-            if (two) d1 = __fmaf_rn(q_s[h + 4][c + x], kf, d1);
+#pragma unroll
+            for (int i = 0; i < HPT; ++i)
+              if (h + i * QK_SLOTS < G)
+                d[i] = __fmaf_rn(q_s[h + i * QK_SLOTS][c + x], kf, d[i]);
           }
         }
-        p_s[h][j] = __fmul_rn(bf16_round(d0), scale);
-        if (two) p_s[h + 4][j] = __fmul_rn(bf16_round(d1), scale);
+#pragma unroll
+        for (int i = 0; i < HPT; ++i)
+          if (h + i * QK_SLOTS < G)
+            p_s[h + i * QK_SLOTS][j] = __fmul_rn(bf16_round(d[i]), scale);
       }
     }
     __syncthreads();
-    // softmax and PV: warp g takes head g
-    if (warp < G) {
-      const int g = warp;
+    // softmax and PV: warp w takes heads w, w + NW, ...
+#pragma unroll
+    for (int i = 0; i < HPW; ++i) {
+      const int g = warp + i * NW;
+      if (g >= G) break;
       const float s_a = lane < n ? p_s[g][lane] : NEG_INF;
       const float s_b = lane + 32 < n ? p_s[g][lane + 32] : NEG_INF;
       float cmax = fmaxf(s_a, s_b);
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         cmax = fmaxf(cmax, __shfl_xor_sync(0xffffffffu, cmax, off));
-      const float m_new = fmaxf(m, cmax);
-      const float alpha = expf(__fsub_rn(m, m_new));
+      const float m_new = fmaxf(m[i], cmax);
+      const float alpha = expf(__fsub_rn(m[i], m_new));
       const float p_a = lane < n ? expf(__fsub_rn(s_a, m_new)) : 0.0f;
       const float p_b = lane + 32 < n ? expf(__fsub_rn(s_b, m_new)) : 0.0f;
       float psum = __fadd_rn(p_a, p_b);
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         psum = __fadd_rn(psum, __shfl_xor_sync(0xffffffffu, psum, off));
-      l = __fadd_rn(__fmul_rn(l, alpha), psum);
-      m = m_new;
+      l[i] = __fadd_rn(__fmul_rn(l[i], alpha), psum);
+      m[i] = m_new;
       p_s[g][lane] = p_a;
       p_s[g][lane + 32] = p_b;
       __syncwarp();
-      acc0 = __fmul_rn(acc0, alpha);
-      acc1 = __fmul_rn(acc1, alpha);
+#pragma unroll
+      for (int x = 0; x < DPL; ++x) acc[i][x] = __fmul_rn(acc[i][x], alpha);
 #pragma unroll 8
       for (int j = 0; j < n; ++j) {
         const float p = p_s[g][j];
-        const uint32_t vw =
-            *reinterpret_cast<const uint32_t*>(&kv_s[1][j][2 * lane]);
-        acc0 = __fmaf_rn(p, __uint_as_float(vw << 16), acc0);
-        acc1 = __fmaf_rn(p, __uint_as_float(vw & 0xFFFF0000u), acc1);
+        float vf[DPL];
+        load_dims<DPL>(&kv_s[1][j][DPL * lane], vf);
+#pragma unroll
+        for (int x = 0; x < DPL; ++x) acc[i][x] = __fmaf_rn(p, vf[x], acc[i][x]);
       }
     }
   }
 
-  // every rank's partial into rank 0's shared memory, once every rank is
-  // known to run, then one barrier
+  // every rank's partial, element by element, into the shared memory of
+  // the rank that merges it, once every rank is known to run; after one
+  // cluster barrier each rank merges its slice in rank order
   cg::cluster_group cluster = cg::this_cluster();
   if (nsplit > 1) cluster_wait();
-  if (warp < G) {
-    Partial<MAXG, HD>* dst =
-        nsplit > 1 ? cluster.map_shared_rank(&parts[rank], 0) : &parts[0];
-    if (lane == 0) {
-      dst->m[warp] = m;
-      dst->l[warp] = l;
+  const int total = G * HD, per = (total + nsplit - 1) / nsplit;
+#pragma unroll
+  for (int i = 0; i < HPW; ++i) {
+    const int g = warp + i * NW;
+    if (g >= G) break;
+    if (lane < nsplit) {
+      Merge<MAXG, HD>* dst =
+          nsplit > 1 ? cluster.map_shared_rank(&sm.merge, lane) : &sm.merge;
+      dst->m[rank][g] = m[i];
+      dst->l[rank][g] = l[i];
     }
-    *reinterpret_cast<float2*>(&dst->acc[warp][2 * lane]) =
-        make_float2(acc0, acc1);
+#pragma unroll
+    for (int x = 0; x < DPL; ++x) {
+      const int e = g * HD + DPL * lane + x, o = e / per;
+      Merge<MAXG, HD>* dst =
+          nsplit > 1 ? cluster.map_shared_rank(&sm.merge, o) : &sm.merge;
+      dst->acc[rank * per + e - o * per] = acc[i][x];
+    }
   }
   if (nsplit > 1) cluster.sync(); else __syncthreads();
-  if (rank != 0) return;
-  // merge on rank 0, every rank in rank order
-  for (int e = tid; e < G * HD; e += THREADS) {
-    const int g = e / HD, d = e % HD;
+  const Merge<MAXG, HD>& got = sm.merge;
+  for (int e = rank * per + tid; e < min(total, (rank + 1) * per);
+       e += THREADS) {
+    const int g = e / HD, i = e - rank * per;
     float M = NEG_INF;
 #pragma unroll
     for (int r = 0; r < MAX_SPLITS; ++r)
-      if (r < nsplit) M = fmaxf(M, parts[r].m[g]);
+      if (r < nsplit) M = fmaxf(M, got.m[r][g]);
     float L = 0.0f, A = 0.0f;
 #pragma unroll
     for (int r = 0; r < MAX_SPLITS; ++r) {
       if (r < nsplit) {
-        const float f = expf(__fsub_rn(parts[r].m[g], M));
-        L = __fmaf_rn(parts[r].l[g], f, L);
-        A = __fmaf_rn(parts[r].acc[g][d], f, A);
+        const float f = expf(__fsub_rn(got.m[r][g], M));
+        L = __fmaf_rn(got.l[r][g], f, L);
+        A = __fmaf_rn(got.acc[r * per + i], f, A);
       }
     }
     out[e] = __float2bfloat16_rn(L > 0.0f ? __fdiv_rn(A, L) : 0.0f);

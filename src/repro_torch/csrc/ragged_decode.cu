@@ -30,7 +30,7 @@ namespace {
 using namespace decode_common;
 
 template <int HD, int MAXG, typename PoolT>
-__global__ void __launch_bounds__(THREADS) ragged_decode_kernel(
+__global__ void __launch_bounds__(THREADS, MIN_CTAS<HD>) ragged_decode_kernel(
     const __nv_bfloat16* __restrict__ q,       // [T, H, HD]
     const PoolT* __restrict__ kpool,           // [P, ps, KV, HD (int4: HD/2)]
     const PoolT* __restrict__ vpool,
@@ -62,19 +62,38 @@ int launch(const void* q, const void* kp, const void* vp, const void* ks,
            int nsplit, cudaStream_t st) {
   return launch_split(
       ragged_decode_kernel<HD, MAXG, PoolT>, T, KV, nsplit,
-      (int)(split_tok / ps * sizeof(int)), st, (const __nv_bfloat16*)q,
+      (int)(split_tok / ps * sizeof(int)), (int)sizeof(Smem<HD, MAXG>), st,
+      (const __nv_bfloat16*)q,
       (const PoolT*)kp, (const PoolT*)vp, (const float*)ks, (const float*)vs,
       (const int*)tbl, (const int*)slot, (const int*)pos,
       (__nv_bfloat16*)out, H, KV, H / KV, P, ps, maxB, pps, window, scale,
       split_tok);
 }
 
+// The instantiation of head dim hd (shape_ok has passed).
+template <typename PoolT>
+int launch_hd(int hd, const void* q, const void* kp, const void* vp,
+              const void* ks, const void* vs, const void* tbl,
+              const void* slot, const void* pos, void* out, int T, int H,
+              int KV, int P, int ps, int maxB, int pps, int window,
+              float scale, int split_tok, int nsplit, cudaStream_t st) {
+  return hd == HD_LARGE
+      ? launch<HD_LARGE, MAXG_LARGE, PoolT>(q, kp, vp, ks, vs, tbl, slot, pos,
+                                            out, T, H, KV, P, ps, maxB, pps,
+                                            window, scale, split_tok, nsplit,
+                                            st)
+      : launch<HD_SMALL, MAXG_SMALL, PoolT>(q, kp, vp, ks, vs, tbl, slot, pos,
+                                            out, T, H, KV, P, ps, maxB, pps,
+                                            window, scale, split_tok, nsplit,
+                                            st);
+}
+
 }  // namespace
 
-// Returns a cudaError_t; cudaErrorInvalidValue for anything but head dim 64
-// with at most 8 query heads per KV head (the ported configurations), a
-// pool kind of decode_common.cuh's PoolKind, and the split `split_plan`
-// gives the table (the wrapper's `decode_plan`).
+// Returns a cudaError_t; cudaErrorInvalidValue for a shape the kernel is
+// not built for (decode_common.cuh `shape_ok`, as csrc/paged_decode.cu), a
+// pool kind not of decode_common.cuh's PoolKind, or a split other than the
+// one `split_plan` gives the table (the wrapper's `decode_plan`).
 extern "C" int ragged_decode_launch(const void* q, const void* kp,
                                     const void* vp, const void* ks,
                                     const void* vs, const void* tbl,
@@ -83,24 +102,22 @@ extern "C" int ragged_decode_launch(const void* q, const void* kp,
                                     int P, int ps, int maxB, int pps,
                                     int window, int pool_kind, float scale,
                                     int split_tok, int nsplit, void* stream) {
-  if (hd != 64 || H % KV || H / KV > 8 || maxB < 1
-      || !decode_common::plan_ok(pps, ps, split_tok, nsplit))
+  if (!shape_ok(hd, H, KV) || maxB < 1 || !plan_ok(pps, ps, split_tok, nsplit))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (pool_kind) {
-    case decode_common::POOL_BF16:
-      return launch<64, 8, __nv_bfloat16>(q, kp, vp, ks, vs, tbl, slot, pos,
-                                          out, T, H, KV, P, ps, maxB, pps,
-                                          window, scale, split_tok, nsplit,
-                                          st);
-    case decode_common::POOL_INT8:
-      return launch<64, 8, int8_t>(q, kp, vp, ks, vs, tbl, slot, pos, out, T,
-                                   H, KV, P, ps, maxB, pps, window, scale,
-                                   split_tok, nsplit, st);
-    case decode_common::POOL_INT4:
-      return launch<64, 8, uint8_t>(q, kp, vp, ks, vs, tbl, slot, pos, out, T,
-                                    H, KV, P, ps, maxB, pps, window, scale,
-                                    split_tok, nsplit, st);
+    case POOL_BF16:
+      return launch_hd<__nv_bfloat16>(hd, q, kp, vp, ks, vs, tbl, slot, pos,
+                                      out, T, H, KV, P, ps, maxB, pps, window,
+                                      scale, split_tok, nsplit, st);
+    case POOL_INT8:
+      return launch_hd<int8_t>(hd, q, kp, vp, ks, vs, tbl, slot, pos, out, T,
+                               H, KV, P, ps, maxB, pps, window, scale,
+                               split_tok, nsplit, st);
+    case POOL_INT4:
+      return launch_hd<uint8_t>(hd, q, kp, vp, ks, vs, tbl, slot, pos, out, T,
+                                H, KV, P, ps, maxB, pps, window, scale,
+                                split_tok, nsplit, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

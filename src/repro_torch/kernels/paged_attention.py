@@ -205,6 +205,10 @@ def _check_cuda(name: str, tensors, dtypes) -> None:
             raise ValueError(f"{name}: operands must be contiguous")
 
 
+#: head dim -> the most query heads a KV head the decode kernels are built
+#: for (``csrc/decode_common.cuh`` HD_SMALL / MAXG_SMALL, HD_LARGE /
+#: MAXG_LARGE, ``shape_ok``)
+DECODE_MAX_GROUP = {64: 8, 128: 9}
 #: pool dtype -> the kernels' pool kind (``csrc/decode_common.cuh``)
 POOL_KINDS = {torch.bfloat16: 0, torch.int8: 1, torch.uint8: 2}
 
@@ -215,7 +219,9 @@ def check_pools(name: str, q, k_pool, v_pool, k_scale, v_scale) -> int:
     ``[P, ps, KV, hd]``, int8 the same shape, or int4 ``[P, ps, KV, hd // 2]``
     uint8, the quantized ones with f32 scales ``[P, ps, KV, 1]``; the pools
     16-byte aligned (the kernels read them by 16-byte loads).  Raises on
-    anything else, and on shapes the kernels are not built for."""
+    anything else, and on shapes the kernels are not built for
+    (`DECODE_MAX_GROUP`: head dim 64 with G <= 8, head dim 128 with
+    G <= 9)."""
     kind = POOL_KINDS.get(k_pool.dtype)
     if kind is None:
         raise TypeError(f"{name}: no kernel for {k_pool.dtype} pools")
@@ -223,9 +229,6 @@ def check_pools(name: str, q, k_pool, v_pool, k_scale, v_scale) -> int:
     if quant != (k_scale is not None) or (k_scale is None) != (v_scale is None):
         raise ValueError(f"{name}: scales go with int8/int4 pools only, "
                          "both or neither")
-    tensors = (q, k_pool, v_pool) + ((k_scale, v_scale) if quant else ())
-    _check_cuda(name, tensors, (torch.bfloat16, k_pool.dtype, k_pool.dtype,
-                                torch.float32, torch.float32))
     _, H, hd = q.shape
     P, ps, KV = k_pool.shape[:3]
     width = hd // 2 if kind == 2 else hd
@@ -237,9 +240,15 @@ def check_pools(name: str, q, k_pool, v_pool, k_scale, v_scale) -> int:
             f"{name}: q {tuple(q.shape)}, pools {tuple(k_pool.shape)} "
             f"{k_pool.dtype}, scales "
             f"{None if k_scale is None else tuple(k_scale.shape)}")
-    if hd != 64 or H // KV > 8:
-        raise ValueError(f"{name}: head dim {hd} with {H // KV} query heads "
-                         "per KV head is not supported")
+    if DECODE_MAX_GROUP.get(hd, 0) < H // KV:
+        raise ValueError(
+            f"{name}: q {tuple(q.shape)} over {KV} KV heads: head dim {hd} "
+            f"with {H // KV} query heads per KV head is not built (built: "
+            + ", ".join(f"head dim {d} with up to {g}"
+                        for d, g in DECODE_MAX_GROUP.items()) + ")")
+    tensors = (q, k_pool, v_pool) + ((k_scale, v_scale) if quant else ())
+    _check_cuda(name, tensors, (torch.bfloat16, k_pool.dtype, k_pool.dtype,
+                                torch.float32, torch.float32))
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
         raise ValueError(f"{name}: the pools must be 16-byte aligned")
     return kind

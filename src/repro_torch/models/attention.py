@@ -1,5 +1,6 @@
-"""GQA attention with RoPE over the quantized linear (PyTorch port of
-``repro/models/attention.py``, paged-KV serving branches).
+"""GQA attention with RoPE or M-RoPE and optional qk-norm over the
+quantized linear (PyTorch port of ``repro/models/attention.py``, paged-KV
+serving branches).
 
 Three interchangeable attention cores:
 
@@ -29,15 +30,13 @@ import torch
 
 from ..core.qlinear import qdense
 from ..core.quant_plan import join_site
-from .common import apply_rope, normal_init
+from .common import apply_mrope, apply_rope, normal_init, rms_norm
 
 NEG_INF = -1e30
 
 
 def init_attention(gen: torch.Generator, cfg) -> Dict:
     hd, H, KV, D = cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.d_model
-    if cfg.qk_norm:
-        raise NotImplementedError("qk_norm attention is not ported yet")
     p = {
         "wq": normal_init(gen, (D, H * hd)),
         "wk": normal_init(gen, (D, KV * hd)),
@@ -49,6 +48,10 @@ def init_attention(gen: torch.Generator, cfg) -> Dict:
         p["wq_bias"] = torch.zeros((H * hd,), device=dev)
         p["wk_bias"] = torch.zeros((KV * hd,), device=dev)
         p["wv_bias"] = torch.zeros((KV * hd,), device=dev)
+    if cfg.qk_norm:
+        # ones: nothing is drawn, so the other leaves keep their values
+        p["q_norm"] = torch.ones((hd,), device=gen.device)
+        p["k_norm"] = torch.ones((hd,), device=gen.device)
     return p
 
 
@@ -202,27 +205,31 @@ def apply_attention(params: Dict, x: torch.Tensor, cfg, rt,
                     positions: torch.Tensor, cache: Optional[Dict] = None,
                     update_cache: bool = False, site: str = ""
                     ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """x [B, S, D], positions [B, S].  The branches are those of the JAX
-    package.  With a paged cache (a dict holding ``"tbl"``):  A cache that also
-    holds ``"slots"`` is the ragged token-major step (B == 1, S packed rows,
-    each routed through the table row ``slots`` names): write every row's
-    K/V first, then attend with ``pos <= token_pos``, which is causal for
-    prefill-chunk rows and last-token for decode rows.  S == 1 is decode
+    """x [B, S, D], positions [B, S], or [3, B, S] (the M-RoPE streams; the
+    temporal stream ``positions[0]`` then masks and addresses the caches).
+    With ``cfg.qk_norm`` q and k are RMS-normed per head after the
+    projections, before the rotation. The branches are those of the JAX
+    package. With a paged cache (a dict holding ``"tbl"``): A cache that
+    also holds ``"slots"`` is the ragged token-major step (B == 1, S packed
+    rows, each routed through the table row ``slots`` names): write every
+    row's K/V first, then attend with ``pos <= token_pos``, which is causal
+    for prefill-chunk rows and last-token for decode rows. S == 1 is decode
     (write the token's K/V, then the fused paged kernel, or the gather
     baseline with ``rt.paged_attn == "gather"``); ``rt.prefill_over_cache``
     is the tail prefill after a prefix-cache hit (write, then attend over
     the gathered pages); otherwise a fresh prefill attends in flight and
-    writes its K/V.  The page pool is updated in place.  With a contiguous
+    writes its K/V. The page pool is updated in place. With a contiguous
     cache: S == 1 is decode (write the token into the ring, then exact
-    attention over the cache, ``impl="full"``); otherwise the prompt
-    attends in flight and, with `update_cache`, its last ``min(S, size)``
-    positions are written, those below the row's ``pos`` (already cached:
-    a resume) dropped.  The contiguous cache returned is a new dict of new
-    tensors."""
+    attention over the cache, ``impl="full"``); otherwise the prompt attends
+    in flight and, with `update_cache`, its last ``min(S, size)`` positions
+    are written, those below the row's ``pos`` (already cached: a resume)
+    dropped. The contiguous cache returned is a new dict of new tensors."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    if cfg.rope != "rope":
-        raise NotImplementedError(f"rope={cfg.rope!r} is not ported yet")
+    if cfg.rope not in ("rope", "mrope"):
+        raise NotImplementedError(
+            f"rope={cfg.rope!r} attention is not ported yet: it comes with "
+            "musicgen-large (ROADMAP Queue 1 item 2b)")
 
     qkv_site = join_site(site, "attn.qkv")
     wo_site = join_site(site, "attn.wo")
@@ -230,9 +237,21 @@ def apply_attention(params: Dict, x: torch.Tensor, cfg, rt,
     q = qdense(params["wq"], x, qc, params.get("wq_bias"), tag=qkv_site)
     k = qdense(params["wk"], x, qc, params.get("wk_bias"), tag=qkv_site)
     v = qdense(params["wv"], x, qc, params.get("wv_bias"), tag=qkv_site)
-    q = apply_rope(q.reshape(B, S, H, hd), positions, cfg.rope_theta)
-    k = apply_rope(k.reshape(B, S, KV, hd), positions, cfg.rope_theta)
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, KV, hd)
     v = v.reshape(B, S, KV, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, params["k_norm"], cfg.norm_eps)
+    tpos = positions if positions.dim() == 2 else positions[0]  # temporal
+    if cfg.rope == "rope":
+        q = apply_rope(q, tpos, cfg.rope_theta)
+        k = apply_rope(k, tpos, cfg.rope_theta)
+    else:
+        mp = positions if positions.dim() == 3 else torch.stack([tpos] * 3)
+        q = apply_mrope(q, mp, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, mp, cfg.rope_theta, cfg.mrope_sections)
+    positions = tpos
 
     new_cache = None
     if cache is not None and "slots" in cache:

@@ -1,5 +1,6 @@
-"""Shared model components: RMS norm, rotary and sinusoidal position
-embeddings, initializer (PyTorch port of ``repro/models/common.py``)."""
+"""Shared model components: RMS norm, rotary (RoPE, M-RoPE) and sinusoidal
+position embeddings, initializer (PyTorch port of
+``repro/models/common.py``)."""
 
 from __future__ import annotations
 
@@ -36,6 +37,31 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     hd = x.shape[-1]
     freqs = rope_freqs(hd, theta, device=x.device)             # [hd/2]
     ang = positions[..., None].to(torch.float32) * freqs       # [B, S, hd/2]
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: Sequence[int]) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: x [B, S, H, hd], positions [3, B, S] (the
+    temporal, height and width streams); the hd/2 rotary frequency slots
+    split into ``sections`` (summing to hd/2), section s driven by stream
+    s.  The op order is the JAX package's: each section's f32 angle, the
+    angles joined, cos/sin, then the split halves; with three equal
+    streams it is `apply_rope` bit for bit."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, device=x.device)             # [hd/2]
+    if sum(sections) != hd // 2:
+        raise ValueError(f"mrope sections {tuple(sections)} do not sum to "
+                         f"hd/2 = {hd // 2}")
+    parts, start = [], 0
+    for s, sec in enumerate(sections):
+        parts.append(positions[s][..., None].to(torch.float32)
+                     * freqs[start:start + sec])
+        start += sec
+    ang = torch.cat(parts, dim=-1)                             # [B, S, hd/2]
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

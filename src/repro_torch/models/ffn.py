@@ -15,7 +15,10 @@ from .common import normal_init
 
 def init_ffn(gen: torch.Generator, cfg, d_ff: int = 0) -> Dict:
     if cfg.ffn_type != "swiglu" or cfg.mlp_bias:
-        raise NotImplementedError("only the bias-free SwiGLU FFN is ported")
+        raise NotImplementedError(
+            "only the bias-free SwiGLU FFN is ported; the GELU FFN with "
+            "biases comes with starcoder2-7b and musicgen-large (ROADMAP "
+            "Queue 1 item 2b)")
     D, F = cfg.d_model, d_ff or cfg.d_ff
     return {"w_in": normal_init(gen, (D, F)),
             "w_out": normal_init(gen, (F, D), fan_in=F),

@@ -210,7 +210,10 @@ def forward(params: Dict, tokens: torch.Tensor, cfg, rt,
             positions: Optional[torch.Tensor] = None,
             caches: Optional[Dict] = None, update_cache: bool = False,
             return_hidden: bool = False):
-    """tokens [B, S] -> (logits_or_hidden, caches).  Paged pools (with
+    """tokens [B, S] -> (logits_or_hidden, caches).  `positions` is
+    [B, S] (default 0..S-1 in every row), or [3, B, S] for an M-RoPE stack
+    (the temporal stream ``positions[0]`` addresses the caches).  Paged
+    pools (with
     bound block tables, ``serving.kv_pages``) are updated in place and
     returned; contiguous caches come back as a new tree (a block whose cache
     did not change keeps its old one)."""
@@ -222,7 +225,8 @@ def forward(params: Dict, tokens: torch.Tensor, cfg, rt,
     dt = torch.bfloat16 if rt.compute_dtype == "bfloat16" else torch.float32
     x = params["embed"]["tok"][tokens.long()].to(dt)
     if cfg.rope == "none":
-        x = x + sinusoidal_pos_embed(positions, cfg.d_model).to(dt)
+        tpos = positions if positions.dim() == 2 else positions[0]
+        x = x + sinusoidal_pos_embed(tpos, cfg.d_model).to(dt)
     layers = params.get("layer_views") or layer_params(params, cfg)
     P = len(cfg.pattern)
     new_rep: Dict[str, List] = {f"u{j}": [] for j in range(P)}
@@ -276,7 +280,8 @@ def prefill(params, tokens, cfg, rt, caches, positions=None):
 
 
 def decode_step(params, token, cfg, rt, caches, positions):
-    """One decode step. token [B, 1]; positions [B, 1] absolute positions."""
+    """One decode step. token [B, 1]; positions [B, 1] absolute positions
+    (or [3, B, 1], the M-RoPE streams)."""
     hidden, caches = forward(params, token, cfg, rt, positions, caches,
                              update_cache=True, return_hidden=True)
     return _logits(params, hidden, cfg, rt)[:, 0], caches

@@ -319,6 +319,110 @@ def test_flash_kernel_refuses_unbuilt_head_dim(cuda):
         flash_prefill_cuda(q, k, k, pos, pos)
 
 
+#: the decode kernels' shapes beside qwen2-0.5b's (H, KV, hd): qwen3-4b,
+#: qwen2-vl-2b, internlm2-20b, G = 9 at hd 128 and G = 1 at hd 64
+DECODE_NEW_SHAPES = [(32, 8, 128), (12, 2, 128), (48, 8, 128), (36, 4, 128),
+                     (32, 32, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache_dtype", ["bfloat16", "int8", "int4"])
+@pytest.mark.parametrize("shape", DECODE_NEW_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_decode_kernels_at_the_new_shapes(cuda, cache_dtype, shape):
+    """Paged decode and the ragged kernel at head dim 128 with G = 4, 6, 9
+    and at head dim 64 with G = 1, on a 512-token table (8 splits), with
+    and without a window: within ATOL of the plain versions, idle and
+    padding rows exactly zero, two calls bit-equal, and a decode-only
+    ragged pack bit-equal to paged decode."""
+    H, KV, hd = shape
+    ps, pps = 16, 32
+    last = [511, 63, -1, 64, 300, 0]
+    B = len(last)
+    P = B * pps + 3
+    k, v, ks, vs = _pools((P, ps, KV, hd), cache_dtype, cuda)
+    tbl = torch.from_numpy(_table(B, pps, P, ps, last)).to(cuda)
+    lp = torch.tensor(last, dtype=torch.int32, device=cuda)
+    q = _bf(RNG.standard_normal((B, H, hd)).astype(np.float32), cuda)
+    slots = torch.arange(B, dtype=torch.int32, device=cuda)
+    # a pack: decode rows, a 3-row chunk of row 4's request, padding
+    slot2 = torch.tensor([0, 4, 4, 4, -1, 1], dtype=torch.int32, device=cuda)
+    pos2 = torch.tensor([511, 280, 290, 300, -1, 63], dtype=torch.int32,
+                        device=cuda)
+    for window in (0, 40):
+        got = paged_decode_attention_cuda(q, k, v, tbl, lp, ks, vs,
+                                          window=window)
+        want = paged_decode_attention_plain(q, k, v, tbl, lp, ks, vs,
+                                            window=window)
+        assert (got.float() - want.float()).abs().max().item() <= ATOL
+        assert torch.equal(got, paged_decode_attention_cuda(
+            q, k, v, tbl, lp, ks, vs, window=window))
+        assert not got[2].float().any()
+        assert torch.equal(got, ragged_decode_attention_cuda(
+            q, k, v, tbl, slots, lp, ks, vs, window=window))
+        rag = ragged_decode_attention_cuda(q, k, v, tbl, slot2, pos2, ks, vs,
+                                           window=window)
+        want = ragged_decode_attention_plain(q, k, v, tbl, slot2, pos2, ks,
+                                             vs, window=window)
+        assert (rag.float() - want.float()).abs().max().item() <= ATOL
+        assert not rag[4].float().any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(12, 2, 96), (34, 2, 128), (18, 2, 64),
+                                   (8, 8, 256)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_decode_kernels_refuse_an_unbuilt_shape(cuda, shape):
+    """A CUDA tensor at a shape the kernels are not built for raises: no
+    quiet switch to the plain version."""
+    H, KV, hd = shape
+    q = torch.zeros((2, H, hd), dtype=torch.bfloat16, device=cuda)
+    pool = torch.zeros((4, 16, KV, hd), dtype=torch.bfloat16, device=cuda)
+    tbl = torch.zeros((2, 2), dtype=torch.int32, device=cuda)
+    lp = torch.zeros((2,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="is not built"):
+        ops.paged_decode_attention(q, pool, pool, tbl, lp)
+    with pytest.raises(ValueError, match="is not built"):
+        ops.ragged_paged_attention(q, pool, pool, tbl, lp, lp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", ["bucketed", "ragged"])
+def test_engine_qwen3_reduced_at_head_dim_128(cuda, step):
+    """The reduced qwen3-4b (qk_norm) at head dim 128 and its full width's
+    32 heads over 8 (2 layers) serves on the card through the W4A4 GEMM
+    and, bucketed, flash prefill and paged decode once a layer a forward,
+    or, ragged, the ragged kernel once a layer a step."""
+    from repro_torch.configs import Runtime, ServingConfig, get_config
+    from repro_torch.serving.api import mixed_trace, run_trace
+    from repro_torch.serving.engine import InferenceEngine
+
+    cfg = get_config("qwen3-4b").reduced(n_layers=2, head_dim=128,
+                                         n_heads=32, n_kv_heads=8)
+    rt = Runtime(attn_impl="flash", quant_backend="w4a4_packed",
+                 cache_dtype="bfloat16" if step == "bucketed" else "int8")
+    sv = ServingConfig(max_batch=4, page_size=16, num_pages=32, max_ctx=64,
+                       step=step)
+    engine = InferenceEngine(cfg, rt, sv, device=cuda)
+    ops.reset_launch_counts()
+    _, fin = run_trace(engine, mixed_trace(6, (8, 20, 33), (4, 8),
+                                           cfg.vocab, seed=2))
+    assert len(fin) == 6
+    assert all(r.outcome == "ok" and len(r.tokens) == r.max_new for r in fin)
+    assert all(0 <= t < cfg.vocab for r in fin for t in r.tokens)
+    n = ops.launch_counts()
+    forwards = n["int4_matmul_fused"] // (7 * 2)
+    assert n["int4_matmul_fused"] == 7 * 2 * forwards > 0, n
+    if step == "bucketed":
+        assert n["flash_prefill"] > 0 and n["paged_decode_attention"] > 0, n
+        assert n["flash_prefill"] + n["paged_decode_attention"] \
+            == 2 * forwards, n
+        assert n["ragged_decode_attention"] == 0, n
+    else:
+        assert n["ragged_decode_attention"] == 2 * forwards, n
+        assert n["flash_prefill"] == n["paged_decode_attention"] == 0, n
+
+
 @pytest.mark.cuda
 def test_engine_main_path_launches_every_kernel(cuda):
     """The bucketed path launches its three kernels (GEMM, flash prefill,

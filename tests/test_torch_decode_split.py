@@ -22,7 +22,13 @@ by FMA, divided by L), rows with lp < 0 exactly zero.  FMA is emulated in
 float64 (exact products, one rounding but for rare double roundings).  It
 is held to the JAX package's XLA twin and its Pallas kernel in interpret
 mode, as ``tests/test_paged_attention.py`` runs them, and to the port's
-plain version.
+plain version, at every shape the kernels are built for (H, KV, HD):
+(14, 2, 64) qwen2-0.5b, (32, 8, 128) qwen3-4b, (12, 2, 128) qwen2-vl-2b,
+(36, 4, 128) starcoder2-7b's G = 9 and (32, 32, 64) musicgen-large's
+G = 1.  At HD 128 a lane holds four dims of PV and, at G = 9, a thread
+three heads of QK and a warp two heads: each dim's FMA chain is the same.
+The built shapes mirror the kernel source, and the wrappers refuse any
+other before launching.
 
 Tolerance: ATOL = 2e-2 on bf16 outputs, the bound the card check
 (``chip_smoke.ATTN_ATOL``) and the JAX package's own tests hold the online
@@ -45,7 +51,8 @@ from repro.kernels import paged_attention as jpa  # noqa: E402
 from repro.models.attention import quantize_kv as jquantize_kv  # noqa: E402
 from repro_torch.kernels import ragged_attention  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
-    DECODE_CHUNK, DECODE_MAX_SPLITS, DECODE_MIN_SPLIT_TOK, NEG_INF,
+    DECODE_CHUNK, DECODE_MAX_GROUP, DECODE_MAX_SPLITS,
+    DECODE_MIN_SPLIT_TOK, NEG_INF,
     _dequant_slab, decode_plan, decode_plan_for,
     paged_decode_attention_plain)
 from repro_torch.kernels.ragged_attention import \
@@ -56,6 +63,12 @@ CUH = ROOT / "src" / "repro_torch" / "csrc" / "decode_common.cuh"
 ATOL = 2e-2
 #: qwen2-0.5b's attention: 14 query heads over 2 KV heads, head dim 64
 H, KV, HD = 14, 2, 64
+#: the decode kernels' shapes (H, KV, HD): qwen2-0.5b's (G = 7), qwen3-4b's
+#: (G = 4), qwen2-vl-2b's (G = 6), starcoder2-7b's (G = 9, the most a KV
+#: head at hd 128) and musicgen-large's (G = 1 at hd 64)
+SHAPES = [(H, KV, HD), (32, 8, 128), (12, 2, 128), (36, 4, 128),
+          (32, 32, 64)]
+SHAPE_IDS = [f"{h}x{kv}x{hd}" for h, kv, hd in SHAPES]
 
 
 # ----------------------------------------------------------- (a) plan ----
@@ -133,6 +146,47 @@ def test_paged_and_ragged_get_one_plan(ps, pps):
     plans = {decode_plan_for(torch.zeros((rows, pps), dtype=torch.int32),
                              pool) for rows in (1, 6, 8, 64)}
     assert plans == {decode_plan(pps * ps, ps)}
+
+
+def test_built_shapes_mirror_the_kernel_source():
+    """The wrappers' built (head dim, G) set is the one the kernel source
+    instantiates and its entry points accept (`shape_ok`)."""
+    src = CUH.read_text()
+
+    def const(name):
+        return int(re.search(rf"\b{name} = (\d+)", src).group(1))
+
+    assert DECODE_MAX_GROUP == {const("HD_SMALL"): const("MAXG_SMALL"),
+                                const("HD_LARGE"): const("MAXG_LARGE")}
+    for f in ("paged_decode.cu", "ragged_decode.cu"):
+        assert "!shape_ok(hd, H, KV)" in (CUH.parent / f).read_text(), f
+
+
+@pytest.mark.parametrize("shape", [(12, 2, 96), (34, 2, 128), (18, 2, 64),
+                                   (40, 4, 128), (8, 8, 256)],
+                         ids=["hd96", "g17", "hd64-g9", "g10", "hd256"])
+@pytest.mark.parametrize("which", ["paged", "ragged"])
+def test_wrappers_refuse_an_unbuilt_shape(shape, which):
+    """A shape the kernels are not built for raises, naming the shape,
+    before anything is launched (here: before the operands' device is
+    looked at): no quiet switch to the plain version."""
+    from repro_torch.kernels.paged_attention import \
+        paged_decode_attention_cuda
+    from repro_torch.kernels.ragged_attention import \
+        ragged_decode_attention_cuda
+
+    nh, nkv, hd = shape
+    q = torch.zeros((2, nh, hd), dtype=torch.bfloat16)
+    pool = torch.zeros((4, 16, nkv, hd), dtype=torch.bfloat16)
+    tbl = torch.zeros((2, 2), dtype=torch.int32)
+    lp = torch.zeros((2,), dtype=torch.int32)
+    with pytest.raises(ValueError, match=f"head dim {hd} with {nh // nkv} "
+                                         "query heads per KV head is not "
+                                         "built"):
+        if which == "paged":
+            paged_decode_attention_cuda(q, pool, pool, tbl, lp)
+        else:
+            ragged_decode_attention_cuda(q, pool, pool, tbl, lp, lp)
 
 
 # ------------------------------------------------------ (b) arithmetic ----
@@ -216,16 +270,17 @@ def emulate(q, k, v, tbl, last_pos, k_scale=None, v_scale=None,
     return out.reshape(B, Hq, hd).bfloat16()
 
 
-def _inputs(seed, B, ps, pps, last, pool):
+def _inputs(seed, B, ps, pps, last, pool, shape=(H, KV, HD)):
     """Seeded numpy inputs, as JAX arrays and as CPU tensors: q, pools
     (bf16, or quantized per (token, head) by the JAX package's quantize_kv),
     and a table on distinct shuffled pages with sentinel (== P) entries
-    past each row's last position."""
+    past each row's last position; `shape` is (H, KV, HD)."""
+    nh, nkv, hd = shape
     rng = np.random.default_rng(seed)
     P = B * pps + 3
-    q32 = rng.standard_normal((B, H, HD)).astype(np.float32)
-    k32 = rng.standard_normal((P, ps, KV, HD)).astype(np.float32)
-    v32 = rng.standard_normal((P, ps, KV, HD)).astype(np.float32)
+    q32 = rng.standard_normal((B, nh, hd)).astype(np.float32)
+    k32 = rng.standard_normal((P, ps, nkv, hd)).astype(np.float32)
+    v32 = rng.standard_normal((P, ps, nkv, hd)).astype(np.float32)
     tbl = np.full((B, pps), P, np.int32)
     pages = rng.permutation(P).astype(np.int32)
     used = 0
@@ -268,42 +323,60 @@ CASES = [(pool, window) for pool in ("bfloat16", "int8", "int4")
          for window in (0, 21)]
 
 
-@pytest.fixture(scope="module")
-def results():
-    """{(pool, window): {name: [B, H, HD] float32 outputs}}: the emulation,
-    the port's plain version, the JAX package's XLA twin and its Pallas
-    kernel (interpret mode), computed once per case."""
-    out = {}
-    for pool, window in CASES:
-        jx, th = _inputs(17, len(LAST), 16, 32, LAST, pool)
-        args = (jx["q"], jx["k"], jx["v"], jx["tbl"], jx["last"], jx["ks"],
-                jx["vs"])
-        out[(pool, window)] = {
-            "emulation": emulate(th["q"], th["k"], th["v"], th["tbl"],
-                                 th["last"], th["ks"], th["vs"], window),
-            "plain": paged_decode_attention_plain(
-                th["q"], th["k"], th["v"], th["tbl"], th["last"], th["ks"],
-                th["vs"], window=window),
-            "xla": _f32(jpa.paged_decode_attention_xla(*args, window=window,
-                                                       pp=4)),
-            "pallas": _f32(jpa.paged_decode_attention(*args, window=window,
-                                                      pp=4, interpret=True)),
-        }
-    return out
+_RESULTS = {}
 
 
-@pytest.mark.parametrize("pool,window", CASES)
-@pytest.mark.parametrize("ref", ["xla", "pallas", "plain"])
-def test_emulation_matches_the_reference(results, pool, window, ref):
-    r = results[(pool, window)]
+def _results(shape):
+    """{(pool, window): {name: [B, H, HD] outputs}} at `shape`: the
+    emulation, the port's plain version, the JAX package's XLA twin and its
+    Pallas kernel (interpret mode), computed once per shape and case."""
+    if shape not in _RESULTS:
+        out = {}
+        for pool, window in CASES:
+            jx, th = _inputs(17, len(LAST), 16, 32, LAST, pool, shape)
+            args = (jx["q"], jx["k"], jx["v"], jx["tbl"], jx["last"],
+                    jx["ks"], jx["vs"])
+            out[(pool, window)] = {
+                "emulation": emulate(th["q"], th["k"], th["v"], th["tbl"],
+                                     th["last"], th["ks"], th["vs"], window),
+                "plain": paged_decode_attention_plain(
+                    th["q"], th["k"], th["v"], th["tbl"], th["last"],
+                    th["ks"], th["vs"], window=window),
+                "xla": _f32(jpa.paged_decode_attention_xla(
+                    *args, window=window, pp=4)),
+            }
+            if (shape, pool, window, "pallas") in REF_CASES:
+                out[(pool, window)]["pallas"] = _f32(
+                    jpa.paged_decode_attention(*args, window=window, pp=4,
+                                               interpret=True))
+        _RESULTS[shape] = out
+    return _RESULTS[shape]
+
+
+#: (shape, pool, window, reference) of each emulation check: every case
+#: at every shape against the XLA twin and the plain version; against the
+#: Pallas kernel in interpret mode every case at qwen2-0.5b's shape and the
+#: unwindowed ones at the others (an interpret-mode compile a case, ~1 s)
+REF_CASES = [(shape, pool, window, ref) for shape in SHAPES
+             for pool, window in CASES for ref in ("xla", "pallas", "plain")
+             if ref != "pallas" or shape == SHAPES[0] or not window]
+
+
+@pytest.mark.parametrize(
+    "shape,pool,window,ref", REF_CASES,
+    ids=[f"{r}-{p}-{w}-{h}x{kv}x{d}" for (h, kv, d), p, w, r in REF_CASES])
+def test_emulation_matches_the_reference(shape, pool, window, ref):
+    r = _results(shape)[(pool, window)]
     got = r["emulation"].float()
+    assert got.shape == (len(LAST), shape[0], shape[2])
     err = (got - r[ref].float()).abs().max().item()
-    assert err <= ATOL, (pool, window, ref, err)
+    assert err <= ATOL, (shape, pool, window, ref, err)
 
 
+@pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
 @pytest.mark.parametrize("pool,window", CASES)
-def test_emulation_idle_row_is_exactly_zero(results, pool, window):
-    got = results[(pool, window)]["emulation"]
+def test_emulation_idle_row_is_exactly_zero(shape, pool, window):
+    got = _results(shape)[(pool, window)]["emulation"]
     idle = [b for b, lp in enumerate(LAST) if lp < 0]
     assert torch.equal(got[idle], torch.zeros_like(got[idle]))
     assert torch.isfinite(got.float()).all()
@@ -337,11 +410,12 @@ def test_emulation_other_plans(ps, pps, last, window):
     assert not got[idle].any()
 
 
-def test_decode_only_ragged_pack_is_the_paged_batch():
+@pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
+def test_decode_only_ragged_pack_is_the_paged_batch(shape):
     """The plain versions: a decode-only pack (one row per slot at its last
     position) gives the paged batch's output, the property the card check
     holds the two kernels to bit for bit."""
-    _, th = _inputs(29, len(LAST), 16, 32, LAST, "int4")
+    _, th = _inputs(29, len(LAST), 16, 32, LAST, "int4", shape)
     slots = torch.arange(len(LAST), dtype=torch.int32)
     paged = paged_decode_attention_plain(th["q"], th["k"], th["v"],
                                          th["tbl"], th["last"], th["ks"],

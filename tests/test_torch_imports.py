@@ -59,7 +59,10 @@ def test_port_imports_neither_jax_nor_the_reference():
                  "repro_torch.core.pipeline_mult",
                  "repro_torch.launch.sensitivity",
                  "repro_torch.models.rglru",
-                 "repro_torch.configs.recurrentgemma_9b"):
+                 "repro_torch.configs.recurrentgemma_9b",
+                 "repro_torch.configs.qwen3_4b",
+                 "repro_torch.configs.qwen2_vl_2b",
+                 "repro_torch.configs.internlm2_20b"):
         assert name in report["modules"]
 
 
