@@ -20,7 +20,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
                  recurrentgemma-9b's (4096, 4096), (4096, 256), (4096,
                  12288) and (12288, 4096) at M = 8 and 256, timed, two
                  calls bit-equal, and so at qwen3-4b's, qwen2-vl-2b's and
-                 internlm2-20b's projections, DENSE_GEMM_SHAPES), the
+                 internlm2-20b's, starcoder2-7b's, musicgen-large's,
+                 arctic-480b's (attention and dense FFN) and
+                 llama4-maverick's (attention and shared expert)
+                 projections, DENSE_GEMM_SHAPES), the
                  attention kernels
                  within atol 2e-2 (bf16) on bf16, int8 and int4 pools with
                  padding rows exactly 0 (flash prefill at the prompt
@@ -34,7 +37,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
                  -sass` shows HMMA in every
                  flash kernel), paged decode and the ragged kernel at
                  every DECODE_SHAPES shape (hd 64 at qwen2-0.5b's 14 heads
-                 over 2 and at G = 1, hd 128 at G = 4, 6 and 9) with
+                 over 2 and at G = 1, hd 128 at G = 4, 5, 6, 7 and 9) with
                  and without a window, two calls bit-equal, each one's
                  split plan, ptxas report (no spill) and floor (an empty
                  launch of the same grid and cluster) printed, and a
@@ -159,15 +162,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
                  256, the Poisson trace, captured and eager, the build's
                  time and peak memory printed; the GEMM 8 times an R layer
                  and 7 an A layer a forward, flash once an attention layer
-                 a prefill, no decode attention kernel).  Then the dense
-                 head-dim-128 configs (`dense_runs`) on the paged layout
+                 a prefill, no decode attention kernel).  Then the paged
+                 configs (`dense_runs`) on the paged layout
                  and the Poisson trace, W4A4-packed projections, flash
                  prefill, bf16 pool, bucketed, captured and eager:
                  qwen3-4b (36 layers, qk_norm; also the mixed trace on the
-                 ragged step with an int8 pool, and its captured decode
-                 step profiled), qwen2-vl-2b (28 layers, M-RoPE) and
-                 internlm2-20b at 12 of its 48 layers (RUN_LAYERS); the
-                 GEMM 7 times a layer a forward, flash once a layer a
+                 ragged step with an int8 pool at 8 of its layers, and its
+                 captured decode step profiled), qwen2-vl-2b (8 of its 28
+                 layers, M-RoPE),
+                 internlm2-20b (all 48 layers, built a layer at a time),
+                 starcoder2-7b (32 layers, GELU FFN with biases),
+                 musicgen-large (48 layers, sinusoidal positions, MHA at
+                 hd 64), arctic-480b and llama4-maverick at MOE_LAYERS
+                 layers (RUN_LAYERS; every expert of a layer on the card,
+                 layer 0's MoE block first held two calls bit-equal at a
+                 decode batch and a prefill); the GEMM 7 times a layer a
+                 forward (6 for the GELU configs), flash once a layer a
                  prefill, paged decode (or the ragged kernel) once a layer
                  a step.
   5. cpu      -- full width cut to 2 layers, on cuda and on cpu with the
@@ -191,7 +201,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
                  bucketed: W4A4 weights in float32 (within
                  CPU_W4A4_F32_ATOL: qk_norm and M-RoPE against the CPU
                  path) and float weights in bf16 through flash prefill and
-                 paged decode at hd 128 (within CPU_ATOL).
+                 paged decode at hd 128 (within CPU_ATOL); starcoder2-7b
+                 and arctic-480b, W4A4 weights in float32, arctic's routed
+                 expert ids equal on both devices, both within
+                 CPU_W4A4_F32_ATOL.
 
 The line before the last is a JSON object with every kernel's launches,
 error and times; the last line is {"ok": true, "device": {...}}.
@@ -236,13 +249,20 @@ LAYERS = 24
 #: time as later slices add runs: the W4A16, lut4, shared-prefix and chaos
 #: runs at 8 of 24 layers (the lut4 run's tokens are held to a W4A4 run at
 #: the same depth), and since the dense hd-128 runs the contiguous layout's
-#: and the compare harness's; internlm2-20b at 12 of its 48 layers (its
-#: full-depth f32 masters, ~79 GB, do not fit the 80 GB card beside the
-#: packed weights)
+#: and the compare harness's; since the GELU and MoE runs, qwen2-vl-2b's
+#: run and qwen3-4b's ragged run (the first 8 layers of its 36-layer
+#: weights; its bucketed run and profile stay at 36).  The MoE configs at
+#: MOE_LAYERS of their 35 and 48: every expert lives on the one card
+#: (arctic-480b's packed layer is 6.9 GB, llama4-maverick's 8.2 GB).
+#: internlm2-20b runs all 48 layers since the build packs a layer at a
+#: time (its f32 masters, ~79 GB, never exist at once).
+MOE_LAYERS = 4
 RUN_LAYERS = {**dict.fromkeys(("w4a16", "lut4", "prefix_bucketed",
                                "prefix_ragged", "chaos", "contiguous",
-                               "compare"), 8),
-              "internlm2-20b": 12}
+                               "compare", "qwen2-vl-2b", "qwen3-4b ragged"),
+                              8),
+              **dict.fromkeys(("arctic-480b", "llama4-maverick-400b-a17b"),
+                              MOE_LAYERS)}
 
 
 def _w4a4_params(n_layers: int):
@@ -494,9 +514,9 @@ MAMBA_TIMED_ROWS = (MAX_BATCH, PROMPT_BUCKET)
 HYBRID_GEMM_SHAPES = (((4096, 4096), (5, 2)), ((4096, 256), (0, 2)),
                       ((4096, 12288), (2, 2)), ((12288, 4096), (1, 1)))
 HYBRID_GEMM_ROWS = (MAX_BATCH, PROMPT_BUCKET)
-#: the dense hd-128 configs' projections, (K, N) and how many of each a
-#: layer runs: wq and wo; wk and wv; w_in and w_gate; w_out (qwen2-vl-2b's
-#: wq and wo share a shape, as do internlm2-20b's)
+#: the paged configs' projections, (K, N) and how many of each a layer
+#: runs: wq and wo; wk and wv; w_in and w_gate; w_out (qwen2-vl-2b's wq and
+#: wo share a shape, as do internlm2-20b's)
 DENSE_GEMM_SHAPES = {
     "qwen3-4b": (((2560, 4096), 1), ((2560, 1024), 2), ((4096, 2560), 1),
                  ((2560, 9728), 2), ((9728, 2560), 1)),
@@ -504,6 +524,20 @@ DENSE_GEMM_SHAPES = {
                     ((8960, 1536), 1)),
     "internlm2-20b": (((6144, 6144), 2), ((6144, 1024), 2),
                       ((6144, 16384), 2), ((16384, 6144), 1)),
+    # GELU FFNs (w_in, w_out; no w_gate): wq and wo; wk and wv (G = 9);
+    # w_in; w_out.  musicgen-large's four attention projections share one
+    # shape (MHA at hd 64)
+    "starcoder2-7b": (((4608, 4608), 2), ((4608, 512), 2),
+                      ((4608, 18432), 1), ((18432, 4608), 1)),
+    "musicgen-large": (((2048, 2048), 4), ((2048, 8192), 1),
+                       ((8192, 2048), 1)),
+    # MoE: the attention, then arctic-480b's dense residual FFN and
+    # llama4-maverick's shared expert (SwiGLU); the experts run as batched
+    # GEMMs outside the kernel
+    "arctic-480b": (((7168, 7168), 2), ((7168, 1024), 2),
+                    ((7168, 4864), 2), ((4864, 7168), 1)),
+    "llama4-maverick-400b-a17b": (((5120, 5120), 2), ((5120, 1024), 2),
+                                  ((5120, 8192), 2), ((8192, 5120), 1)),
 }
 
 
@@ -1071,14 +1105,17 @@ def decode_inputs(torch, gen, shape=(H, KV, HD)):
     return q, tbl, lp, _pools(torch, gen, DECODE_PAGES, PAGE_SIZE, nkv, hd)
 
 
-#: the decode kernels' checked shapes, label -> (H, KV, hd): qwen2-0.5b's
-#: (the top level of the kernels line), the three dense hd-128 configs
-#: served in phase 4, starcoder2-7b's G = 9 (the most a KV head at hd 128)
-#: and musicgen-large's G = 1 at hd 64 (both built, not yet served)
+#: the decode kernels' shapes (H, KV, hd) at the serving table: qwen2-0.5b's
+#: (the top level of the kernels line) and every paged config's served in
+#: phase 4: hd 128 at G = 4 (qwen3-4b), 6 (qwen2-vl-2b, internlm2-20b),
+#: 9 (starcoder2-7b), 7 (arctic-480b), 5 (llama4-maverick), hd 64 at G = 1
+#: (musicgen-large)
 DECODE_SHAPES = {"qwen2-0.5b": (H, KV, HD), "qwen3-4b": (32, 8, 128),
                  "qwen2-vl-2b": (12, 2, 128), "internlm2-20b": (48, 8, 128),
-                 "G=9 (starcoder2-7b)": (36, 4, 128),
-                 "G=1 (musicgen-large)": (32, 32, 64)}
+                 "starcoder2-7b": (36, 4, 128),
+                 "musicgen-large": (32, 32, 64),
+                 "arctic-480b": (56, 8, 128),
+                 "llama4-maverick": (40, 8, 128)}
 
 
 def check_decode(torch, timer):
@@ -1530,7 +1567,7 @@ SERVE_RUNS = {
                       ("flash_prefill", "paged_decode_attention",
                        "w4a16_matmul", "lut4_matmul")),
 }
-#: the GEMM each serve run's projections go through (GEMMS_A_BLOCK
+#: the GEMM each serve run's projections go through (`gemms_a_block`
 #: launches a block a forward)
 RUN_GEMM = {"bucketed": "int4_matmul_fused", "ragged": "int4_matmul_fused",
             "w4a16": "w4a16_matmul", "lut4": "lut4_matmul",
@@ -1538,17 +1575,26 @@ RUN_GEMM = {"bucketed": "int4_matmul_fused", "ragged": "int4_matmul_fused",
             "prefix_ragged": "int4_matmul_fused",
             "contiguous": "int4_matmul_fused", "mamba": "int4_matmul_fused",
             "hybrid": "int4_matmul_fused", "dense": "int4_matmul_fused"}
-#: GEMM launches of one block a forward: attention (wq, wk, wv, wo) and
-#: its FFN (w_in, w_gate, w_out); Mamba-2 (in_proj, out_proj); RG-LRU
-#: (in_x, in_g, w_a, w_x, out) and its FFN
-GEMMS_A_BLOCK = {"A": 7, "M": 2, "R": 8}
+def gemms_a_block(bt: str, cfg) -> int:
+    """GEMM launches of one block a forward: Mamba-2 2 (in_proj,
+    out_proj); attention 4 (wq, wk, wv, wo) or RG-LRU 5 (in_x, in_g, w_a,
+    w_x, out), then its FFN, 3 for SwiGLU (w_in, w_gate, w_out) and 2 for
+    GELU; an MoE block's attention, then its shared expert or dense
+    residual FFN (its experts are batched GEMMs outside the kernel)."""
+    if bt == "M":
+        return 2
+    ffn = 3 if cfg.ffn_type == "swiglu" else 2
+    mixer = 4 if bt == "A" else 5
+    if bt == "A" and cfg.family == "moe":
+        return mixer + ffn * (bool(cfg.shared_expert) + bool(cfg.moe_dense_ff))
+    return mixer + (ffn if cfg.d_ff else 0)
 
 
 def gemms_a_forward(cfg) -> int:
     """The GEMM launches of one forward of `cfg`'s stack (recurrentgemma-9b
     at 38 layers: 26 x 8 + 12 x 7 = 292)."""
     blocks = tuple(cfg.pattern) * cfg.n_repeats + tuple(cfg.tail)
-    return sum(GEMMS_A_BLOCK[bt] for bt in blocks)
+    return sum(gemms_a_block(bt, cfg) for bt in blocks)
 
 
 #: the decode attention kernel of the runs that launch none: the
@@ -2220,20 +2266,23 @@ def hybrid_runs(torch):
     return n
 
 
-#: the dense hd-128 configs served in phase 4, at full width: their depth
-#: (RUN_LAYERS cuts internlm2-20b) and whether the run also serves the
+#: the paged configs served in phase 4 at full width: their depth
+#: (RUN_LAYERS cuts the MoE configs) and whether the run also serves the
 #: ragged step on an int8 pool and profiles its captured decode step
 DENSE_RUNS = (("qwen3-4b", True), ("qwen2-vl-2b", False),
-              ("internlm2-20b", False))
+              ("internlm2-20b", False), ("starcoder2-7b", False),
+              ("musicgen-large", False), ("arctic-480b", False),
+              ("llama4-maverick-400b-a17b", False))
 
 
-def _dense_launches(label, n, step, layers):
-    """The dense runs' launch gates: the W4A4 GEMM 7 times a layer a
-    forward; bucketed: flash prefill once a layer a prefill and paged
-    decode once a layer a decode step (every forward is one or the other:
-    the two counts together are the GEMM's over 7), no ragged kernel;
-    ragged: the ragged kernel once a layer a step, no flash or paged
-    decode; never the W4A16 or lut4 GEMMs."""
+def _dense_launches(label, n, step, layers, per_layer):
+    """The paged runs' launch gates: the W4A4 GEMM `per_layer` times a
+    layer a forward (`gemms_a_block`); bucketed: flash prefill once a
+    layer a prefill and paged decode once a layer a decode step (every
+    forward is one or the other: the two counts together are the GEMM's
+    over `per_layer`), no ragged kernel; ragged: the ragged kernel once a
+    layer a step, no flash or paged decode; never the W4A16 or lut4
+    GEMMs."""
     gemm = n["int4_matmul_fused"]
     if step == "bucketed":
         must = ("int4_matmul_fused", "flash_prefill", "paged_decode_attention")
@@ -2248,30 +2297,105 @@ def _dense_launches(label, n, step, layers):
         attn = n["ragged_decode_attention"]
         per = (attn % layers,)
     _check_launches(label, n, must, must_not, "int4_matmul_fused",
-                    7 * layers)
-    if any(per) or 7 * attn != gemm:
+                    per_layer * layers)
+    if any(per) or per_layer * attn != gemm:
         fail(f"serve ({label}): attention launches {json.dumps(n)} are not "
-             f"one a layer a forward ({gemm // (7 * layers)} forwards of "
-             f"{layers} layers)")
-    return gemm // (7 * layers)
+             f"one a layer a forward ({gemm // (per_layer * layers)} "
+             f"forwards of {layers} layers)")
+    return gemm // (per_layer * layers)
+
+
+def _first_layers(params, n: int):
+    """The first `n` layers of a stacked parameter tree (views)."""
+    def cut(tree):
+        if isinstance(tree, dict):
+            return {k: cut(v) for k, v in tree.items()}
+        return tree[:n]
+    return {**params, "layers": cut(params["layers"])}
+
+
+def _unpacked(block) -> list:
+    """The projections of one block that the W4A4 plan left unpacked: the
+    attention's, the FFN's, an MoE block's shared or dense FFN's, and its
+    expert stacks (packed per channel, without a K-major twin)."""
+    out = [f"attn.{k}" for k in ("wq", "wk", "wv", "wo")
+           if "packed" not in block["attn"][k]]
+    for side in ("ffn", "shared", "dense_ffn"):
+        out += [f"{side}.{k}" for k, w in block.get(side, {}).items()
+                if k.startswith("w_") and "packed" not in w]
+    if "moe" in block:
+        out += [f"moe.experts.{k}"
+                for k, w in block["moe"]["experts"].items()
+                if "packed" not in w or "packed_km" in w]
+    return out
+
+
+def moe_two_calls(torch, timer, cfg, block, rt):
+    """The MoE block of layer 0 at full width on the card (`apply_moe`, the
+    serving path's bf16 activations), twice on the same inputs: at a decode
+    batch (MAX_BATCH rows: only the experts its tokens route to run) and
+    at a prefill (2 x PROMPT_BUCKET rows: every expert runs).  Fails unless
+    the two calls are bit-equal and finite; prints the experts that took a
+    token, the tokens dropped past capacity and the block's time."""
+    from repro_torch.models import moe
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    p = block["moe"]
+    for B, S in ((MAX_BATCH, 1), (2, PROMPT_BUCKET)):
+        x = torch.randn((B, S, cfg.d_model), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        route = {}
+
+        def call():
+            return moe.apply_moe(p, x, cfg, rt, site="block[0].moe")
+        with torch.inference_mode():
+            a, b = call(), call()
+            moe._moe_shard(x.reshape(B * S, -1), p["router"]["w"],
+                           p["experts"], e_start=0, n_local=cfg.n_experts,
+                           cfg=cfg, rt=rt, site="block[0].moe",
+                           dispatch=route)
+            ms = timer.ms(call, reps=5, warmup=1)
+        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+            fail(f"moe ({cfg.name}, {B} x {S}): two calls on the same inputs "
+                 "differ")
+        if not torch.isfinite(a[0].float()).all():
+            fail(f"moe ({cfg.name}, {B} x {S}): non-finite output")
+        T = B * S
+        used = route["idx"].unique().numel()
+        dropped = int((~route["local"]).sum())
+        say(f"moe ({cfg.name}): {B} x {S} rows, top-{cfg.top_k} of "
+            f"{cfg.n_experts}, capacity {moe._capacity(T, cfg)}: two calls "
+            f"bit-equal; {used} experts took a token, "
+            f"{min(T * cfg.top_k, cfg.n_experts)} ran, {dropped} of "
+            f"{T * cfg.top_k} assignments dropped; {ms:.3f} ms a call")
 
 
 def dense_runs(torch):
-    """The dense head-dim-128 configs at full width (random weights from
-    SEED), W4A4-packed projections, served through the paged layout on the
+    """The paged configs at full width (random weights from SEED),
+    W4A4-packed projections, served through the paged layout on the
     Poisson trace (page 16, max_ctx 512, max batch 8, flash prefill, bf16
     pool, the bucketed step): qwen3-4b (36 layers, qk_norm, 32 heads over
-    8, untied float lm_head), qwen2-vl-2b (28 layers, M-RoPE on the text
-    positions, 12 heads over 2, qkv bias, tied embeddings) and
-    internlm2-20b (48 heads over 8, d_model 6144, cut to RUN_LAYERS' 12 of
-    48 layers).  Each run captured, then eager: every request ok with
-    tokens in [0, vocab), launches per `_dense_launches`, captured tokens
-    and launches equal to eager.  qwen3-4b also serves the mixed trace on
-    the ragged step with an int8 pool (captured, then eager) and
-    `profile_steps` runs on its captured bucketed decode step.  Prints
-    each build's time and the card's peak memory.  Returns the captured
-    runs' launches, summed."""
+    8, untied float lm_head), qwen2-vl-2b (M-RoPE on the text
+    positions, 12 heads over 2, qkv bias, tied embeddings), internlm2-20b
+    (48 layers, 48 heads over 8, d_model 6144), starcoder2-7b (32 layers,
+    GELU FFN with biases, qkv bias, 36 heads over 4), musicgen-large (48
+    layers, sinusoidal positions, 32 heads over 32 at hd 64, vocab 2048),
+    arctic-480b (top-2 of 128 experts beside a dense residual FFN, 56
+    heads over 8) and llama4-maverick (top-1 of 128 beside a shared
+    expert, 40 heads over 8), the MoE configs and qwen2-vl-2b cut to
+    RUN_LAYERS' depth.
+    Each run captured, then eager: every request ok with tokens in [0,
+    vocab), launches per `_dense_launches` (the W4A4 GEMM 7 times a layer
+    a forward, 6 for the GELU configs), captured tokens and launches
+    equal to eager.  qwen3-4b also serves the mixed trace on the ragged
+    step with an int8 pool on its first RUN_LAYERS["qwen3-4b ragged"]
+    layers (captured, then eager) and `profile_steps` runs
+    on its captured bucketed decode step; the MoE configs' layer-0 block
+    is held two calls bit-equal first (`moe_two_calls`).  Prints each
+    build's time, the card's peak memory during it and what it holds
+    after.  Returns the captured runs' launches, summed."""
     from repro_torch.configs import Runtime, get_config
+    from repro_torch.core.quant_plan import layer_slice
     from repro_torch.serving.api import mixed_trace, poisson_trace
     from repro_torch.serving.engine import build_params
 
@@ -2291,35 +2415,45 @@ def dense_runs(torch):
         build_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() - mem0
         held = torch.cuda.memory_allocated() - mem0
-        block = params["layers"]["u0"]
-        unpacked = [k for k in ("wq", "wk", "wv", "wo")
-                    if "packed" not in block["attn"][k]]
-        unpacked += [k for k in ("w_in", "w_gate", "w_out")
-                     if "packed" not in block["ffn"][k]]
+        unpacked = _unpacked(params["layers"]["u0"])
         if unpacked:
             fail(f"dense ({arch}): {unpacked} were not pre-packed")
+        per_layer = gemms_a_block("A", cfg)
+        moe_txt = (f", {cfg.n_experts} experts top-{cfg.top_k} of d_ff "
+                   f"{cfg.d_ff_expert}, shared {cfg.shared_expert}, dense "
+                   f"FFN {cfg.moe_dense_ff}" if cfg.family == "moe" else "")
         say(f"dense: built full-width {arch} ({cfg.n_layers} of "
             f"{base.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
-            f"heads over {cfg.n_kv_heads} at hd {cfg.hd}, d_ff {cfg.d_ff}, "
-            f"vocab {cfg.vocab}, qk_norm {cfg.qk_norm}, rope {cfg.rope}, "
-            f"tied {cfg.tie_embeddings}) in {build_s:.1f} s; the card's peak "
-            f"during the build {peak / 2**30:.2f} GiB, held after it "
-            f"{held / 2**30:.2f} GiB")
+            f"heads over {cfg.n_kv_heads} at hd {cfg.hd}, d_ff {cfg.d_ff} "
+            f"{cfg.ffn_type}, mlp bias {cfg.mlp_bias}, vocab {cfg.vocab}, "
+            f"qk_norm {cfg.qk_norm}, rope {cfg.rope}, tied "
+            f"{cfg.tie_embeddings}{moe_txt}; {per_layer} GEMMs a layer) in "
+            f"{build_s:.1f} s; the card's peak during the build "
+            f"{peak / 2**30:.2f} GiB, held after it {held / 2**30:.2f} GiB")
+        if cfg.family == "moe":
+            moe_two_calls(torch, Timer(torch), cfg,
+                          layer_slice(params["layers"]["u0"], 0), rt)
         runs = [("bucketed", "bfloat16", poisson_trace(
-            8, 0.5, PROMPT_LENS, GEN_LENS, cfg.vocab, seed=SEED))]
+            8, 0.5, PROMPT_LENS, GEN_LENS, cfg.vocab, seed=SEED), cfg,
+            params)]
         if more:
+            n_cut = RUN_LAYERS[f"{arch} ragged"]
             runs.append(("ragged", "int8", mixed_trace(
-                8, PROMPT_LENS, (16, 32), cfg.vocab, seed=SEED)))
-        for step, pool, trace in runs:
+                8, PROMPT_LENS, (16, 32), cfg.vocab, seed=SEED),
+                dataclasses.replace(cfg, n_layers=n_cut),
+                _first_layers(params, n_cut)))
+        for step, pool, trace, cfg_run, params_run in runs:
             rt_run = dataclasses.replace(rt, cache_dtype=pool)
             sv = _sv(step=step)
             out = {}
             for mode in ("graphs", "eager"):
-                label = f"{arch}, {step}, {pool} pool, {mode}"
+                label = (f"{arch}, {step}, {cfg_run.n_layers} layers, {pool} "
+                         f"pool, {mode}")
                 engine, n, stats, tokens = serve_engine(
-                    torch, cfg, params, rt_run, sv, trace, PROMPT_LENS,
-                    label, eager=mode == "eager")
-                forwards = _dense_launches(label, n, step, cfg.n_layers)
+                    torch, cfg_run, params_run, rt_run, sv, trace,
+                    PROMPT_LENS, label, eager=mode == "eager")
+                forwards = _dense_launches(label, n, step, cfg_run.n_layers,
+                                           per_layer)
                 if mode == "graphs" and more and step == "bucketed":
                     prof = profile_steps(torch, engine, cfg.vocab, "dense")
                     att = engine.profile()
@@ -2340,7 +2474,7 @@ def dense_runs(torch):
             launches.append(n)
             say(f"serve ({arch}, {step}): every request's tokens and the "
                 "kernel launches equal the eager run's")
-        del params
+        del params, runs
         torch.cuda.empty_cache()
         say(f"dense: {arch} in {time.perf_counter() - t0:.1f} s")
     return {k: sum(n[k] for n in launches) for k in launches[0]}
@@ -3025,15 +3159,21 @@ def _replay_ms(torch, captured):
 
 
 # ------------------------------------------------------------ phase 5 ----
-def _two_devices(torch, rt, arch="qwen2-0.5b"):
+def _two_devices(torch, rt, arch="qwen2-0.5b", prompt_len=(40, 64),
+                 routes=None):
     """`arch` at full width cut to 2 layers, the same weights on both
-    devices: one prefill of a left-padded prompt and three decode steps fed
-    fixed tokens (so a flipped argmax cannot send the two runs down
-    different paths).  Returns {device: logits [4, vocab] f32 on the CPU}
-    and the launch counts of the card's run."""
+    devices: one prefill of a left-padded prompt (`prompt_len`: its tokens
+    and the padded length) and three decode steps fed fixed tokens (so a
+    flipped argmax cannot send the two runs down different paths).  With
+    `routes` (a dict), the expert ids each MoE block routed to are
+    appended under each device, call by call.  Returns {device: logits [4,
+    vocab] f32 on the CPU} and the launch counts of the card's run."""
+    from unittest import mock
+
     from repro_torch.configs import ServingConfig, get_config
     from repro_torch.convert import tree_to
     from repro_torch.kernels import ops
+    from repro_torch.models import moe
     from repro_torch.models.transformer import decode_step, prefill
     from repro_torch.serving.engine import build_params
     from repro_torch.serving.kv_pages import (init_paged_caches,
@@ -3045,7 +3185,7 @@ def _two_devices(torch, rt, arch="qwen2-0.5b"):
     params_gpu = build_params(cfg, rt, seed=SEED + 5, device="cuda")
     params_cpu = tree_to(params_gpu, "cpu")
     gen = torch.Generator().manual_seed(SEED + 6)
-    L, Lb = 40, 64
+    L, Lb = prompt_len
     prompt = torch.randint(0, cfg.vocab, (L,), generator=gen)
     feed = torch.randint(0, cfg.vocab, (3,), generator=gen)
     tokens = torch.zeros((1, Lb), dtype=torch.int32)
@@ -3054,8 +3194,19 @@ def _two_devices(torch, rt, arch="qwen2-0.5b"):
     positions = torch.where(base >= 0, base, -1)[None]
     tbl = torch.arange(sv.pages_per_seq, dtype=torch.int32)[None]
     logits = {}
-    with torch.inference_mode():
+    real = moe._moe_shard
+
+    def shard(*args, **kw):
+        route = {}
+        out = real(*args, dispatch=route, **kw)
+        routes[dev].append(route["idx"].cpu())
+        return out
+
+    with torch.inference_mode(), mock.patch.object(
+            moe, "_moe_shard", shard if routes is not None else real):
         for dev, params in (("cuda", params_gpu), ("cpu", params_cpu)):
+            if routes is not None:
+                routes[dev] = []
             if dev == "cuda":
                 ops.reset_launch_counts()
             caches = with_block_tables(
@@ -3246,6 +3397,13 @@ def _compare(torch, what, logits, launches):
     return diff.max().item(), corr.item()
 
 
+#: phase 5's GELU and MoE readings: the config and its prompt (tokens,
+#: padded length).  arctic-480b's prompt is short: the CPU dequantizes the
+#: experts a step's rows route to, at most 32 of the 128 for 16 rows at
+#: top-2, as the card does
+CPU_GELU_MOE = (("starcoder2-7b", (40, 64)), ("arctic-480b", (12, 16)))
+
+
 def _w4a16_cpu_runs():
     """Phase 5's runs of the third slice: W4A16 in bf16, per channel and
     grouped (no activation quantize, so no int4 rounding boundary amplifies
@@ -3303,9 +3461,13 @@ def phase_cpu(torch):
     W4A4 weights in float32, a prefill and three decode steps on
     contiguous caches, logits within CPU_W4A4_F32_ATOL; last, full-width
     recurrentgemma-9b at 5 layers (`_two_devices_hybrid`), the same
-    reading and bound.
+    reading and bound.  Before those, starcoder2-7b and arctic-480b at
+    full width, 2 layers (CPU_GELU_MOE), W4A4 weights in float32: for
+    arctic the expert ids every MoE block routed to must be equal on both
+    devices (any flipped assignment is printed), then the logits within
+    CPU_W4A4_F32_ATOL for both.
     """
-    from repro_torch.configs import Runtime
+    from repro_torch.configs import Runtime, get_config
 
     runs = (
         ("float weights, bf16",
@@ -3369,6 +3531,38 @@ def phase_cpu(torch):
             if err > atol:
                 fail(f"cpu: {what}: card and CPU logits differ by {err:.6g} "
                      f"> {atol}")
+    f32 = Runtime(attn_impl="chunked", paged_attn="gather",
+                  quant_backend="w4a4_packed", compute_dtype="float32",
+                  cache_dtype="float32")
+    for arch, prompt_len in CPU_GELU_MOE:
+        cfg = dataclasses.replace(get_config(arch), n_layers=2)
+        routes = {} if cfg.family == "moe" else None
+        logits, launches = _two_devices(torch, f32, arch, prompt_len, routes)
+        what = (f"{arch}, W4A4 weights, float32, 2 layers at full width, "
+                f"prefill of {prompt_len[0]} tokens (padded to "
+                f"{prompt_len[1]}) + 3 decode steps")
+        if routes is not None:
+            gpu, cpu = routes["cuda"], routes["cpu"]
+            flips = [(c, t, a[t].tolist(), b[t].tolist())
+                     for c, (a, b) in enumerate(zip(gpu, cpu))
+                     for t in range(a.shape[0]) if not torch.equal(a[t], b[t])]
+            say(f"cpu: {what}: the routed expert ids of {len(gpu)} MoE calls "
+                f"({sum(r.numel() for r in gpu)} assignments): "
+                f"{len(flips)} differ between card and CPU"
+                + "".join(f"; call {c} row {t}: card {a}, cpu {b}"
+                          for c, t, a, b in flips))
+            if flips or len(gpu) != len(cpu) or not gpu:
+                fail(f"cpu: {what}: the card and the CPU routed tokens to "
+                     "other experts")
+        err, _ = _compare(torch, what, logits, launches)
+        readings[what] = err
+        if launches["int4_matmul_fused"] != gemms_a_forward(cfg) * 4:
+            fail(f"cpu: {what}: the card's run launched the W4A4 GEMM "
+                 f"{launches['int4_matmul_fused']} times, want "
+                 f"{gemms_a_forward(cfg) * 4}")
+        if err > CPU_W4A4_F32_ATOL:
+            fail(f"cpu: {what}: card and CPU logits differ by {err:.6g} > "
+                 f"{CPU_W4A4_F32_ATOL}")
     logits, launches = _two_devices_mamba(torch)
     what = ("mamba2-130m, W4A4 weights, float32, 24 layers at full width, "
             "prefill + 3 decode steps")

@@ -163,17 +163,21 @@ def prepack_tree(params):
     """Add a planar K-major twin (`packed_km`) to every packed serving
     weight, once, so the kernel unpacks with a shift and a mask and no
     serving step relayouts a weight.  Grouped scales need planar halves that
-    cover whole groups (row_mult = 2G); per-channel ones need 2."""
-    def walk(node):
+    cover whole groups (row_mult = 2G); per-channel ones need 2.  MoE
+    expert stacks are skipped: they run as batched GEMMs on dequantized
+    weights (``models/moe.py``), never through the 2D kernels, so a twin
+    would only double their bytes."""
+    def walk(node, in_experts=False):
         if isinstance(node, dict) and "packed" in node:
-            if "packed_km" in node:
+            if "packed_km" in node or in_experts:
                 return node
             return {**node, "packed_km": nmajor_to_kmajor_grouped(
                 node["packed"], node["scale"]).contiguous()}
         if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
+            return {k: walk(v, in_experts or k == "experts")
+                    for k, v in node.items()}
         if isinstance(node, list):
-            return [walk(v) for v in node]
+            return [walk(v, in_experts) for v in node]
         return node
 
     return walk(params)

@@ -3,10 +3,12 @@
 
 A ``QuantPlan`` maps glob-style site patterns to per-site ``QuantConfig``s.
 Site names are hierarchical (``block[<i>].attn.qkv``, ``block[<i>].attn.wo``,
-``block[<i>].ffn.{w_in,w_gate,w_out}``, ``lm_head``).  ``*``/``?`` are
-wildcards; a pattern matches the full site or any ``.``-aligned suffix; the
-matching pattern with the most literal characters wins, later rules break
-ties.
+``block[<i>].ffn.{w_in,w_gate,w_out}``; in MoE stacks
+``block[<i>].moe.experts``, one site for every expert stack, and
+``block[<i>].{shared,dense_ffn}.{w_in,w_gate,w_out}``; ``lm_head``).
+``*``/``?`` are wildcards; a pattern matches the full site or any
+``.``-aligned suffix; the matching pattern with the most literal
+characters wins, later rules break ties.
 
 Plans come from three spec forms (``get_plan``): a named preset
 (``PRESETS``), a JSON file path, or inline ``pattern=backend[/g<G>][/w<b>]
@@ -15,7 +17,10 @@ precedence over ``Runtime.quant_backend``, then ``ArchConfig.quant_plan``,
 then the uniform ``ArchConfig.quant``.  A plan that resolves the same at
 every layer packs the stacked ``layers`` tree in place; one that differs
 between layers splits it into a list of per-layer trees, which the port's
-Python layer loop walks as it walks the stacked views.
+Python layer loop walks as it walks the stacked views.  `plan_pack_tree`
+packs a whole float tree; `LayerPacker` packs the same tree block by block
+as the model is drawn, so a serving build never holds every float master
+at once.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import math
 import os
 import re
 from typing import Dict, Optional, Tuple
@@ -241,21 +247,30 @@ def active_plan(arch, rt) -> QuantPlan:
 
 def block_leaf_sites(block_type: str, cfg) -> Tuple[str, ...]:
     """The quantizable leaf sites inside one block of the given type
-    (relative to the block's ``block[<i>]`` prefix): attention blocks of a
-    dense or hybrid stack, Mamba-2 blocks and RG-LRU blocks."""
+    (relative to the block's ``block[<i>]`` prefix): attention blocks (an
+    MoE stack's with its expert stacks, shared expert and dense residual
+    FFN), Mamba-2 blocks and RG-LRU blocks."""
+    ffn = ("ffn.w_in", "ffn.w_gate", "ffn.w_out")
+    if block_type == "A":
+        sites = ["attn.qkv", "attn.wo"]
+        if cfg.family == "moe":
+            sites.append("moe.experts")
+            if cfg.shared_expert:
+                sites += ["shared.w_in", "shared.w_gate", "shared.w_out"]
+            if cfg.moe_dense_ff:
+                sites += ["dense_ffn.w_in", "dense_ffn.w_gate",
+                          "dense_ffn.w_out"]
+        elif cfg.d_ff:
+            sites += list(ffn)
+        return tuple(sites)
     if block_type == "M":
         return ("mamba.in_proj", "mamba.out_proj")
     if block_type == "R":
         sites = ["lru.in_x", "lru.in_g", "lru.w_a", "lru.w_x", "lru.out"]
-    elif block_type == "A" and cfg.family != "moe":
-        sites = ["attn.qkv", "attn.wo"]
-    else:
-        raise NotImplementedError(
-            f"block type {block_type!r} / family {cfg.family!r} is not "
-            f"ported yet")
-    if cfg.d_ff:
-        sites += ["ffn.w_in", "ffn.w_gate", "ffn.w_out"]
-    return tuple(sites)
+        if cfg.d_ff:
+            sites += list(ffn)
+        return tuple(sites)
+    raise ValueError(block_type)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -273,10 +288,51 @@ def plan_repeat_uniform(plan: QuantPlan, cfg) -> bool:
 
 
 def _leaf_site(comps: Tuple[str, ...]) -> str:
-    """Block-relative param path -> site leaf (wq/wk/wv share attn.qkv)."""
+    """Block-relative param path -> site leaf (wq/wk/wv share attn.qkv;
+    expert stacks address as one ``<container>.experts`` site)."""
     if comps and comps[0] == "attn" and comps[-1] in ("wq", "wk", "wv"):
         return "attn.qkv"
+    if "experts" in comps:
+        return f"{comps[0]}.experts"
     return ".".join(comps)
+
+
+def _pack_config(plan: QuantPlan, site: str, shape, dtype, *, numel: int,
+                 min_size: int, backends: frozenset,
+                 check_name: Optional[str] = None) -> Optional[QuantConfig]:
+    """The QuantConfig a leaf of `shape` and `dtype` packs under at `site`
+    (group size 0 but for the weight-only backends), or None to keep its
+    float master.  `numel` is the element count the size rule reads (the
+    layer-stacked leaf's).  Expert stacks pack only for the pre-packing
+    backends (live serving runs the on-the-fly backends' experts from
+    their masters) and always per output channel (they dequantize per
+    channel in the batched GEMMs, ``models/moe.py``)."""
+    from .qlinear import PACKABLE_NAMES
+
+    qc = plan.resolve(site)
+    experts = site.endswith(".experts")
+    site_backends = backends & SERVE_PACKED if experts else backends
+    packable = (
+        qc.backend in site_backends
+        and (check_name is None or check_name in PACKABLE_NAMES)
+        and len(shape) >= 2
+        and numel >= min_size
+        and shape[-1] % 2 == 0
+        and dtype in (torch.float32, torch.bfloat16)
+    )
+    if not packable:
+        return None
+    if qc.backend not in ("w4a16", "w4a16_packed") or experts:
+        qc = dataclasses.replace(qc, group_size=0)
+    return qc
+
+
+def _pack(leaf: torch.Tensor, qc: QuantConfig, scale_dtype) -> Dict:
+    from .qlinear import pack_weight_nd
+
+    packed = pack_weight_nd(leaf.to(torch.float32), qc)
+    packed["scale"] = packed["scale"].to(scale_dtype)
+    return packed
 
 
 def plan_pack_tree(params, cfg, plan: QuantPlan, *,
@@ -293,28 +349,17 @@ def plan_pack_tree(params, cfg, plan: QuantPlan, *,
     per-block trees, block ``r * P + j`` at index ``r * P + j`` (the JAX
     package's ``{"r<r>": {"u<j>": ...}}``).  Tail blocks pack under their
     own sites."""
-    from .qlinear import PACKABLE_NAMES, pack_weight_nd
-
     def pack_leaf(leaf, site: str, *, check_name: Optional[str] = None):
-        qc = plan.resolve(site)
-        packable = (
-            qc.backend in backends
-            and (check_name is None or check_name in PACKABLE_NAMES)
-            and isinstance(leaf, torch.Tensor)
-            and leaf.ndim >= 2
-            and leaf.numel() >= min_size
-            and leaf.shape[-1] % 2 == 0
-            and leaf.dtype in (torch.float32, torch.bfloat16)
-        )
-        if not packable:
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        qc = _pack_config(plan, site, tuple(leaf.shape), leaf.dtype,
+                          numel=leaf.numel(), min_size=min_size,
+                          backends=backends, check_name=check_name)
+        if qc is None:
             return leaf
         if site_log is not None:
             site_log[site] = qc.backend
-        if qc.backend not in ("w4a16", "w4a16_packed"):
-            qc = dataclasses.replace(qc, group_size=0)
-        packed = pack_weight_nd(leaf.to(torch.float32), qc)
-        packed["scale"] = packed["scale"].to(scale_dtype)
-        return packed
+        return _pack(leaf, qc, scale_dtype)
 
     def pack_block(bp, prefix: str):
         def rec(node, comps):
@@ -341,6 +386,100 @@ def plan_pack_tree(params, cfg, plan: QuantPlan, *,
     if "lm_head" in params:
         out["lm_head"] = {"w": pack_leaf(params["lm_head"]["w"], "lm_head")}
     return out
+
+
+class LayerPacker:
+    """Packs a model for a serving plan block by block, as
+    ``models.transformer.init_model`` draws it: the layer-at-a-time build.
+    Every leaf packs as ``pack_for_serving`` packs it in the whole float
+    tree, bit for bit: under the same site (``block[j]`` for every repeat
+    of a repeat-uniform plan, which keeps the stack, ``block[i]``
+    otherwise), with the size rule counted over the layer-stacked leaf
+    when the stack is kept, and with the planar K-major twin on every
+    packed weight but the expert stacks.  `uniform` tells the builder
+    whether to stack the packed blocks or keep a list of them."""
+
+    def __init__(self, cfg, plan: QuantPlan, *, min_size: int = 1 << 12,
+                 backends: frozenset = SERVE_PACKED,
+                 scale_dtype=torch.float32,
+                 site_log: Optional[Dict[str, str]] = None):
+        self.plan, self.min_size, self.backends = plan, min_size, backends
+        self.scale_dtype, self.site_log = scale_dtype, site_log
+        self.uniform = plan_repeat_uniform(plan, cfg)
+        self._P, self._R = len(cfg.pattern), cfg.n_repeats
+
+    def _where(self, i: int) -> Tuple[str, int]:
+        """Block i's site prefix and how many blocks its stacked leaf
+        holds."""
+        if self.uniform and i < self._P * self._R:
+            return f"block[{i % self._P}]", self._R
+        return f"block[{i}]", 1
+
+    def _config(self, site: str, shape, dtype, n: int,
+                check_name: Optional[str]) -> Optional[QuantConfig]:
+        qc = _pack_config(self.plan, site, shape, dtype,
+                          numel=n * math.prod(shape), min_size=self.min_size,
+                          backends=self.backends, check_name=check_name)
+        if qc is not None and self.site_log is not None:
+            self.site_log[site] = qc.backend
+        return qc
+
+    def _leaf(self, leaf, site: str, n: int, check_name=None, twin=True):
+        from ..kernels.packing import nmajor_to_kmajor_grouped
+
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        qc = self._config(site, tuple(leaf.shape), leaf.dtype, n,
+                          check_name)
+        if qc is None:
+            return leaf
+        packed = _pack(leaf, qc, self.scale_dtype)
+        if twin:
+            packed["packed_km"] = nmajor_to_kmajor_grouped(
+                packed["packed"], packed["scale"]).contiguous()
+        return packed
+
+    def lm_head(self, w: torch.Tensor):
+        return self._leaf(w, "lm_head", 1)
+
+    def block(self, tree: Dict, i: int) -> Dict:
+        """Block i's f32 tree packed (its expert stacks came packed from
+        `experts`, or stay masters)."""
+        prefix, n = self._where(i)
+
+        def rec(node, comps):
+            if isinstance(node, dict):
+                if "packed" in node:
+                    return node
+                return {k: rec(v, comps + (k,)) for k, v in node.items()}
+            return self._leaf(node, join_site(prefix, _leaf_site(comps)), n,
+                              check_name=comps[-1],
+                              twin="experts" not in comps)
+        return rec(tree, ())
+
+    def experts(self, i: int):
+        """The ``pack_expert`` hook of ``models.moe.init_moe`` for block i:
+        packs an expert stack one expert at a time into a packed stack
+        (per output channel, so each expert's bytes and scales are the
+        whole stack's slice), or None where the stack keeps its
+        masters."""
+        prefix, n = self._where(i)
+        site = join_site(prefix, _leaf_site(("moe", "experts")))
+
+        def target(name: str, shape):
+            qc = self._config(site, tuple(shape), torch.float32, n, name)
+            if qc is None:
+                return None
+            out: Dict[str, torch.Tensor] = {}
+
+            def put(e: int, w: torch.Tensor) -> None:
+                p = _pack(w, qc, self.scale_dtype)
+                for key, val in p.items():
+                    if key not in out:
+                        out[key] = val.new_empty((shape[0],) + val.shape)
+                    out[key][e] = val
+            return put, out
+        return target
 
 
 def layer_slice(tree, r: int):

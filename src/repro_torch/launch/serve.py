@@ -63,6 +63,14 @@ and the recompile sentinel.
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch recurrentgemma-9b --full --max-ctx 512 --max-batch 8 \
         --num-pages 320 --prompt-lens 32,96,160,256 --gen-lens 16,32,64
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-large \
+        --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch arctic-480b \
+        --full --layers 4 --max-ctx 512 --max-batch 8 --num-pages 320
+
+The MoE configs (arctic-480b, llama4-maverick-400b-a17b) serve with every
+expert on the one device, so at full width only a few layers fit the
+card (``--layers``); the build packs a layer at a time.
 """
 
 from __future__ import annotations

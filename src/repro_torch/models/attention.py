@@ -1,6 +1,6 @@
-"""GQA attention with RoPE or M-RoPE and optional qk-norm over the
-quantized linear (PyTorch port of ``repro/models/attention.py``, paged-KV
-serving branches).
+"""GQA attention with RoPE, M-RoPE or no rotation (sinusoidal stacks) and
+optional qk-norm over the quantized linear (PyTorch port of
+``repro/models/attention.py``, paged-KV serving branches).
 
 Three interchangeable attention cores:
 
@@ -208,28 +208,26 @@ def apply_attention(params: Dict, x: torch.Tensor, cfg, rt,
     """x [B, S, D], positions [B, S], or [3, B, S] (the M-RoPE streams; the
     temporal stream ``positions[0]`` then masks and addresses the caches).
     With ``cfg.qk_norm`` q and k are RMS-normed per head after the
-    projections, before the rotation. The branches are those of the JAX
-    package. With a paged cache (a dict holding ``"tbl"``): A cache that
-    also holds ``"slots"`` is the ragged token-major step (B == 1, S packed
-    rows, each routed through the table row ``slots`` names): write every
-    row's K/V first, then attend with ``pos <= token_pos``, which is causal
-    for prefill-chunk rows and last-token for decode rows. S == 1 is decode
-    (write the token's K/V, then the fused paged kernel, or the gather
-    baseline with ``rt.paged_attn == "gather"``); ``rt.prefill_over_cache``
-    is the tail prefill after a prefix-cache hit (write, then attend over
-    the gathered pages); otherwise a fresh prefill attends in flight and
-    writes its K/V. The page pool is updated in place. With a contiguous
-    cache: S == 1 is decode (write the token into the ring, then exact
-    attention over the cache, ``impl="full"``); otherwise the prompt attends
-    in flight and, with `update_cache`, its last ``min(S, size)`` positions
-    are written, those below the row's ``pos`` (already cached: a resume)
-    dropped. The contiguous cache returned is a new dict of new tensors."""
+    projections, before the rotation; with ``rope="none"`` they are not
+    rotated (the stack adds sinusoidal positions to its embeddings). The
+    branches are those of the JAX package. With a paged cache (a dict
+    holding ``"tbl"``): A cache that also holds ``"slots"`` is the ragged
+    token-major step (B == 1, S packed rows, each routed through the table
+    row ``slots`` names): write every row's K/V first, then attend with
+    ``pos <= token_pos``, which is causal for prefill-chunk rows and
+    last-token for decode rows. S == 1 is decode (write the token's K/V,
+    then the fused paged kernel, or the gather baseline with
+    ``rt.paged_attn == "gather"``); ``rt.prefill_over_cache`` is the tail
+    prefill after a prefix-cache hit (write, then attend over the gathered
+    pages); otherwise a fresh prefill attends in flight and writes its K/V.
+    The page pool is updated in place. With a contiguous cache: S == 1 is
+    decode (write the token into the ring, then exact attention over the
+    cache, ``impl="full"``); otherwise the prompt attends in flight and,
+    with `update_cache`, its last ``min(S, size)`` positions are written,
+    those below the row's ``pos`` (already cached: a resume) dropped. The
+    contiguous cache returned is a new dict of new tensors."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    if cfg.rope not in ("rope", "mrope"):
-        raise NotImplementedError(
-            f"rope={cfg.rope!r} attention is not ported yet: it comes with "
-            "musicgen-large (ROADMAP Queue 1 item 2b)")
 
     qkv_site = join_site(site, "attn.qkv")
     wo_site = join_site(site, "attn.wo")
@@ -247,7 +245,7 @@ def apply_attention(params: Dict, x: torch.Tensor, cfg, rt,
     if cfg.rope == "rope":
         q = apply_rope(q, tpos, cfg.rope_theta)
         k = apply_rope(k, tpos, cfg.rope_theta)
-    else:
+    elif cfg.rope == "mrope":
         mp = positions if positions.dim() == 3 else torch.stack([tpos] * 3)
         q = apply_mrope(q, mp, cfg.rope_theta, cfg.mrope_sections)
         k = apply_mrope(k, mp, cfg.rope_theta, cfg.mrope_sections)

@@ -1,9 +1,14 @@
 """Shared model components: RMS norm, rotary (RoPE, M-RoPE) and sinusoidal
 position embeddings, initializer (PyTorch port of
-``repro/models/common.py``)."""
+``repro/models/common.py``), and the activations as XLA evaluates the JAX
+package's ``jax.nn.gelu`` and ``jax.nn.silu``: op by op, each op rounding
+to the activation dtype (a fused PyTorch activation rounds once, and in
+bf16 that one-step difference can move a whole row's int4 scale in the
+next projection)."""
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Sequence
 
@@ -77,3 +82,27 @@ def sinusoidal_pos_embed(positions: torch.Tensor,
         half, dtype=torch.float32, device=positions.device) / half)
     ang = positions[..., None].to(torch.float32) * freqs       # [B, S, half]
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(value: float, dtype: torch.dtype) -> float:
+    """`value` rounded to `dtype` (JAX rounds a Python scalar to the array's
+    dtype before the op; PyTorch would apply it at float32 precision), as
+    a Python float: a scalar operand, so nothing is copied to the device
+    (which a CUDA graph capture refuses)."""
+    return torch.tensor(value, dtype=torch.float32).to(dtype).item()
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (the tanh approximation, its default):
+    ``x * 0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * x^3)))``, op by op in
+    x's dtype."""
+    inner = _rounded(math.sqrt(2 / math.pi), x.dtype) * (
+        x + _rounded(0.044715, x.dtype) * (x * x * x))
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: x * logistic(x) with logistic = 1 / (1 + exp(-x)),
+    op by op in x's dtype."""
+    return x * (1.0 / (1.0 + torch.exp(-x)))

@@ -1,6 +1,6 @@
-"""SwiGLU FFN through the quantized linear (PyTorch port of
-``repro/models/ffn.py``; the GELU variant waits for the configs that use
-it)."""
+"""Dense FFN blocks: SwiGLU (llama-family) and GELU with biases
+(starcoder2, musicgen), every projection through the quantized linear
+(PyTorch port of ``repro/models/ffn.py``)."""
 
 from __future__ import annotations
 
@@ -10,19 +10,23 @@ import torch
 
 from ..core.qlinear import qdense
 from ..core.quant_plan import join_site
-from .common import normal_init
+from .common import gelu_tanh, normal_init, silu
 
 
 def init_ffn(gen: torch.Generator, cfg, d_ff: int = 0) -> Dict:
-    if cfg.ffn_type != "swiglu" or cfg.mlp_bias:
-        raise NotImplementedError(
-            "only the bias-free SwiGLU FFN is ported; the GELU FFN with "
-            "biases comes with starcoder2-7b and musicgen-large (ROADMAP "
-            "Queue 1 item 2b)")
+    """``w_in [D, F]``, ``w_out [F, D]`` and, for SwiGLU, ``w_gate [D, F]``,
+    drawn in that order; with ``cfg.mlp_bias`` zero ``b_in [F]`` and
+    ``b_out [D]`` (no draw).  `d_ff` overrides ``cfg.d_ff`` (MoE's shared
+    expert and arctic's dense residual FFN)."""
     D, F = cfg.d_model, d_ff or cfg.d_ff
-    return {"w_in": normal_init(gen, (D, F)),
-            "w_out": normal_init(gen, (F, D), fan_in=F),
-            "w_gate": normal_init(gen, (D, F))}
+    p = {"w_in": normal_init(gen, (D, F)),
+         "w_out": normal_init(gen, (F, D), fan_in=F)}
+    if cfg.ffn_type == "swiglu":
+        p["w_gate"] = normal_init(gen, (D, F))
+    if cfg.mlp_bias:
+        p["b_in"] = torch.zeros((F,), device=gen.device)
+        p["b_out"] = torch.zeros((D,), device=gen.device)
+    return p
 
 
 def apply_ffn(params: Dict, x: torch.Tensor, cfg, rt,
@@ -31,11 +35,10 @@ def apply_ffn(params: Dict, x: torch.Tensor, cfg, rt,
                            join_site(site, "w_out"))
     h = qdense(params["w_in"], x, rt.quant_cfg(cfg, s_in),
                params.get("b_in"), tag=s_in)
-    g = qdense(params["w_gate"], x, rt.quant_cfg(cfg, s_gate), tag=s_gate)
-    # silu as the JAX package evaluates it on its XLA path: x * logistic(x)
-    # with logistic = 1 / (1 + exp(-x)), every op rounding to the activation
-    # dtype.  A fused silu rounds once instead, and in bf16 that one-step
-    # difference can move a whole row's int4 scale in the next projection.
-    h = g * (1.0 / (1.0 + torch.exp(-g))) * h
+    if cfg.ffn_type == "swiglu":
+        g = qdense(params["w_gate"], x, rt.quant_cfg(cfg, s_gate), tag=s_gate)
+        h = silu(g) * h
+    else:
+        h = gelu_tanh(h)
     return qdense(params["w_out"], h, rt.quant_cfg(cfg, s_out),
                   params.get("b_out"), tag=s_out)

@@ -24,15 +24,13 @@ a new cache dict (the JAX package's functional update).
 
 from __future__ import annotations
 
-import functools
-import math
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from ..core.qlinear import qdense
 from ..core.quant_plan import join_site
-from .common import normal_init
+from .common import gelu_tanh, normal_init
 from .ssm import _causal_conv
 
 _C = 8.0  # Griffin's fixed gate sharpness
@@ -62,24 +60,6 @@ def init_rglru_cache(cfg, batch: int, device="cuda") -> Dict:
     f32 = dict(dtype=torch.float32, device=device)
     return {"conv": torch.zeros((batch, cfg.ssm_conv - 1, W), **f32),
             "h": torch.zeros((batch, W), **f32)}
-
-
-@functools.lru_cache(maxsize=None)
-def _rounded(value: float, dtype: torch.dtype) -> float:
-    """`value` rounded to `dtype` (JAX rounds a Python scalar to the array's
-    dtype before the op; PyTorch would apply it at float32 precision), as
-    a Python float: a scalar operand, so nothing is copied to the device
-    (which a CUDA graph capture refuses)."""
-    return torch.tensor(value, dtype=torch.float32).to(dtype).item()
-
-
-def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.gelu`` (the tanh approximation, its default):
-    ``x * 0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * x^3)))``, op by op in
-    x's dtype."""
-    inner = _rounded(math.sqrt(2 / math.pi), x.dtype) * (
-        x + _rounded(0.044715, x.dtype) * (x * x * x))
-    return x * (0.5 * (1.0 + torch.tanh(inner)))
 
 
 def _logistic(x: torch.Tensor) -> torch.Tensor:

@@ -21,9 +21,19 @@ Caches mirror the parameters: ``{"rep": {"u<j>": {kind: {...}}}, "tail":
 written functionally, as the JAX package writes them, and `forward`
 returns the new tree.
 
-`init_model` allocates each stacked leaf once and fills repeat r's slice
-in place as the generator draws it, so a build holds one copy of the
-repeat weights (recurrentgemma-9b's are 31.5 GB in float32).
+`init_model` draws block by block and writes each block into its stacked
+leaf at once, so a build holds one copy of the repeat weights.  Given a
+``core.quant_plan.LayerPacker`` it packs each block for the serving plan
+as soon as it is drawn (the layer-at-a-time build of
+``serving.engine.build_params``): the build then holds the packed stack
+and one block's float masters, or for an expert stack one expert's, and
+returns what ``pack_for_serving`` makes of the float tree.
+
+"A" blocks of an MoE stack (``cfg.family == "moe"``) run attention, then
+`models.moe.apply_moe` on the second norm, then the shared expert or the
+dense residual FFN beside it (``x + moe + extra``; when a config sets
+both, the dense FFN's output replaces the shared expert's, as in the JAX
+package).  The serving forward drops the router's aux loss.
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ from ..core.quant_plan import join_site, layer_slice
 from .attention import apply_attention, init_attention, init_attn_cache
 from .common import normal_init, rms_norm, sinusoidal_pos_embed
 from .ffn import apply_ffn, init_ffn
+from .moe import apply_moe, init_moe
 from .rglru import apply_rglru, init_rglru, init_rglru_cache
 from .ssm import apply_mamba, init_mamba, init_mamba_cache
 
@@ -47,10 +58,6 @@ ROUTING = ("tbl", "slots")
 
 
 def _check_supported(cfg) -> None:
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            f"{cfg.name}: MoE blocks are not ported yet (ROADMAP Queue 1 "
-            "item 3, after the attention configs)")
     blocks = tuple(cfg.pattern) + tuple(cfg.tail)
     unknown = sorted(set(blocks) - set(CACHE_KIND))
     if unknown:
@@ -59,12 +66,22 @@ def _check_supported(cfg) -> None:
 
 
 # ----------------------------------------------------------------- blocks --
-def init_block(gen: torch.Generator, block_type: str, cfg) -> Dict:
+def init_block(gen: torch.Generator, block_type: str, cfg,
+               pack_expert=None) -> Dict:
+    """One block's f32 parameters, drawn in the JAX package's leaf order;
+    `pack_expert` goes to `init_moe`."""
     D, dev = cfg.d_model, gen.device
     p: Dict = {"norm1": torch.ones((D,), device=dev)}
     if block_type == "A":
         p["attn"] = init_attention(gen, cfg)
-        if cfg.d_ff:
+        if cfg.family == "moe":
+            p["norm2"] = torch.ones((D,), device=dev)
+            p["moe"] = init_moe(gen, cfg, pack_expert)
+            if cfg.shared_expert:
+                p["shared"] = init_ffn(gen, cfg, cfg.d_ff_expert or cfg.d_ff)
+            if cfg.moe_dense_ff:
+                p["dense_ffn"] = init_ffn(gen, cfg, cfg.moe_dense_ff)
+        elif cfg.d_ff:
             p["norm2"] = torch.ones((D,), device=dev)
             p["ffn"] = init_ffn(gen, cfg)
     elif block_type == "M":
@@ -95,7 +112,8 @@ def init_block_cache(block_type: str, cfg, rt, batch: int, seq: int,
 def apply_block(block_type: str, p: Dict, x, cfg, rt, positions,
                 cache=None, update_cache: bool = False, site: str = ""):
     """One block; `site` (e.g. "block[3]") prefixes the sub-layers' plan
-    sites.  "A": attention, "R": RG-LRU, each then the FFN when ``d_ff``;
+    sites.  "A": attention, "R": RG-LRU, each then the FFN when ``d_ff``
+    (an MoE stack's "A": the MoE block and its shared or dense FFN);
     "M": Mamba-2 (no FFN).  Returns (x, the block's new cache or None)."""
     normed = rms_norm(x, p["norm1"], cfg.norm_eps)
     kind = CACHE_KIND[block_type]
@@ -108,7 +126,18 @@ def apply_block(block_type: str, p: Dict, x, cfg, rt, positions,
         h, nc = mixer(p[kind], normed, cfg, rt, sub, update_cache,
                       site=join_site(site, kind))
     x = x + h
-    if block_type != "M" and cfg.d_ff:
+    if block_type == "A" and cfg.family == "moe":
+        n2 = rms_norm(x, p["norm2"], cfg.norm_eps)
+        my, _ = apply_moe(p["moe"], n2, cfg, rt, site=join_site(site, "moe"))
+        extra = 0.0
+        if cfg.shared_expert:
+            extra = apply_ffn(p["shared"], n2, cfg, rt,
+                              site=join_site(site, "shared"))
+        if cfg.moe_dense_ff:
+            extra = apply_ffn(p["dense_ffn"], n2, cfg, rt,
+                              site=join_site(site, "dense_ffn"))
+        x = x + my + extra
+    elif block_type != "M" and cfg.d_ff:
         x = x + apply_ffn(p["ffn"], rms_norm(x, p["norm2"], cfg.norm_eps),
                           cfg, rt, site=join_site(site, "ffn"))
     return x, ({kind: nc} if nc is not None else None)
@@ -138,11 +167,15 @@ def _fill_slice(stacked: Optional[Dict], tree: Dict, r: int,
     return stacked
 
 
-def init_model(gen: torch.Generator, cfg) -> Dict:
+def init_model(gen: torch.Generator, cfg, packer=None) -> Dict:
     """Random f32 parameters on the generator's device.  The generator is
-    drawn block by block (repeat 0's unit, repeat 1's, ..., then the tail);
-    each block's leaves are copied into their stacked leaf at once, so the
-    build never holds more than one block beside the stack."""
+    drawn block by block (the embedding, the lm_head, repeat 0's unit,
+    repeat 1's, ..., then the tail); each block's leaves are copied into
+    their stacked leaf at once, so the build never holds more than one
+    block beside the stack.  With a `packer` (``core.quant_plan.
+    LayerPacker``) every block is packed for its plan before it is stored,
+    its expert stacks expert by expert, and the stacked ``layers`` become
+    a list of per-block trees when the plan packs layers differently."""
     _check_supported(cfg)
     Vp, D = cfg.vocab_padded, cfg.d_model
     params: Dict = {
@@ -150,16 +183,27 @@ def init_model(gen: torch.Generator, cfg) -> Dict:
         "final_norm": torch.ones((D,), device=gen.device),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = {"w": normal_init(gen, (D, Vp))}
+        w = normal_init(gen, (D, Vp))
+        params["lm_head"] = {"w": packer.lm_head(w) if packer else w}
     P, R = len(cfg.pattern), cfg.n_repeats
-    stacked: List[Optional[Dict]] = [None] * P
-    for r in range(R):
-        for j, bt in enumerate(cfg.pattern):
-            stacked[j] = _fill_slice(stacked[j], init_block(gen, bt, cfg),
-                                     r, R)
-    params["layers"] = {f"u{j}": stacked[j] for j in range(P)}
+
+    def block(i: int, bt: str) -> Dict:
+        if packer is None:
+            return init_block(gen, bt, cfg)
+        return packer.block(init_block(gen, bt, cfg, packer.experts(i)), i)
+
+    if packer is not None and not packer.uniform:
+        params["layers"] = [block(r * P + j, bt) for r in range(R)
+                            for j, bt in enumerate(cfg.pattern)]
+    else:
+        stacked: List[Optional[Dict]] = [None] * P
+        for r in range(R):
+            for j, bt in enumerate(cfg.pattern):
+                stacked[j] = _fill_slice(stacked[j], block(r * P + j, bt),
+                                         r, R)
+        params["layers"] = {f"u{j}": stacked[j] for j in range(P)}
     for t, bt in enumerate(cfg.tail):
-        params[f"tail{t}"] = init_block(gen, bt, cfg)
+        params[f"tail{t}"] = block(R * P + t, bt)
     return params
 
 

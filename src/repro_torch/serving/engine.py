@@ -66,7 +66,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..core.quant_plan import pack_for_serving
+from ..core.quant_plan import SERVE_PACKED, LayerPacker, active_plan
 from ..distributed.fault_tolerance import StepDeadlineExceeded, Watchdog
 from ..launch.steps import (CapturedStep, cuda_graph_capture,
                             make_ragged_step, make_serving_steps)
@@ -118,10 +118,18 @@ def build_params(cfg, rt, seed: int = 0, device="cuda"):
     `device` and, for the pre-packing sites of the active plan (any plan:
     ``Runtime.quant_plan`` or ``quant_backend``), pack them (int4 nibbles +
     scales + the kernel's planar K-major twin).  Every other site keeps its
-    f32 master, which the on-the-fly backends quantize per call."""
+    f32 master, which the on-the-fly backends quantize per call.
+
+    The build goes a layer at a time (``quant_plan.LayerPacker``): each
+    block is packed as soon as it is drawn, an expert stack one expert at a
+    time, so the build holds the packed model beside one block's f32
+    masters.  It equals ``pack_for_serving(init_model(gen, cfg), cfg, rt)``
+    bit for bit."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return pack_for_serving(init_model(gen, cfg), cfg, rt)
+    plan = active_plan(cfg, rt)
+    packer = LayerPacker(cfg, plan) if plan.backends & SERVE_PACKED else None
+    return init_model(gen, cfg, packer)
 
 
 def _pool_leaves(caches: Dict) -> List[tuple]:

@@ -320,9 +320,11 @@ def test_flash_kernel_refuses_unbuilt_head_dim(cuda):
 
 
 #: the decode kernels' shapes beside qwen2-0.5b's (H, KV, hd): qwen3-4b,
-#: qwen2-vl-2b, internlm2-20b, G = 9 at hd 128 and G = 1 at hd 64
+#: qwen2-vl-2b, internlm2-20b, starcoder2-7b (G = 9 at hd 128),
+#: musicgen-large (G = 1 at hd 64), arctic-480b (G = 7), llama4-maverick
+#: (G = 5)
 DECODE_NEW_SHAPES = [(32, 8, 128), (12, 2, 128), (48, 8, 128), (36, 4, 128),
-                     (32, 32, 64)]
+                     (32, 32, 64), (56, 8, 128), (40, 8, 128)]
 
 
 @pytest.mark.cuda
@@ -330,8 +332,8 @@ DECODE_NEW_SHAPES = [(32, 8, 128), (12, 2, 128), (48, 8, 128), (36, 4, 128),
 @pytest.mark.parametrize("shape", DECODE_NEW_SHAPES,
                          ids=lambda s: "x".join(map(str, s)))
 def test_decode_kernels_at_the_new_shapes(cuda, cache_dtype, shape):
-    """Paged decode and the ragged kernel at head dim 128 with G = 4, 6, 9
-    and at head dim 64 with G = 1, on a 512-token table (8 splits), with
+    """Paged decode and the ragged kernel at head dim 128 with G = 4, 5, 6, 7,
+    9 and at head dim 64 with G = 1, on a 512-token table (8 splits), with
     and without a window: within ATOL of the plain versions, idle and
     padding rows exactly zero, two calls bit-equal, and a decode-only
     ragged pack bit-equal to paged decode."""
@@ -1403,3 +1405,120 @@ def test_captured_contiguous_steps_replay_equal_eager(cuda, arch):
                               None, slots)
             assert torch.equal(replayed, want)
             assert _trees_equal(after, eng.caches)
+
+
+# ------------------------------------ GELU FFN, sinusoidal stacks, MoE ----
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 8, 256])
+@pytest.mark.parametrize("K,N", [(4608, 4608), (4608, 512), (4608, 18432),
+                                 (18432, 4608), (2048, 2048), (2048, 8192),
+                                 (8192, 2048), (7168, 7168), (7168, 1024),
+                                 (7168, 4864), (4864, 7168), (5120, 5120),
+                                 (5120, 1024), (5120, 8192), (8192, 5120)])
+def test_int4_kernel_bit_exact_at_gelu_and_moe_shapes(cuda, M, K, N):
+    """starcoder2-7b's projections (K = 18432, the longest a paged config
+    runs), musicgen-large's, arctic-480b's attention and dense residual FFN
+    and llama4-maverick's attention and shared expert."""
+    test_int4_kernel_bit_exact(cuda, M, K, N)
+
+
+#: reduced configs at the head dims and query groups of their full widths
+#: (the attention kernels are built for hd 64 and 128 only)
+CARD_REDUCED = {
+    "starcoder2-7b": dict(head_dim=128, n_heads=18, n_kv_heads=2),
+    "musicgen-large": dict(head_dim=64, n_heads=4, n_kv_heads=4),
+    "arctic-480b": dict(head_dim=128, n_heads=14, n_kv_heads=2),
+    "llama4-maverick-400b-a17b": dict(head_dim=128, n_heads=10,
+                                      n_kv_heads=2),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", sorted(CARD_REDUCED))
+def test_engine_gelu_and_moe_reduced_captured_equals_eager(cuda, arch):
+    """Reduced starcoder2-7b (GELU FFN with biases, G = 9), musicgen-large
+    (sinusoidal positions, G = 1), arctic-480b (top-2 MoE beside a dense
+    FFN, G = 7) and llama4-maverick (top-1 MoE beside a shared expert,
+    G = 5), 2 layers, W4A4 (experts packed), on the paged bucketed step:
+    the captured engine emits the eager engine's tokens and launches, the
+    W4A4 GEMM runs 6 (GELU) or 7 times a layer a forward, and flash
+    prefill and paged decode once a layer a forward."""
+    from repro_torch.configs import Runtime, ServingConfig, get_config
+    from repro_torch.serving.api import poisson_trace, run_trace
+    from repro_torch.serving.engine import InferenceEngine
+
+    cs = _chip_smoke()
+    cfg = get_config(arch).reduced(n_layers=2, **CARD_REDUCED[arch])
+    rt = Runtime(attn_impl="flash", quant_backend="w4a4_packed")
+    sv = ServingConfig(max_batch=4, page_size=16, num_pages=32, max_ctx=64)
+    per_layer = cs.gemms_a_block("A", cfg)
+    assert per_layer == (6 if cfg.ffn_type == "gelu" else 7)
+    out, params = {}, None
+    for mode in ("captured", "eager"):
+        make = InferenceEngine if mode == "captured" else cs.eager_engine
+        eng = make(cfg, rt, sv, params=params, device=cuda)
+        params = eng.params
+        ops.reset_launch_counts()
+        _, fin = run_trace(eng, poisson_trace(6, 1.0, (8, 20), (4, 8),
+                                              cfg.vocab, seed=4))
+        torch.cuda.synchronize()
+        assert all(r.outcome == "ok" and len(r.tokens) == r.max_new
+                   for r in fin)
+        assert all(0 <= t < cfg.vocab for r in fin for t in r.tokens)
+        out[mode] = ([r.tokens for r in fin], ops.launch_counts())
+    (ctok, n), (etok, en) = out["captured"], out["eager"]
+    assert ctok == etok and n == en
+    forwards = n["int4_matmul_fused"] // (per_layer * 2)
+    assert n["int4_matmul_fused"] == per_layer * 2 * forwards > 0, n
+    assert n["flash_prefill"] + n["paged_decode_attention"] \
+        == 2 * forwards, n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["arctic-480b",
+                                  "llama4-maverick-400b-a17b"])
+@pytest.mark.parametrize("rows", [3, 64])
+def test_moe_block_on_the_card(cuda, arch, rows):
+    """The MoE block on the card (reduced, packed experts, bf16): two calls
+    bit-equal, the routed expert ids equal to the CPU's on the same
+    weights, the experts' one-kernel dequantize equal to the two-step
+    formula, and y within 1e-5 of the CPU's in float32, with a few rows
+    (only their experts run) and with more rows than experts."""
+    from repro_torch.configs import Runtime, get_config
+    from repro_torch.convert import tree_to
+    from repro_torch.core.quant import unpack_int4
+    from repro_torch.core.quant_plan import layer_slice
+    from repro_torch.models import moe
+    from repro_torch.serving.engine import build_params
+
+    cfg = get_config(arch).reduced(n_layers=1)
+    params = layer_slice(build_params(
+        cfg, Runtime(quant_backend="w4a4_packed"), seed=5,
+        device=cuda)["layers"]["u0"]["moe"], 0)
+    gen = torch.Generator(device=cuda).manual_seed(rows)
+    x = torch.randn((rows, cfg.d_model), generator=gen, device=cuda)
+    for dtype in ("bfloat16", "float32"):
+        rt = Runtime(quant_backend="w4a4_packed", compute_dtype=dtype)
+        xd = x.to(getattr(torch, dtype))
+        got = {}
+        for dev, p, xx in (("cuda", params, xd),
+                           ("cpu", tree_to(params, "cpu"), xd.cpu())):
+            route = {}
+            got[dev] = (moe._moe_shard(
+                xx, p["router"]["w"], p["experts"], e_start=0,
+                n_local=cfg.n_experts, cfg=cfg, rt=rt, dispatch=route)[0],
+                route["idx"])
+        again = moe._moe_shard(xd, params["router"]["w"], params["experts"],
+                               e_start=0, n_local=cfg.n_experts, cfg=cfg,
+                               rt=rt)[0]
+        assert torch.equal(again, got["cuda"][0])
+        assert torch.equal(got["cuda"][1].cpu(), got["cpu"][1])
+        # the one-kernel dequantize rounds as the two-step formula does
+        w, ids = params["experts"]["w_in"], got["cuda"][1].flatten()
+        assert torch.equal(
+            moe._dense(w, ids, None, xd.dtype),
+            (unpack_int4(w["packed"][ids]).float() * w["scale"][ids]).to(
+                xd.dtype))
+        if dtype == "float32":
+            err = (got["cuda"][0].cpu() - got["cpu"][0]).abs().max().item()
+            assert err <= 1e-5, err

@@ -62,7 +62,12 @@ def test_port_imports_neither_jax_nor_the_reference():
                  "repro_torch.configs.recurrentgemma_9b",
                  "repro_torch.configs.qwen3_4b",
                  "repro_torch.configs.qwen2_vl_2b",
-                 "repro_torch.configs.internlm2_20b"):
+                 "repro_torch.configs.internlm2_20b",
+                 "repro_torch.models.moe",
+                 "repro_torch.configs.starcoder2_7b",
+                 "repro_torch.configs.musicgen_large",
+                 "repro_torch.configs.arctic_480b",
+                 "repro_torch.configs.llama4_maverick"):
         assert name in report["modules"]
 
 

@@ -255,17 +255,20 @@ def test_quant_plan_sites_and_packing(stack):
 
 
 def test_rglru_and_moe_raise():
-    """MoE blocks still raise, pointing at their ROADMAP item; RG-LRU
-    blocks are ported (``test_torch_rglru.py``) and no longer do."""
+    """Neither RG-LRU blocks (``test_torch_rglru.py``) nor MoE blocks
+    (``test_torch_moe.py``) raise any more; a block type the JAX package
+    does not have still does."""
     jcfg = j_get_config("arctic-480b").reduced()
     cfg = dataclasses.replace(get_config("qwen2-0.5b").reduced(),
                               name=jcfg.name, family=jcfg.family,
                               pattern=jcfg.pattern, tail=jcfg.tail)
-    with pytest.raises(NotImplementedError,
-                       match="not ported yet.*Queue 1 item 3"):
-        tt.init_model(torch.Generator().manual_seed(0), cfg)
+    assert "moe" in tt.init_model(torch.Generator().manual_seed(0),
+                                  cfg)["layers"]["u0"]
     tt.init_model(torch.Generator().manual_seed(0),
                   get_config("recurrentgemma-9b").reduced())
+    with pytest.raises(NotImplementedError, match=r"block types \['X'\]"):
+        tt.init_model(torch.Generator().manual_seed(0),
+                      dataclasses.replace(cfg, pattern=("X",)))
 
 
 # ----------------------------------------------------------- the engine ----
