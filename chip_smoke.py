@@ -75,7 +75,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
                  W4A4-packed projections, a Poisson trace on the bucketed
                  step (bf16 paged KV pool, flash prefill, fused paged
                  decode), then a mixed trace on the ragged step (int8 pool,
-                 token budget 64, ragged decode); then the Poisson trace on
+                 token budget 64, ragged decode) on the first 8 of those
+                 24 layers (RUN_LAYERS); then the Poisson trace on
                  the bucketed step under the pre-packed grouped W4A16 plan
                  (W4A16_PLAN) and under lut4 (on-the-fly weights from the
                  same masters), both at 8 of the 24 layers (RUN_LAYERS),
@@ -179,7 +180,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
                  decode batch and a prefill); the GEMM 7 times a layer a
                  forward (6 for the GELU configs), flash once a layer a
                  prefill, paged decode (or the ragged kernel) once a layer
-                 a step.
+                 a step.  Last, training (`train_runs`): full-width
+                 qwen2-0.5b's train step at 2 layers in float32 on the card
+                 against the CPU (loss within TRAIN_CPU_LOSS_RTOL, grad
+                 norm within TRAIN_CPU_GNORM_RTOL); then all 24 layers
+                 QAT-trained (fake_quant W4A4) by `launch.train.train`
+                 under deterministic algorithms, 6 steps of 8 x 128
+                 tokens (every loss and grad norm finite; step ms, tokens/s
+                 trained and peak memory printed), the same run preempted
+                 at step 3 and resumed from its checkpoint by a new
+                 `train()` (final state bit-equal to the straight run's),
+                 the trained masters saved as a serve_w4a4 quantized
+                 checkpoint and restored (logits bit-equal to the
+                 in-memory pack; sizes and times printed), and the Poisson
+                 trace served from the restored tree, captured (8 of 8 ok,
+                 the GEMM 7 times a layer a forward, flash prefill and
+                 paged decode once a layer a prefill or step).
   5. cpu      -- full width cut to 2 layers, on cuda and on cpu with the
                  same weights.  Bucketed: one prefill and three decode
                  steps with float weights in bf16 (logits within CPU_ATOL),
@@ -215,10 +231,17 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
+
+# cuBLAS reproducible run to run (needed by the training phase's
+# deterministic algorithms); must be set before CUDA starts
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -253,13 +276,16 @@ LAYERS = 24
 #: run and qwen3-4b's ragged run (the first 8 layers of its 36-layer
 #: weights; its bucketed run and profile stay at 36).  The MoE configs at
 #: MOE_LAYERS of their 35 and 48: every expert lives on the one card
-#: (arctic-480b's packed layer is 6.9 GB, llama4-maverick's 8.2 GB).
+#: (arctic-480b's packed layer is 6.9 GB, llama4-maverick's 8.2 GB); 4
+#: layers until the training phase came, 2 since.  Since then also the
+#: W4A4 ragged run, on the first 8 of the bucketed run's 24 layers.
 #: internlm2-20b runs all 48 layers since the build packs a layer at a
 #: time (its f32 masters, ~79 GB, never exist at once).
-MOE_LAYERS = 4
+MOE_LAYERS = 2
 RUN_LAYERS = {**dict.fromkeys(("w4a16", "lut4", "prefix_bucketed",
                                "prefix_ragged", "chaos", "contiguous",
-                               "compare", "qwen2-vl-2b", "qwen3-4b ragged"),
+                               "compare", "qwen2-vl-2b", "qwen3-4b ragged",
+                               "ragged"),
                               8),
               **dict.fromkeys(("arctic-480b", "llama4-maverick-400b-a17b"),
                               MOE_LAYERS)}
@@ -2480,6 +2506,311 @@ def dense_runs(torch):
     return {k: sum(n[k] for n in launches) for k in launches[0]}
 
 
+#: the training phase (train_runs): full-width qwen2-0.5b, W4A4 QAT
+#: through the fake_quant straight-through estimator on the synthetic
+#: data, 6 steps of 8 sequences of 128 tokens, checkpoints every 3 steps
+TRAIN = dict(batch=8, seq=128, steps=6, save_every=3)
+#: the depth at which step 1 is held to the CPU (full width, float32
+#: activations, fake_quant), and the bounds: both devices quantize the same
+#: float32 activations to int4 per row, and a value that lands on the other
+#: side of a rounding boundary (float32 sums in another order) moves its
+#: row by a quantization step, so the loss (an average over every token)
+#: is held to relative 1e-4 and the gradient's global norm to 1e-3
+TRAIN_CPU_LAYERS = 2
+TRAIN_CPU_BATCH = 2
+TRAIN_CPU_LOSS_RTOL = 1e-4
+TRAIN_CPU_GNORM_RTOL = 1e-3
+
+
+def _qwen2_params(cfg) -> int:
+    """The parameter count of a qwen2-family config (tied embeddings, qkv
+    biases, SwiGLU)."""
+    D, hd = cfg.d_model, cfg.hd
+    qo, kv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    layer = 2 * D * qo + 2 * D * kv + qo + 2 * kv + 3 * D * cfg.d_ff + 2 * D
+    return cfg.vocab_padded * D + D + cfg.n_layers * layer
+
+
+def _train_state_equal(a, b) -> list:
+    """The paths of the leaves of two train states that differ in bits."""
+    from repro_torch.checkpoint.ckpt import _flatten
+
+    fa, fb = _flatten(a), _flatten(b)
+    if sorted(fa) != sorted(fb):
+        return ["<tree structure>"]
+    return [k for k in fa if fa[k].dtype != fb[k].dtype
+            or not bool((fa[k] == fb[k]).all())]
+
+
+def _train_vs_cpu(torch, cfg) -> None:
+    """One train step of `cfg` at TRAIN_CPU_LAYERS layers (full width), in
+    float32 under fake_quant, on the card and on the CPU from the same
+    weights and batch: loss and grad norm within the TRAIN_CPU bounds."""
+    from repro_torch.configs import Runtime
+    from repro_torch.convert import tree_to
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch.steps import init_train_state, make_train_step
+
+    cut = dataclasses.replace(cfg, n_layers=TRAIN_CPU_LAYERS)
+    rt = Runtime(attn_impl="chunked", attn_chunk_q=TRAIN["seq"],
+                 loss_chunk=0, quant_backend="fake_quant",
+                 compute_dtype="float32")
+    state = init_train_state(
+        torch.Generator(device="cuda").manual_seed(SEED), cut)
+    tokens = torch.from_numpy(SyntheticLMDataset(
+        vocab=cut.vocab, seq_len=TRAIN["seq"], global_batch=TRAIN_CPU_BATCH,
+        seed=SEED).batch(0))
+    step = make_train_step(cut, rt, total_steps=TRAIN["steps"])
+    t0 = time.perf_counter()
+    _, card = step(state, tokens.cuda())
+    card = {k: float(v) for k, v in card.items()}
+    _, cpu = step(tree_to(state, "cpu"), tokens)
+    cpu = {k: float(v) for k, v in cpu.items()}
+    d_loss = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    d_gn = abs(card["grad_norm"] - cpu["grad_norm"]) / cpu["grad_norm"]
+    say(f"train: step 1 at {cut.n_layers} layers, full width, float32, "
+        f"fake_quant, {TRAIN_CPU_BATCH} x {TRAIN['seq']} tokens: loss card "
+        f"{card['loss']!r} cpu {cpu['loss']!r} (relative {d_loss:.3e}, "
+        f"bound {TRAIN_CPU_LOSS_RTOL}); grad norm card "
+        f"{card['grad_norm']!r} cpu {cpu['grad_norm']!r} (relative "
+        f"{d_gn:.3e}, bound {TRAIN_CPU_GNORM_RTOL}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not all(map(math.isfinite, (*card.values(), *cpu.values()))) or \
+            d_loss > TRAIN_CPU_LOSS_RTOL or d_gn > TRAIN_CPU_GNORM_RTOL:
+        fail(f"train: step 1 on the card {card} against the CPU {cpu}")
+
+
+class _timed_ckpt:
+    """Within the block, the wall time of every train checkpoint save and
+    restore (``checkpoint.ckpt``'s, as `CheckpointManager` calls them),
+    by kind."""
+
+    def __enter__(self):
+        from repro_torch.checkpoint import ckpt
+
+        self.ckpt, self.orig = ckpt, (ckpt.save_checkpoint,
+                                      ckpt.restore_checkpoint)
+        self.times = {"save": [], "restore": []}
+
+        def timed(kind, fn):
+            def run(*a, **k):
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                self.times[kind].append(time.perf_counter() - t0)
+                return out
+            return run
+        ckpt.save_checkpoint = timed("save", self.orig[0])
+        ckpt.restore_checkpoint = timed("restore", self.orig[1])
+        return self.times
+
+    def __exit__(self, *exc):
+        self.ckpt.save_checkpoint, self.ckpt.restore_checkpoint = self.orig
+        return False
+
+
+def _remat_steps(torch, cfg, state) -> None:
+    """The train step's wall time from `state` under each remat (the
+    trainer's runtime otherwise): 3 steps each, the median of the last 2
+    printed.  The steps' results are dropped."""
+    from repro_torch.configs import Runtime
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch.steps import make_train_step
+
+    tokens = torch.from_numpy(SyntheticLMDataset(
+        vocab=cfg.vocab, seq_len=TRAIN["seq"], global_batch=TRAIN["batch"],
+        seed=SEED).batch(0)).cuda()
+    out = {}
+    base = torch.cuda.memory_allocated()    # the trained state included
+    for remat in ("none", "full", "dots"):
+        rt = Runtime(attn_impl="chunked", attn_chunk_q=TRAIN["seq"],
+                     loss_chunk=0, quant_backend="fake_quant", remat=remat)
+        step = make_train_step(cfg, rt, total_steps=TRAIN["steps"])
+        times = []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(3):
+            t0 = time.perf_counter()
+            _, m = step(state, tokens)
+            float(m["loss"])
+            times.append(time.perf_counter() - t0)
+        out[remat] = (sorted(times[1:])[0] * 1e3,
+                      (torch.cuda.max_memory_allocated() - base) / 2**30)
+    say("train: step ms and peak GiB over the state's by remat (3 steps "
+        "each, the faster of the last 2): "
+        + ", ".join(f"{k} {ms:.1f} ms {gib:.2f} GiB"
+                    for k, (ms, gib) in out.items()))
+    # one step of the trainer's runtime (remat "dots") under the profiler:
+    # the card's busy share and where its time goes
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, m = step(state, tokens)
+        float(m["loss"])
+        wall_us = (time.perf_counter() - t0) * 1e6
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    events = prof.key_averages()
+    kernels = sorted((e for e in events if dev_us(e) > 0
+                      and str(e.device_type).endswith("CUDA")), key=dev_us,
+                     reverse=True)
+    busy = sum(dev_us(e) for e in kernels)
+    say(f"profile (train step, dots): {wall_us / 1e3:.1f} ms with the "
+        f"profiler, {sum(e.count for e in kernels)} device kernels, device "
+        + (f"busy {busy / 1e3:.1f} ms = {busy / wall_us:.3f} of wall time"
+           if busy else "time not measured (the profiler saw none)"))
+    for e in kernels[:8]:
+        say(f"profile (train step):   {dev_us(e) / 1e3:8.3f} ms {e.count:5d}x"
+            f"  {e.key[:90]}")
+    host = sorted((e for e in events if e.self_cpu_time_total > 0),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)
+    for e in host[:6]:
+        say(f"profile (train step, host):   {e.self_cpu_time_total / 1e3:8.3f}"
+            f" ms {e.count:5d}x  {e.key[:90]}")
+
+
+def train_runs(torch):
+    """Full-width qwen2-0.5b trained and served from its own quantized
+    checkpoint.  (1) Step 1 against the CPU (`_train_vs_cpu`).  (2) Under
+    ``torch.use_deterministic_algorithms``: `launch.train.train` for
+    TRAIN's 6 steps of W4A4 QAT (fake_quant) on the synthetic data with no
+    checkpoint: every loss and grad norm finite; the step's wall time after
+    the first, tokens/s trained and the card's peak memory printed.  (3)
+    The same run preempted: 3 steps saved at step 3, then a new `train()`
+    resuming from that checkpoint to step 6 (saved at 6): its final state
+    (params, moments, steps) bit-equal to the straight run's and its
+    losses equal.  The two train checkpoints live in a temporary directory
+    removed after; the free disk is printed first, and the trained depth
+    cut if it is short.  (4) The trained masters packed under serve_w4a4
+    into a quantized checkpoint, restored with the plan checked and saved
+    as float masters beside it (`launch.serve.quantized_ckpt_report`):
+    the restored tree's logits bit-equal to the in-memory pack; then the
+    Poisson trace served from the restored tree on the paged layout,
+    bucketed, bf16 pool, captured: 8 of 8 ok, the W4A4 GEMM 7 times a
+    layer a forward, flash prefill and paged decode once a layer a
+    prefill or step.  Returns that run's launches."""
+    from repro_torch.configs import Runtime, get_config
+    from repro_torch.launch.serve import quantized_ckpt_report
+    from repro_torch.launch.train import train
+    from repro_torch.serving.api import poisson_trace
+
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen2-0.5b")
+    _train_vs_cpu(torch, cfg)
+
+    root = tempfile.mkdtemp(prefix="train_runs_")
+    try:
+        free = shutil.disk_usage(root).free
+        layers = LAYERS
+        # two train states (params, mu, nu in f32) on disk at once
+        while layers > 1 and 2 * 12 * _qwen2_params(dataclasses.replace(
+                cfg, n_layers=layers)) * 1.1 > free:
+            layers -= 1
+        cut = dataclasses.replace(cfg, n_layers=layers)
+        n_params = _qwen2_params(cut)
+        say(f"train: {free / 2**30:.1f} GiB free under {root}; "
+            f"{cut.n_layers} of {LAYERS} layers trained ({n_params:,} "
+            f"parameters, a train checkpoint ~{12 * n_params / 2**30:.2f} "
+            "GiB)" + ("" if layers == LAYERS else " -- DEPTH CUT FOR DISK"))
+        kw = dict(cfg=cut, batch=TRAIN["batch"], seq=TRAIN["seq"],
+                  save_every=TRAIN["save_every"], quant_backend="fake_quant",
+                  seed=SEED, device="cuda")
+        torch.use_deterministic_algorithms(True)
+        try:
+            steps = []
+
+            def on_step(step, m, dt):
+                steps.append((m, dt))
+                if not all(map(math.isfinite, m.values())):
+                    fail(f"train: step {step + 1} not finite: {m}")
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()   # earlier phases' leftovers
+            t0 = time.perf_counter()
+            straight, losses = train(cut.name, steps=TRAIN["steps"],
+                                     ckpt_dir=None, on_step=on_step, **kw)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            later = [dt for _, dt in steps[1:]]
+            step_ms = sorted(later)[len(later) // 2] * 1e3
+            tokens = TRAIN["batch"] * TRAIN["seq"]
+            say(f"train: {len(steps)} QAT steps (fake_quant W4A4) of "
+                f"{TRAIN['batch']} x {TRAIN['seq']} tokens at full width, "
+                f"{cut.n_layers} layers, deterministic algorithms, in "
+                f"{time.perf_counter() - t0:.1f} s: step 1 "
+                f"{steps[0][1] * 1e3:.1f} ms, later steps median "
+                f"{step_ms:.1f} ms ({[round(d * 1e3, 1) for d in later]}), "
+                f"{tokens / (step_ms / 1e3):.0f} tokens/s trained; peak "
+                f"memory {peak / 2**30:.2f} GiB over the "
+                f"{base / 2**30:.2f} GiB allocated before the run")
+            say("train: losses " + json.dumps(losses) + "; grad norms "
+                + json.dumps([m["grad_norm"] for m, _ in steps])
+                + "; rates " + json.dumps([m["lr"] for m, _ in steps]))
+            _remat_steps(torch, cut, straight)
+            d = os.path.join(root, "run")
+            with _timed_ckpt() as io_s:
+                t0 = time.perf_counter()
+                _, first = train(cut.name, steps=TRAIN["save_every"],
+                                 ckpt_dir=d, **kw)
+                t1 = time.perf_counter()
+                resumed, second = train(cut.name, steps=TRAIN["steps"],
+                                        ckpt_dir=d, **kw)
+                t2 = time.perf_counter()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        ckpt_bytes = sum(os.path.getsize(os.path.join(r, f))
+                         for r, _, fs in os.walk(d) for f in fs)
+        say(f"train: preempted run: 3 steps and a save in {t1 - t0:.1f} s, "
+            f"then a new train() resumed from step 3 (restore, 3 steps, a "
+            f"save) in {t2 - t1:.1f} s; two train checkpoints "
+            f"{ckpt_bytes / 2**30:.2f} GiB on disk; saves "
+            f"{[round(t, 3) for t in io_s['save']]} s, restore "
+            f"{[round(t, 3) for t in io_s['restore']]} s")
+        diff = _train_state_equal(straight, resumed)
+        if diff or first + second != losses:
+            fail(f"train: the resumed run's state differs from the straight "
+                 f"run's in {diff[:8]} (losses {first + second} vs "
+                 f"{losses})")
+        say("train: the resumed run's params, moments and steps equal the "
+            "straight run's bit for bit, and its losses")
+        del straight
+        shutil.rmtree(d)
+
+        masters = resumed["params"]
+        del resumed
+        torch.cuda.empty_cache()
+        rt = Runtime(attn_impl="flash", quant_plan="serve_w4a4")
+        restored, reference, rep = quantized_ckpt_report(
+            cut, rt, os.path.join(root, "serve"), masters, seed=SEED)
+        del masters, reference
+        say("train: quantized checkpoint (serve_w4a4) of the trained "
+            f"masters: {rep['quantized_bytes']:,} bytes against "
+            f"{rep['float_master_bytes']:,} of float masters; save "
+            f"{rep['save_s']:.3f} s, load {rep['load_s']:.3f} s (float "
+            f"save {rep['float_save_s']:.3f} s); logits bit-identical to "
+            f"the in-memory pack: {rep['bit_identical_logits']}")
+        if not rep["bit_identical_logits"]:
+            fail("train: the restored quantized checkpoint's logits differ "
+                 "from the plan packed from the same masters in memory")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    trace = poisson_trace(8, 0.5, PROMPT_LENS, GEN_LENS, cut.vocab,
+                          seed=SEED)
+    label = "trained, from the quantized checkpoint"
+    engine, n, _, _ = serve_engine(torch, cut, restored, rt, _sv(), trace,
+                                   PROMPT_LENS, label)
+    forwards = _dense_launches(label, n, "bucketed", cut.n_layers,
+                               gemms_a_block("A", cut))
+    say(f"serve ({label}): {forwards} forwards, the GEMM 7 times a layer "
+        f"each; the phase in {time.perf_counter() - t_phase:.1f} s")
+    del engine, restored
+    torch.cuda.empty_cache()
+    return n
+
+
 def phase_serve(torch):
     """The bucketed path (bf16 pool, Poisson trace), then the ragged path
     (int8 pool, mixed trace), on one set of full-width W4A4 weights; then
@@ -2490,8 +2821,9 @@ def phase_serve(torch):
     `engine.profile()` after each of the first two runs, the shared-prefix
     runs (`prefix_runs`), the chaos runs (`chaos_runs`), the contiguous
     layout (`contiguous_runs`) and the compare harness (`compare_runs`);
-    last, full-width mamba2-130m (`mamba_runs`) and full-width
-    recurrentgemma-9b (`hybrid_runs`).  Every part's time is printed.
+    last, full-width mamba2-130m (`mamba_runs`), full-width
+    recurrentgemma-9b (`hybrid_runs`), the paged configs (`dense_runs`)
+    and training (`train_runs`).  Every part's time is printed.
     Returns the launches of all runs, summed."""
     from repro_torch.configs import Runtime, get_config
     from repro_torch.serving.api import mixed_trace, poisson_trace
@@ -2529,22 +2861,27 @@ def phase_serve(torch):
             t1 = time.perf_counter()
             trace = (mixed_trace(8, prompt_lens, (16, 32), cfg.vocab,
                                  seed=SEED) if run == "ragged" else poisson)
-            engine, n, _, tokens[run] = serve_run(torch, params, run, trace,
-                                                  prompt_lens)
+            run_params = (_first_layers(params, RUN_LAYERS[run])
+                          if RUN_LAYERS.get(run, cut.n_layers)
+                          < cut.n_layers else params)
+            engine, n, _, tokens[run] = serve_run(torch, run_params, run,
+                                                  trace, prompt_lens)
             launches.append(n)
             prof = {"graphs": profile_steps(torch, engine, cut.vocab, run)}
             if quant == "w4a4_packed":
                 att = engine.profile()
                 say(f"profile ({run}): engine.profile(): decode step "
                     f"{att['decode_step_us']} us, decode attention "
-                    f"{att['attn_us']} us ({cfg.n_layers} x one call), "
+                    f"{att['attn_us']} us ({engine.cfg.n_layers} x one "
+                    "call), "
                     f"attn_frac {att['attn_frac']}, at step "
                     f"{att['at_step']}; profile_steps' replay "
                     f"{prof['graphs']['replay_ms'] * 1e3:.1f} us of device "
                     "time")
             del engine
-            engine, n_eager, _, eager = serve_run(torch, params, run, trace,
-                                                  prompt_lens, eager=True)
+            engine, n_eager, _, eager = serve_run(torch, run_params, run,
+                                                  trace, prompt_lens,
+                                                  eager=True)
             prof["eager"] = profile_steps(torch, engine, cfg.vocab, run,
                                           mode="eager")
             del engine
@@ -2588,7 +2925,7 @@ def phase_serve(torch):
              "same)")
     say("serve (lut4): every request's tokens equal the w4a4_packed "
         "bucketed run's at the same depth, token for token")
-    for part in (mamba_runs, hybrid_runs, dense_runs):
+    for part in (mamba_runs, hybrid_runs, dense_runs, train_runs):
         t0 = time.perf_counter()
         launches.append(part(torch))
         say(f"phase 4: {part.__name__} in {time.perf_counter() - t0:.1f} s")

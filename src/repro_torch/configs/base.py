@@ -128,6 +128,11 @@ class Runtime:
     # paged prefill attends over the gathered page pool (tail prefill after
     # a prefix-cache hit) instead of the in-flight K/V
     prefill_over_cache: bool = False
+    # training: the cross-entropy over rows of this many tokens (0 =
+    # unchunked), and what each block keeps for the backward (none: every
+    # activation; dots: matmul outputs only; full: recompute the block)
+    loss_chunk: int = 4096
+    remat: str = "dots"             # none | dots | full
 
     def quant_cfg(self, arch: ArchConfig, site: str = "") -> QuantConfig:
         """Per-site QuantConfig under the active plan (`site` e.g.

@@ -7,6 +7,9 @@ returns the port's tree: bf16 leaves go through float32 (numpy has no
 native bf16; the JAX package's checkpoints do the same) and come back as
 torch bf16, packed int4 dicts keep their uint8 bytes, every other leaf keeps
 its dtype.  The port and the reference then compute on identical weights.
+``train_state_from_jax`` does the same for a whole train state
+(``{"params", "opt": {"mu", "nu", "step"}, "step"}``), so both packages
+step from one state.
 """
 
 from __future__ import annotations
@@ -25,6 +28,17 @@ def params_from_jax(tree, device="cuda"):
         return torch.from_numpy(a.astype(np.float32)).to(
             device=device, dtype=torch.bfloat16)
     return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def train_state_from_jax(state, device="cuda"):
+    """The reference's train state, its leaves turned into numpy arrays
+    (``jax.tree.map(np.asarray, state)``), as the port's: params and the
+    AdamW moments as `params_from_jax` carries them, both steps as int32
+    scalars."""
+    missing = {"params", "opt", "step"} - set(state)
+    if missing or {"mu", "nu", "step"} - set(state["opt"]):
+        raise ValueError(f"not a train state: keys {sorted(state)}")
+    return params_from_jax(state, device)
 
 
 def tree_to(tree, device):

@@ -77,11 +77,16 @@ def _int4_backend(w, x2, cfg, tag):
     """Integer GEMM from a float master: per-output-channel weight quantize.
     W4A4 packs the weight K-major per call and runs the fused W4A4 GEMM (CUDA
     kernel on CUDA tensors, plain version on CPU tensors); other widths run
-    `int_gemm`."""
+    `int_gemm`, and so does a call being differentiated (training), as the
+    JAX package's ``int_sim`` always does: its gradient reaches the weight
+    and the activations through their scales alone (the rounded integers
+    carry none), and no kernel has a backward."""
     xf = x2.to(torch.float32)
     w_scale = quant_scale(w, axis=0, bits=cfg.w_bits)    # [1, N]
     w_q = quantize(w, w_scale, bits=cfg.w_bits)
-    if cfg.a_bits == 4 and cfg.w_bits == 4:
+    training = torch.is_grad_enabled() and (w.requires_grad
+                                            or x2.requires_grad)
+    if cfg.a_bits == 4 and cfg.w_bits == 4 and not training:
         return ops.int4_matmul_fused_kmajor(xf, pack_kmajor(w_q), w_scale)
     return int_gemm(xf, w_q, w_scale, cfg.a_bits)
 

@@ -108,6 +108,10 @@ def _packed_backend(w, x2: torch.Tensor, cfg: QuantConfig, tag: str = ""):
     widths other than 4 run `backends.int_gemm` on the unpacked weight, as
     the JAX package's XLA path does."""
     packed, w_scale = w["packed"], w["scale"]
+    if w_scale.dtype != torch.float32:
+        # a quantized checkpoint's bf16 scales (widening is exact; the
+        # kernels take f32, and `prepack_tree` widens them once)
+        w_scale = w_scale.to(torch.float32)
     if cfg.backend in W4A4_BACKENDS and cfg.a_bits != 4:
         from .backends import int_gemm
 
@@ -163,7 +167,9 @@ def prepack_tree(params):
     """Add a planar K-major twin (`packed_km`) to every packed serving
     weight, once, so the kernel unpacks with a shift and a mask and no
     serving step relayouts a weight.  Grouped scales need planar halves that
-    cover whole groups (row_mult = 2G); per-channel ones need 2.  MoE
+    cover whole groups (row_mult = 2G); per-channel ones need 2.  A
+    quantized checkpoint's bf16 scales are widened to the f32 the kernels
+    take (exact).  MoE
     expert stacks are skipped: they run as batched GEMMs on dequantized
     weights (``models/moe.py``), never through the 2D kernels, so a twin
     would only double their bytes."""
@@ -171,8 +177,9 @@ def prepack_tree(params):
         if isinstance(node, dict) and "packed" in node:
             if "packed_km" in node or in_experts:
                 return node
-            return {**node, "packed_km": nmajor_to_kmajor_grouped(
-                node["packed"], node["scale"]).contiguous()}
+            return {**node, "scale": node["scale"].to(torch.float32),
+                    "packed_km": nmajor_to_kmajor_grouped(
+                        node["packed"], node["scale"]).contiguous()}
         if isinstance(node, dict):
             return {k: walk(v, in_experts or k == "experts")
                     for k, v in node.items()}

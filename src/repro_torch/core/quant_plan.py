@@ -18,7 +18,8 @@ then the uniform ``ArchConfig.quant``.  A plan that resolves the same at
 every layer packs the stacked ``layers`` tree in place; one that differs
 between layers splits it into a list of per-layer trees, which the port's
 Python layer loop walks as it walks the stacked views.  `plan_pack_tree`
-packs a whole float tree; `LayerPacker` packs the same tree block by block
+packs a whole float tree (``backends=CKPT_PACKED`` with bf16 scales is the
+quantized checkpoint's format, ``checkpoint.save_quantized``); `LayerPacker` packs the same tree block by block
 as the model is drawn, so a serving build never holds every float master
 at once.
 """
@@ -39,6 +40,12 @@ from .qlinear import QuantConfig
 
 #: backends the live serving path packs ahead of time
 SERVE_PACKED = frozenset({"w4a4_packed", "w4a16_packed"})
+
+#: backends a quantized checkpoint stores packed (every one that serves
+#: from int4 nibbles; fake_quant, netlist and float sites keep their f32
+#: masters)
+CKPT_PACKED = SERVE_PACKED | frozenset(
+    {"int_sim", "pallas_int4", "lut4", "w4a16"})
 
 
 def join_site(prefix: str, leaf: str) -> str:
@@ -112,6 +119,17 @@ def _resolve(plan: QuantPlan, site: str) -> QuantConfig:
 # ---------------------------------------------------------- plan specs ----
 _QC_FIELDS = ("backend", "w_bits", "a_bits", "group_size",
               "quantize_embedding")
+
+
+def plan_to_dict(plan: QuantPlan) -> Dict:
+    """The plan as the JSON a checkpoint manifest stores (the inverse of
+    `plan_from_dict`)."""
+    return {
+        "name": plan.name,
+        "rules": [{"pattern": pattern,
+                   **{f: getattr(qc, f) for f in _QC_FIELDS}}
+                  for pattern, qc in plan.rules],
+    }
 
 
 def plan_from_dict(d: Dict) -> QuantPlan:

@@ -31,6 +31,18 @@ a sound run).  The report carries the engine's
 ``--sweep`` adds the per-site quantization sensitivity table
 (``launch.sensitivity``) to the report.
 
+``--quantized-ckpt`` serves from a quantized checkpoint
+(`quantized_ckpt_report`): fresh f32 masters are packed and saved under
+the plan (``checkpoint.save_quantized``: uint8 nibbles, bf16 scales, the
+plan in the manifest), restored with no float master and the plan checked
+(``restore_quantized``), and saved as float masters beside it for the
+size; the report's ``quantized_ckpt`` holds ``bit_identical_logits`` (the
+restored tree's forward against the plan packed from the masters in
+memory), ``quantized_bytes``, ``float_master_bytes``, ``save_s``,
+``load_s`` and ``tokens_match`` (the trace served from the restored tree
+against the same trace served from the in-memory pack).  ``--ckpt-dir``
+keeps the checkpoints (default: a temporary directory).
+
 ``--scenario shared_prefix`` gives every prompt one shared system prefix
 (``--sys-len`` tokens) and a user suffix from ``--prompt-lens``: the
 report's ``prefix_hit_rate`` and ``tokens_prefilled_saved`` show the
@@ -58,6 +70,9 @@ and the recompile sentinel.
         --reduced --device cpu --scenario chaos --chaos-seed 3
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
         --reduced --device cpu --layout compare
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
+        --reduced --device cpu --layers 2 --quant-plan mixed_sensitive \
+        --quantized-ckpt
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
         --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \
@@ -78,6 +93,9 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
+import tempfile
+import time
 
 import torch
 
@@ -112,6 +130,66 @@ def compare_path(path: str, rt, sv):
         prefix_cache=sv.prefix_cache and path != "paged_nocache")
 
 
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def quantized_ckpt_report(cfg, rt, ckpt_dir: str, masters, seed: int = 0):
+    """Save a quantized checkpoint of the f32 `masters` under the active
+    plan into ``<ckpt_dir>/q``, restore it on the masters' device (plan
+    checked; the kernels' twins rebuilt on CUDA) and save the masters as a
+    float checkpoint into ``<ckpt_dir>/f``; then run one forward of the
+    restored tree and of the plan packed from the masters in memory on a
+    seeded 8-token prompt.  Returns (the restored tree, the in-memory
+    pack, the report)."""
+    from ..checkpoint import (restore_quantized, save_checkpoint,
+                              save_quantized)
+    from ..core.qlinear import prepack_tree
+    from ..core.quant_plan import CKPT_PACKED, active_plan, plan_pack_tree
+    from ..models.transformer import forward
+
+    dev = masters["embed"]["tok"].device
+
+    def clock():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return time.perf_counter()
+
+    plan = active_plan(cfg, rt)
+    qdir, fdir = os.path.join(ckpt_dir, "q"), os.path.join(ckpt_dir, "f")
+    t0 = clock()
+    save_quantized(qdir, 0, masters, cfg, plan=plan)
+    save_s = clock() - t0
+    t0 = clock()
+    restored, manifest = restore_quantized(qdir, cfg=cfg, rt=rt, device=dev)
+    load_s = clock() - t0
+    t0 = clock()
+    save_checkpoint(fdir, 0, masters)
+    float_save_s = clock() - t0
+    reference = plan_pack_tree(masters, cfg, plan, backends=CKPT_PACKED,
+                               scale_dtype=torch.bfloat16)
+    if dev.type == "cuda":
+        reference = prepack_tree(reference)
+    gen = torch.Generator().manual_seed(seed + 1)
+    tokens = torch.randint(0, cfg.vocab, (1, 8), generator=gen,
+                           dtype=torch.int32).to(dev)
+    with torch.inference_mode():
+        la = forward(restored, tokens, cfg, rt)[0]
+        lb = forward(reference, tokens, cfg, rt)[0]
+    report = {
+        "plan": plan.name or "inline",
+        "manifest_format": manifest.get("format"),
+        "bit_identical_logits": bool(torch.equal(la, lb)),
+        "quantized_bytes": _dir_bytes(qdir),
+        "float_master_bytes": _dir_bytes(fdir),
+        "save_s": save_s,
+        "load_s": load_s,
+        "float_save_s": float_save_s,
+    }
+    return restored, reference, report
+
+
 def model_config(arch: str, reduced: bool = True, layers=None):
     """The arch's config (reduced or full width) at its own depth or at
     `layers`, which must be a whole number of repeat units plus the tail:
@@ -136,7 +214,8 @@ def serve(arch: str, *, reduced=True, layers=None, layout=None, max_batch=4,
           scenario="poisson", sys_len=32, step="bucketed",
           token_budget=0, cache_dtype="bfloat16", quant="w4a4_packed",
           quant_plan=None, seed=0, chaos_seed=0, max_queue=0,
-          trace_out=None, metrics=True, sweep=False, device="cuda"):
+          trace_out=None, metrics=True, sweep=False, quantized_ckpt=False,
+          ckpt_dir=None, device="cuda"):
     cfg = model_config(arch, reduced, layers)
     if scenario in ("chaos", "cancel_storm"):
         # the seeded fault-injection harness in both step modes against one
@@ -195,7 +274,6 @@ def serve(arch: str, *, reduced=True, layers=None, layout=None, max_batch=4,
     paths = ([p for p in COMPARE_PATHS
               if prefix_cache or p != "paged_nocache"]
              if layout == "compare" else [layout])
-    params = build_params(cfg, rt, seed, device)
     report = {"arch": arch, "reduced": reduced, "n_layers": cfg.n_layers,
               "layout": layout, "quant": quant_plan or quant,
               "cache_dtype": cache_dtype, "step": step, "scenario": scenario,
@@ -203,6 +281,29 @@ def serve(arch: str, *, reduced=True, layers=None, layout=None, max_batch=4,
               "prefix_cache": bool(prefix_cache),
               **({"sys_len": sys_len} if scenario == "shared_prefix"
                  else {})}
+    params_ref = None
+    if quantized_ckpt:
+        # serve from the restored checkpoint; the in-memory pack serves the
+        # trace again afterwards, and the tokens must match
+        from ..models.transformer import init_model
+        from ..serving.engine import resolve_device
+
+        dev = resolve_device(device)
+        masters = init_model(torch.Generator(device=dev).manual_seed(seed),
+                             cfg)
+
+        def with_dir(d):
+            return quantized_ckpt_report(cfg, rt, d, masters, seed)
+
+        if ckpt_dir:
+            os.makedirs(ckpt_dir, exist_ok=True)
+            params, params_ref, report["quantized_ckpt"] = with_dir(ckpt_dir)
+        else:
+            with tempfile.TemporaryDirectory() as d:
+                params, params_ref, report["quantized_ckpt"] = with_dir(d)
+        del masters
+    else:
+        params = build_params(cfg, rt, seed, device)
     tokens_by_path, launches = {}, {}
     sv = ServingConfig(layout="paged" if layout == "compare" else layout,
                        max_batch=max_batch, page_size=page_size,
@@ -235,6 +336,15 @@ def serve(arch: str, *, reduced=True, layers=None, layout=None, max_batch=4,
         if tm.trace.enabled:
             tm.trace.save(trace_out)
             report["trace_out"] = trace_out
+    if params_ref is not None:
+        rt_ref, sv_ref = (compare_path(paths[0], rt, sv)
+                          if layout == "compare" else (rt, sv))
+        engine_ref = InferenceEngine(cfg, rt_ref, sv_ref, params=params_ref,
+                                     device=device)
+        engine_ref.warmup(warm_lens)
+        _, finished_ref = run_trace(engine_ref, trace)
+        report["quantized_ckpt"]["tokens_match"] = (
+            tokens_by_path[paths[0]] == [r.tokens for r in finished_ref])
     report["device"] = str(engine.device)
     report["device_name"] = (torch.cuda.get_device_name(engine.device)
                              if engine.device.type == "cuda" else "cpu")
@@ -284,7 +394,7 @@ def _compare_report(report, paths, tokens_by_path, cache_dtype) -> None:
                          f"({paths[0]} vs {diverged})")
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     grp = ap.add_mutually_exclusive_group()
@@ -355,11 +465,18 @@ def main():
                          "stats() reports empty metrics and recompiles)")
     ap.add_argument("--sweep", action="store_true",
                     help="add the per-site sensitivity table to the report")
+    ap.add_argument("--quantized-ckpt", action="store_true",
+                    help="serve from a quantized checkpoint (save, restore, "
+                         "check its logits bit-identical to the plan packed "
+                         "from the float masters)")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="keep the quantized checkpoint here (default: a "
+                         "temporary directory)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     ap.add_argument("--out", default=None,
                     help="also write the JSON report to this path")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
     try:
         model_config(args.arch, args.reduced, args.layers)
     except (KeyError, ValueError) as e:
@@ -378,7 +495,8 @@ def main():
         quant=args.quant, quant_plan=args.quant_plan, seed=args.seed,
         chaos_seed=args.chaos_seed, max_queue=args.max_queue,
         trace_out=args.trace_out, metrics=args.metrics == "on",
-        sweep=args.sweep, device=args.device)
+        sweep=args.sweep, quantized_ckpt=args.quantized_ckpt,
+        ckpt_dir=args.ckpt_dir, device=args.device)
     text = json.dumps(out, indent=1)
     print(text)
     if args.out:

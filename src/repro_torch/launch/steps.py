@@ -1,7 +1,15 @@
-"""Step functions for the model and the continuous-batching engine
-(PyTorch port of ``repro/launch/steps.py``: ``make_prefill_step``,
-``make_decode_step``, ``make_serving_steps`` for both KV layouts and
-``make_ragged_step``).
+"""Step functions for the trainer, the model and the continuous-batching
+engine (PyTorch port of ``repro/launch/steps.py``: ``init_train_state``,
+``make_train_step``, ``make_prefill_step``, ``make_decode_step``,
+``make_serving_steps`` for both KV layouts and ``make_ragged_step``).
+
+The train step runs under autograd (never under ``inference_mode`` or
+``no_grad``): `models.transformer.lm_loss`, its gradient by
+``torch.autograd.grad`` over the parameters' float leaves, then
+``optim.adamw_update`` at the ``warmup_cosine`` rate of the state's step.
+No kernel runs in it: the training path is PyTorch's own ops, as the JAX
+trainer is XLA's (QAT goes through the ``fake_quant`` straight-through
+estimator; ``int_sim`` through ``backends.int_gemm``).
 
 Each paged serving step gathers the batch's block-table rows on the device
 (``tbl_all[slots]``), binds them to every layer, runs the model and takes
@@ -34,9 +42,78 @@ import torch
 
 from ..kernels import ops
 from ..models.transformer import (_logits, decode_step, forward,
-                                  init_caches, prefill)
+                                  init_caches, init_model, lm_loss, prefill)
+from ..optim import adamw_init, adamw_update, warmup_cosine
+from ..optim.adamw import tree_leaves, tree_map
 from ..serving.kv_pages import (gather_rows, scatter_rows, with_block_tables,
                                 with_token_slots)
+
+
+# ------------------------------------------------------------- train state --
+#: the quant backends a train step differentiates: PyTorch ops end to end
+#: (``int_sim`` and ``pallas_int4`` through ``core.backends.int_gemm``)
+TRAINABLE_BACKENDS = frozenset({"float", "fake_quant", "int_sim",
+                                "pallas_int4"})
+
+
+def init_train_state(gen: torch.Generator, cfg, device=None) -> Dict:
+    """``{"params", "opt", "step"}``: the port's random f32 parameters
+    drawn from `gen` (on its device), moved to `device` when it is given,
+    zero AdamW moments and step 0 (the JAX package's tree)."""
+    params = init_model(gen, cfg)
+    if device is not None:
+        params = tree_map(lambda t: t.to(device), params)
+    dev = next(iter(params["embed"].values())).device
+    return {"params": params, "opt": adamw_init(params),
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def make_train_step(cfg, rt, *, peak_lr: float = 3e-4, warmup: int = 100,
+                    total_steps: int = 10000):
+    """``train_step(state, batch) -> (new_state, metrics)`` on tokens
+    [B, S+1]: the loss and its gradient, then one AdamW step at the
+    schedule's rate for the state's step.  `metrics` holds ``loss``,
+    ``nll``, ``aux``, ``lr`` and ``grad_norm`` (tensors on the device).
+    A parameter the loss does not reach gets a zero gradient, as under
+    ``jax.grad``.  Plans whose GEMMs only a kernel computes (lut4, w4a16,
+    the pre-packed and netlist backends) are refused: no kernel has a
+    backward."""
+    from ..core.quant_plan import active_plan
+
+    untrainable = active_plan(cfg, rt).backends - TRAINABLE_BACKENDS
+    if untrainable:
+        raise NotImplementedError(
+            f"make_train_step: backends {sorted(untrainable)} have no "
+            f"backward; train with {sorted(TRAINABLE_BACKENDS)}")
+
+    def train_step(state: Dict, batch: torch.Tensor):
+        live = tree_map(lambda p: p.detach().requires_grad_(True),
+                        state["params"])
+        leaves = tree_leaves(live)
+        with torch.enable_grad():
+            loss, metrics = lm_loss(live, batch, cfg, rt)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        it = iter([torch.zeros_like(p) if g is None else g
+                   for p, g in zip(leaves, grads)])
+        grads = _like(live, it)
+        with torch.no_grad():
+            lr = warmup_cosine(state["step"], peak_lr=peak_lr,
+                               warmup_steps=warmup, total_steps=total_steps)
+            params, opt, info = adamw_update(state["params"], grads,
+                                             state["opt"], lr)
+        out = {"loss": loss.detach(), "lr": lr,
+               **{k: v.detach() for k, v in metrics.items()}, **info}
+        return {"params": params, "opt": opt, "step": state["step"] + 1}, out
+
+    return train_step
+
+
+def _like(tree, it):
+    """`tree`'s structure with its leaves taken from `it` in sorted-key
+    order (``optim.adamw.tree_leaves``'s)."""
+    if isinstance(tree, dict):
+        return {k: _like(tree[k], it) for k in sorted(tree)}
+    return next(it)
 
 
 def make_prefill_step(cfg, rt):

@@ -1,0 +1,152 @@
+"""End-to-end trainer with fault tolerance (PyTorch port of
+``repro/launch/train.py``).
+
+Runs `launch.steps.make_train_step` over the deterministic synthetic
+pipeline (``data.SyntheticLMDataset``) with atomic checkpoints and resume
+from the latest (``checkpoint.CheckpointManager``, the JAX package's
+on-disk format), a per-step watchdog (``distributed.fault_tolerance``) and
+bounded retries.  Runs on ``cuda`` unless ``device="cpu"`` is given.
+Multi-device training (``--mesh``) is not ported yet.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
+        --reduced --device cpu --steps 20 --batch 4 --seq 32 \
+        --ckpt /tmp/run1 --quant fake_quant
+
+The last line of standard output is ``{"first_loss", "last_loss",
+"steps"}``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+import tempfile
+from typing import Callable, Optional
+
+import torch
+
+from ..checkpoint import CheckpointManager
+from ..configs import Runtime, get_config
+from ..data import SyntheticLMDataset, make_batch_iterator
+from ..distributed.fault_tolerance import StepTimer, Watchdog, run_with_retries
+from ..serving.engine import resolve_device
+from .steps import init_train_state, make_train_step
+
+log = logging.getLogger("repro_torch.train")
+
+#: the CLI's checkpoint directory unless --ckpt names one
+DEFAULT_CKPT = os.path.join(tempfile.gettempdir(), "repro_torch_ckpt")
+
+
+def train(arch: str, *, steps: int = 100, batch: int = 8, seq: int = 128,
+          reduced: bool = True, ckpt_dir: Optional[str] = DEFAULT_CKPT,
+          save_every: int = 50, mesh_spec: str = "", peak_lr: float = 3e-4,
+          quant_backend: Optional[str] = None, step_deadline_s: float = 600.0,
+          log_every: int = 10, seed: int = 0, device="cuda",
+          cfg=None, on_step: Optional[Callable] = None):
+    """Train `arch` (its reduced config unless `reduced` is false, or
+    `cfg` when given) for `steps` steps of `batch` sequences of `seq`
+    tokens; returns (the final train state, every step's loss).
+
+    With a `ckpt_dir` the state is saved every `save_every` steps and at
+    the end (the last 3 kept), and a run finding a checkpoint there
+    resumes from its latest step; ``ckpt_dir=None`` keeps no checkpoints.
+    `on_step(step, metrics, seconds)` is called after every step with the
+    step's metrics as floats and its wall time (the device synchronized).
+    `mesh_spec` (multi-device training) is not ported yet and must be
+    empty."""
+    if mesh_spec:
+        raise NotImplementedError(
+            "train: a mesh needs the distributed layer, which is not ported "
+            "yet")
+    dev = resolve_device(device)
+    if cfg is None:
+        cfg = get_config(arch)
+        if reduced:
+            cfg = cfg.reduced()
+    rt = Runtime(attn_impl="chunked", attn_chunk_q=min(512, seq),
+                 loss_chunk=0, quant_backend=quant_backend)
+    ds = SyntheticLMDataset(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
+                            seed=seed)
+    mgr = (CheckpointManager(ckpt_dir, save_every=save_every, keep=3)
+           if ckpt_dir else None)
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state = init_train_state(gen, cfg)
+    start_step = 0
+    if mgr is not None and mgr.latest() is not None:
+        state, start_step = mgr.restore(state)
+        log.info("resumed from step %d", start_step)
+
+    step_fn = make_train_step(cfg, rt, peak_lr=peak_lr,
+                              total_steps=max(steps, 1))
+    it = make_batch_iterator(ds, start_step=start_step)
+    timer = StepTimer()
+    history = []
+    wd = Watchdog(deadline_s=step_deadline_s)
+    try:
+        for step in range(start_step, steps):
+            tokens = torch.from_numpy(next(it)).to(dev)
+
+            def one_step():
+                with wd:
+                    return step_fn(state, tokens)
+
+            timer.start()
+            state, metrics = run_with_retries(one_step, max_retries=2)
+            vals = {k: float(v) for k, v in metrics.items()}
+            dt = timer.stop()
+            history.append(vals["loss"])
+            if on_step is not None:
+                on_step(step, vals, dt)
+            if step % log_every == 0 or step == steps - 1:
+                log.info("step %5d loss %.4f gnorm %.3f lr %.2e %.0f ms",
+                         step, vals["loss"], vals["grad_norm"], vals["lr"],
+                         dt * 1e3)
+            if mgr is not None:
+                mgr.maybe_save(step + 1, state)
+    finally:
+        it.close()
+    if mgr is not None:
+        mgr.maybe_save(steps, state, force=True)
+    return state, history
+
+
+def main(argv=None):
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s %(message)s")
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    grp = ap.add_mutually_exclusive_group()
+    grp.add_argument("--reduced", action="store_true", default=True)
+    grp.add_argument("--full", dest="reduced", action="store_false",
+                     help="the full (not reduced) config")
+    ap.add_argument("--ckpt", default=DEFAULT_CKPT,
+                    help="checkpoint directory (resumes from its latest)")
+    ap.add_argument("--save-every", type=int, default=50)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--quant", default=None,
+                    help="override the quant backend (float|fake_quant|"
+                         "int_sim)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    _, history = train(
+        args.arch, steps=args.steps, batch=args.batch, seq=args.seq,
+        reduced=args.reduced, ckpt_dir=args.ckpt,
+        save_every=args.save_every, peak_lr=args.lr,
+        quant_backend=args.quant, seed=args.seed, device=args.device)
+    # a run that found its last step on disk trained none (the JAX CLI
+    # raises an IndexError there)
+    print(json.dumps({"first_loss": history[0] if history else None,
+                      "last_loss": history[-1] if history else None,
+                      "steps": len(history)}))
+
+
+if __name__ == "__main__":
+    main()

@@ -33,17 +33,25 @@ returns what ``pack_for_serving`` makes of the float tree.
 `models.moe.apply_moe` on the second norm, then the shared expert or the
 dense residual FFN beside it (``x + moe + extra``; when a config sets
 both, the dense FFN's output replaces the shared expert's, as in the JAX
-package).  The serving forward drops the router's aux loss.
+package).  `forward` returns the router's aux loss (the mean over the
+layers of each MoE block's) when asked, and `lm_loss` adds it.
+
+Training (`lm_loss`, ``launch.steps.make_train_step``) runs the same
+forward under autograd, with ``Runtime.remat`` choosing what each block
+keeps for the backward (`_remat`): everything (``"none"``), the outputs of
+its matmuls only (``"dots"``) or nothing, recomputing the block
+(``"full"``).  Remat never changes the numbers.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+import functools
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from ..core.qlinear import qdense
-from ..core.quant_plan import join_site, layer_slice
+from ..core.quant_plan import join_site
 from .attention import apply_attention, init_attention, init_attn_cache
 from .common import normal_init, rms_norm, sinusoidal_pos_embed
 from .ffn import apply_ffn, init_ffn
@@ -114,7 +122,9 @@ def apply_block(block_type: str, p: Dict, x, cfg, rt, positions,
     """One block; `site` (e.g. "block[3]") prefixes the sub-layers' plan
     sites.  "A": attention, "R": RG-LRU, each then the FFN when ``d_ff``
     (an MoE stack's "A": the MoE block and its shared or dense FFN);
-    "M": Mamba-2 (no FFN).  Returns (x, the block's new cache or None)."""
+    "M": Mamba-2 (no FFN).  Returns (x, the block's new cache or None,
+    the router's aux loss: an f32 scalar, or None outside MoE blocks)."""
+    aux = None
     normed = rms_norm(x, p["norm1"], cfg.norm_eps)
     kind = CACHE_KIND[block_type]
     sub = cache.get(kind) if cache else None
@@ -128,7 +138,8 @@ def apply_block(block_type: str, p: Dict, x, cfg, rt, positions,
     x = x + h
     if block_type == "A" and cfg.family == "moe":
         n2 = rms_norm(x, p["norm2"], cfg.norm_eps)
-        my, _ = apply_moe(p["moe"], n2, cfg, rt, site=join_site(site, "moe"))
+        my, aux = apply_moe(p["moe"], n2, cfg, rt,
+                            site=join_site(site, "moe"))
         extra = 0.0
         if cfg.shared_expert:
             extra = apply_ffn(p["shared"], n2, cfg, rt,
@@ -140,7 +151,7 @@ def apply_block(block_type: str, p: Dict, x, cfg, rt, positions,
     elif block_type != "M" and cfg.d_ff:
         x = x + apply_ffn(p["ffn"], rms_norm(x, p["norm2"], cfg.norm_eps),
                           cfg, rt, site=join_site(site, "ffn"))
-    return x, ({kind: nc} if nc is not None else None)
+    return x, ({kind: nc} if nc is not None else None), aux
 
 
 # ------------------------------------------------------------------ model --
@@ -221,15 +232,26 @@ def init_caches(cfg, rt, batch: int, seq: int, device="cuda") -> Dict:
     return {"rep": rep, "tail": tail}
 
 
+def _unbind(tree, n: int) -> List:
+    """The n per-repeat views of a layer-stacked tree, each leaf split by
+    one ``torch.unbind``: under autograd its backward stacks the n
+    gradients once, where n separate slices would each add a whole-stack
+    gradient."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: parts[k][r] for k in tree} for r in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
 def layer_params(params: Dict, cfg) -> List[Dict]:
     """Per-block views of the stacked repeat-unit parameters (block
     ``r * P + j`` at index ``r * P + j``), or the per-block trees of a plan
     that packs layers differently (``plan_pack_tree``)."""
     if isinstance(params["layers"], list):
         return params["layers"]
-    P = len(cfg.pattern)
-    return [layer_slice(params["layers"][f"u{j}"], r)
-            for r in range(cfg.n_repeats) for j in range(P)]
+    P, R = len(cfg.pattern), cfg.n_repeats
+    units = [_unbind(params["layers"][f"u{j}"], R) for j in range(P)]
+    return [units[j][r] for r in range(R) for j in range(P)]
 
 
 def with_layer_views(params: Dict, cfg) -> Dict:
@@ -250,11 +272,52 @@ def _paged(block_cache: Dict) -> bool:
     return any("tbl" in c for c in block_cache.values())
 
 
+#: the matmuls whose outputs ``remat="dots"`` keeps: the dots with no
+#: batch dimension, as the JAX package's ``dots_with_no_batch_dims_saveable``
+#: (a projection of [B, S, D] activations folds to one ``mm``; attention's
+#: and the experts' batched products, ``bmm``, are recomputed)
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(rt, fn, x: torch.Tensor, lp) -> Tuple:
+    """`fn(x)` (one block) under ``rt.remat`` when it is differentiated:
+    ``"full"`` keeps only the block's input and recomputes the rest in
+    the backward, ``"dots"`` keeps the outputs of its unbatched matmuls
+    too (`_save_dots`), ``"none"`` (or no gradient) runs it as it is."""
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+
+    def differentiated(node) -> bool:
+        if isinstance(node, dict):
+            return any(differentiated(v) for v in node.values())
+        return isinstance(node, torch.Tensor) and node.requires_grad
+
+    if rt.remat == "none" or not torch.is_grad_enabled() or not (
+            x.requires_grad or differentiated(lp)):
+        return fn(x)
+    if rt.remat == "full":
+        return checkpoint(fn, x, use_reentrant=False)
+    if rt.remat == "dots":
+        return checkpoint(fn, x, use_reentrant=False, context_fn=functools.
+                          partial(create_selective_checkpoint_contexts,
+                                  _save_dots))
+    raise ValueError(f"unknown remat {rt.remat!r}: none | dots | full")
+
+
 def forward(params: Dict, tokens: torch.Tensor, cfg, rt,
             positions: Optional[torch.Tensor] = None,
             caches: Optional[Dict] = None, update_cache: bool = False,
-            return_hidden: bool = False):
-    """tokens [B, S] -> (logits_or_hidden, caches).  `positions` is
+            return_hidden: bool = False, return_aux: bool = False):
+    """tokens [B, S] -> (logits_or_hidden, caches), and the router's aux
+    loss (the mean over the layers of every block's) after them when
+    `return_aux`.  `positions` is
     [B, S] (default 0..S-1 in every row), or [3, B, S] for an M-RoPE stack
     (the temporal stream ``positions[0]`` addresses the caches).  Paged
     pools (with
@@ -274,12 +337,22 @@ def forward(params: Dict, tokens: torch.Tensor, cfg, rt,
     layers = params.get("layer_views") or layer_params(params, cfg)
     P = len(cfg.pattern)
     new_rep: Dict[str, List] = {f"u{j}": [] for j in range(P)}
+    auxes = []                       # the MoE blocks' router aux losses
     for i, lp in enumerate(layers):
         r, j = divmod(i, P)
-        cache = (_layer_cache(caches["rep"][f"u{j}"], r)
-                 if caches is not None else None)
-        x, nc = apply_block(cfg.pattern[j], lp, x, cfg, rt, positions, cache,
-                            update_cache, site=f"block[{i}]")
+        if caches is None:
+            def block(xb, lp=lp, bt=cfg.pattern[j], i=i):
+                xb, _, aux = apply_block(bt, lp, xb, cfg, rt, positions,
+                                         site=f"block[{i}]")
+                return xb, aux
+
+            x, aux = _remat(rt, block, x, lp)
+            auxes.append(aux)
+            continue
+        cache = _layer_cache(caches["rep"][f"u{j}"], r)
+        x, nc, aux = apply_block(cfg.pattern[j], lp, x, cfg, rt, positions,
+                                 cache, update_cache, site=f"block[{i}]")
+        auxes.append(aux)
         new_rep[f"u{j}"].append(nc if nc is not None else cache)
     new_caches = None
     if caches is not None:
@@ -292,16 +365,22 @@ def forward(params: Dict, tokens: torch.Tensor, cfg, rt,
                                           else _stack(new_rep[f"u{j}"]))
     for t, bt in enumerate(cfg.tail):
         tc = caches["tail"][f"tail{t}"] if caches is not None else None
-        x, nc = apply_block(bt, params[f"tail{t}"], x, cfg, rt, positions,
-                            tc, update_cache,
-                            site=f"block[{cfg.n_repeats * P + t}]")
+        x, nc, aux = apply_block(bt, params[f"tail{t}"], x, cfg, rt,
+                                 positions, tc, update_cache,
+                                 site=f"block[{cfg.n_repeats * P + t}]")
+        auxes.append(aux)
         if new_caches is not None:
             new_caches["tail"][f"tail{t}"] = (tc if nc is None or _paged(tc)
                                               else nc)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    if return_hidden:
-        return x, new_caches
-    return _logits(params, x, cfg, rt), new_caches
+    out = x if return_hidden else _logits(params, x, cfg, rt)
+    if return_aux:
+        aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+        for aux in auxes:
+            if aux is not None:
+                aux_sum = aux_sum + aux
+        return out, new_caches, aux_sum / max(cfg.n_layers, 1)
+    return out, new_caches
 
 
 def _logits(params, x, cfg, rt):
@@ -313,6 +392,49 @@ def _logits(params, x, cfg, rt):
         return torch.matmul(x, w.t())
     return qdense(params["lm_head"]["w"], x, rt.quant_cfg(cfg, "lm_head"),
                   tag="lm_head")
+
+
+# ------------------------------------------------------------------- loss --
+def lm_loss(params: Dict, tokens: torch.Tensor, cfg, rt,
+            positions: Optional[torch.Tensor] = None):
+    """Next-token cross-entropy of tokens [B, S+1] (inputs and targets
+    shifted by one) -> (loss, {"nll", "aux"}), as the JAX package computes
+    it: the hidden states flattened to [B*S, D] and the per-token losses
+    summed over ``rt.loss_chunk`` rows at a time (a Python loop where the
+    JAX package scans; 0, or a chunk that does not divide B*S or is not
+    smaller, computes them at once), divided by B*S; plus
+    ``cfg.router_aux_coef * aux`` for an MoE stack."""
+    inp, tgt = tokens[:, :-1], tokens[:, 1:]
+    hidden, _, aux = forward(params, inp, cfg, rt, positions,
+                             return_hidden=True, return_aux=True)
+    B, S, D = hidden.shape
+    hf = hidden.reshape(B * S, D)
+    tf = tgt.reshape(B * S)
+    chunk = rt.loss_chunk
+    if chunk and (B * S) % chunk == 0 and (B * S) > chunk:
+        total = torch.zeros((), dtype=torch.float32, device=hf.device)
+        for c in range(0, B * S, chunk):
+            total = total + torch.sum(_xent(params, hf[c:c + chunk],
+                                            tf[c:c + chunk], cfg, rt))
+    else:
+        total = torch.sum(_xent(params, hf, tf, cfg, rt))
+    nll = total / (B * S)
+    loss = nll + cfg.router_aux_coef * aux if cfg.n_experts else nll
+    return loss, {"nll": nll, "aux": aux}
+
+
+def _xent(params, h, t, cfg, rt):
+    """Per-row cross-entropy of hidden rows h [n, D] against targets t [n]:
+    float32 logits, the padded vocabulary's columns masked to -1e30."""
+    logits = _logits(params, h, cfg, rt).to(torch.float32)   # [n, Vp]
+    Vp = logits.shape[-1]
+    if Vp != cfg.vocab:
+        mask = torch.arange(Vp, device=logits.device) < cfg.vocab
+        logits = torch.where(mask[None, :], logits,
+                             torch.full((), -1e30, device=logits.device))
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, 1, t.long()[:, None])[:, 0]
+    return lse - picked
 
 
 # ------------------------------------------------------------ serve steps --

@@ -1522,3 +1522,96 @@ def test_moe_block_on_the_card(cuda, arch, rows):
         if dtype == "float32":
             err = (got["cuda"][0].cpu() - got["cpu"][0]).abs().max().item()
             assert err <= 1e-5, err
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """Three train steps of reduced qwen2-0.5b at 2 layers, float32 under
+    fake_quant, on the card and on the CPU from the same state and
+    batches: the loss and grad norm within relative 1e-4 each step, the
+    parameters within 1e-4 of each leaf's norm (the key bias, whose exact
+    gradient is zero, within twice the summed rates; see
+    tests/test_torch_train.py)."""
+    from repro_torch.configs import Runtime, get_config
+    from repro_torch.convert import tree_to
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.optim import warmup_cosine
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg = get_config("qwen2-0.5b").reduced(n_layers=2)
+    rt = Runtime(attn_impl="chunked", attn_chunk_q=16, loss_chunk=0,
+                 quant_backend="fake_quant", compute_dtype="float32",
+                 remat="none")
+    kw = dict(peak_lr=3e-3, warmup=2, total_steps=3)
+    step = make_train_step(cfg, rt, **kw)
+    card = init_train_state(torch.Generator(device=cuda).manual_seed(0), cfg)
+    cpu = tree_to(card, "cpu")
+    ds = SyntheticLMDataset(vocab=cfg.vocab, seq_len=16, global_batch=2)
+    for i in range(3):
+        tokens = torch.from_numpy(ds.batch(i))
+        card, mc = step(card, tokens.to(cuda))
+        cpu, mp = step(cpu, tokens)
+        for k in ("loss", "grad_norm"):
+            assert abs(float(mc[k]) - float(mp[k])) <= 1e-4 * abs(
+                float(mp[k])), (i, k, float(mc[k]), float(mp[k]))
+    assert all(t.device.type == "cuda" for t in tree_leaves(card))
+    lr_sum = sum(float(warmup_cosine(i, peak_lr=kw["peak_lr"],
+                                     warmup_steps=kw["warmup"],
+                                     total_steps=kw["total_steps"]))
+                 for i in range(3))
+    from repro_torch.checkpoint.ckpt import _flatten
+
+    fc, fp = _flatten(card["params"]), _flatten(cpu["params"])
+    for k, want in fp.items():
+        got = fc[k].cpu()
+        if k.endswith("wk_bias"):
+            assert (got - want).abs().max() <= 2 * lr_sum, k
+        else:
+            assert (got - want).norm() <= 1e-4 * want.norm(), k
+
+
+@pytest.mark.cuda
+def test_quantized_checkpoint_restored_and_served_on_the_card(cuda,
+                                                              tmp_path):
+    """A serve_w4a4 quantized checkpoint of reduced f32 masters (head dim
+    64, which the attention kernels take) restored on the card: the plan
+    checked, the kernels' planar twins rebuilt, logits bit-equal to the
+    plan packed from the same masters in memory, and the engine's bucketed
+    path through the W4A4 GEMM, flash prefill and paged decode."""
+    from repro_torch.checkpoint import restore_quantized, save_quantized
+    from repro_torch.configs import Runtime, ServingConfig, get_config
+    from repro_torch.convert import tree_to
+    from repro_torch.core.qlinear import prepack_tree
+    from repro_torch.core.quant_plan import CKPT_PACKED, get_plan, \
+        plan_pack_tree
+    from repro_torch.models.transformer import forward, init_model
+    from repro_torch.serving.api import poisson_trace, run_trace
+    from repro_torch.serving.engine import InferenceEngine
+
+    cfg = get_config("qwen2-0.5b").reduced(n_layers=2, head_dim=64)
+    rt = Runtime(attn_impl="flash", quant_plan="serve_w4a4")
+    masters = init_model(torch.Generator().manual_seed(3), cfg)
+    save_quantized(str(tmp_path), 0, masters, cfg, rt=rt)
+    params, _ = restore_quantized(str(tmp_path), cfg=cfg, rt=rt,
+                                  device=cuda)
+    wq = params["layers"]["u0"]["attn"]["wq"]
+    assert wq["packed_km"].device.type == "cuda"
+    ref = prepack_tree(tree_to(plan_pack_tree(
+        masters, cfg, get_plan("serve_w4a4"), backends=CKPT_PACKED,
+        scale_dtype=torch.bfloat16), cuda))
+    tokens = torch.randint(0, cfg.vocab, (1, 32), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        la = forward(params, tokens.to(cuda), cfg, rt)[0]
+        lb = forward(ref, tokens.to(cuda), cfg, rt)[0]
+    assert torch.equal(la, lb)
+    sv = ServingConfig(max_batch=4, page_size=16, num_pages=32, max_ctx=64)
+    engine = InferenceEngine(cfg, rt, sv, params=params, device=cuda)
+    ops.reset_launch_counts()
+    _, fin = run_trace(engine, poisson_trace(4, 1.0, (8, 20), (4, 8),
+                                             cfg.vocab, seed=2))
+    assert all(r.outcome == "ok" and len(r.tokens) == r.max_new for r in fin)
+    n = ops.launch_counts()
+    assert all(n[k] > 0 for k in ("int4_matmul_fused", "flash_prefill",
+                                  "paged_decode_attention")), n

@@ -67,7 +67,15 @@ def test_port_imports_neither_jax_nor_the_reference():
                  "repro_torch.configs.starcoder2_7b",
                  "repro_torch.configs.musicgen_large",
                  "repro_torch.configs.arctic_480b",
-                 "repro_torch.configs.llama4_maverick"):
+                 "repro_torch.configs.llama4_maverick",
+                 "repro_torch.checkpoint",
+                 "repro_torch.checkpoint.ckpt",
+                 "repro_torch.optim",
+                 "repro_torch.optim.adamw",
+                 "repro_torch.optim.schedule",
+                 "repro_torch.data",
+                 "repro_torch.data.synthetic",
+                 "repro_torch.launch.train"):
         assert name in report["modules"]
 
 
@@ -98,6 +106,15 @@ def test_quickstart_imports_neither_jax_nor_the_reference():
     """The same for the port's quickstart, examples/quickstart_torch.py."""
     roots = _import_roots("examples/quickstart_torch.py")
     assert "repro_torch" in roots and "torch" in roots
+    assert not roots & {"jax", "jaxlib", "repro"}, sorted(roots)
+
+
+@pytest.mark.parametrize("script", ["examples/serve_quantized_torch.py",
+                                    "examples/train_qat_lm_torch.py"])
+def test_example_twins_import_neither_jax_nor_the_reference(script):
+    """The same for the port's twins of the JAX package's examples."""
+    roots = _import_roots(script)
+    assert "repro_torch" in roots
     assert not roots & {"jax", "jaxlib", "repro"}, sorted(roots)
 
 
