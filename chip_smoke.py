@@ -195,7 +195,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
                  in-memory pack; sizes and times printed), and the Poisson
                  trace served from the restored tree, captured (8 of 8 ok,
                  the GEMM 7 times a layer a forward, flash prefill and
-                 paged decode once a layer a prefill or step).
+                 paged decode once a layer a prefill or step).  Then the
+                 distribution layer (`dist_runs`): NCCL initialised at
+                 world 1 on a file:// store (its version printed, an
+                 all-reduce run); 2 QAT steps of full-width qwen2-0.5b by
+                 `train(mesh_spec="1,1")` against `train()` (remat none,
+                 deterministic algorithms): losses and final state
+                 bit-equal; a W4A4-packed prefill and 3 decode steps
+                 (contiguous cache, flash prefill) under a (1, 1) mesh
+                 against the unsharded steps: logits bit-equal, the
+                 fused GEMM and flash launched; and qwen2-0.5b's and
+                 qwen3-4b's projections cut for tp 2 and 4, each rank's
+                 local W4A4 GEMM run in turn (column shards: the fused
+                 kernel; row shards: the global amax, the unfused kernel's
+                 integer partials summed, then the scales), bit-equal to
+                 the whole projection's kernel call at M = 8 and 256, each
+                 shard shape's plan and its time beside the whole's.
   5. cpu      -- full width cut to 2 layers, on cuda and on cpu with the
                  same weights.  Bucketed: one prefill and three decode
                  steps with float weights in bf16 (logits within CPU_ATOL),
@@ -2811,6 +2826,269 @@ def train_runs(torch):
     return n
 
 
+#: the projections a rank of a tensor-parallel mesh cuts (name, K, N, how):
+#: column-parallel shards N, row-parallel K (``distributed.tensor_parallel``)
+def _tp_projections(cfg):
+    D, F, q, kv = cfg.d_model, cfg.d_ff, cfg.n_heads * cfg.hd, \
+        cfg.n_kv_heads * cfg.hd
+    return (("wq", D, q, "col"), ("wk/wv", D, kv, "col"),
+            ("w_in/w_gate", D, F, "col"), ("wo", q, D, "row"),
+            ("w_out", F, D, "row"))
+
+
+DIST_ARCHS = ("qwen2-0.5b", "qwen3-4b")
+DIST_TPS = (2, 4)
+DIST_ROWS = (8, PROMPT_BUCKET)
+#: the train runs of the (1, 1) mesh check
+DIST_TRAIN = dict(batch=8, seq=128, steps=2)
+
+
+class _ThreadRanks:
+    """The ``model`` axis's two collectives between `n` threads, one a
+    rank, on the one card: each rank's tensor is put in its slot, and
+    every rank reads the reduction of all slots (ranks in order)."""
+
+    def __init__(self, n):
+        import threading
+
+        self.n, self.slots = n, [None] * n
+        self.barrier = threading.Barrier(n, timeout=120)
+
+    def reduce(self, rank, t, op):
+        self.slots[rank] = t
+        self.barrier.wait()
+        out = self.slots[0]
+        for other in self.slots[1:]:
+            out = op(out, other)
+        self.barrier.wait()
+        return out
+
+    def run(self, body):
+        """[body(rank, reduce_max, reduce_sum) for every rank], each rank
+        in its own thread."""
+        import threading
+
+        import torch
+
+        outs, errs = [None] * self.n, []
+
+        def one(r):
+            try:
+                outs[r] = body(
+                    r, lambda t: self.reduce(r, t, torch.maximum),
+                    lambda t: self.reduce(r, t, torch.add))
+            except BaseException as e:          # re-raised below
+                errs.append(e)
+                self.barrier.abort()
+
+        threads = [threading.Thread(target=one, args=(r,))
+                   for r in range(self.n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errs:
+            raise errs[0]
+        return outs
+
+
+def _tp_shard_checks(torch, timer):
+    """Each rank's local W4A4 GEMM of qwen2-0.5b's and qwen3-4b's
+    projections at tp 2 and 4 on the one card, held bit for bit to the
+    whole projection's fused kernel call: column shards through the fused
+    kernel, concatenated; row shards through the shipped
+    ``w4a4_row_parallel``, one thread a rank, its max and sum collectives
+    between the threads (`_ThreadRanks`).  Prints each shard shape's
+    `w4a4_plan`, and its time at M = 8 and 256 beside the whole's: the
+    column shard's fused call, the row shard's whole body (amax, quantize,
+    integer partials, epilogue; no collective) with its collectives the
+    identity."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant import pack_int4, quant_scale, quantize
+    from repro_torch.distributed.tensor_parallel import w4a4_row_parallel
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.int4_matmul import w4a4_plan
+    from repro_torch.kernels.packing import nmajor_to_kmajor_grouped
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    n_checked = 0
+    for arch in DIST_ARCHS:
+        cfg = get_config(arch)
+        for name, K, N, how in _tp_projections(cfg):
+            w = torch.randn((K, N), generator=gen, device="cuda")
+            w_scale = quant_scale(w, axis=0, bits=4)
+            packed = pack_int4(quantize(w, w_scale, bits=4), axis=-1)
+            whole_km = nmajor_to_kmajor_grouped(packed, w_scale).contiguous()
+            xs = {M: torch.randn((M, K), generator=gen, device="cuda") * 3
+                  for M in DIST_ROWS}
+            whole = {M: ops.int4_matmul_fused_kmajor(x, whole_km, w_scale)
+                     for M, x in xs.items()}
+            whole_ms = {M: timer.ms(lambda x=x: ops.int4_matmul_fused_kmajor(
+                x, whole_km, w_scale)) for M, x in xs.items()}
+            for tp in DIST_TPS:
+                if how == "col":
+                    n = N // tp
+                    shards = [(packed[:, r * n // 2:(r + 1) * n // 2],
+                               w_scale[:, r * n:(r + 1) * n])
+                              for r in range(tp)]
+                else:
+                    k = K // tp
+                    shards = [(packed[r * k:(r + 1) * k], w_scale)
+                              for r in range(tp)]
+                kms = [nmajor_to_kmajor_grouped(p, sc).contiguous()
+                       for p, sc in shards]
+                ws = [{"packed": p, "scale": sc, "packed_km": km}
+                      for (p, sc), km in zip(shards, kms)]
+                Kl, Nl = (K, N // tp) if how == "col" else (K // tp, N)
+                plans, times = [], []
+                for M, x in xs.items():
+                    try:
+                        plan = w4a4_plan(M, Kl, Nl, kms[0].shape[0])
+                    except ValueError as e:
+                        fail(f"dist: {arch} {name} tp {tp}: the plan refuses "
+                             f"the shard shape ({M}, {Kl}, {Nl}): {e}")
+                    plans.append(f"M={M}: {plan}")
+                    if how == "col":
+                        got = torch.cat([ops.int4_matmul_fused_kmajor(
+                            x, km, sc) for km, (_, sc) in zip(kms, shards)],
+                            dim=1)
+                        ms = timer.ms(lambda x=x: ops.int4_matmul_fused_kmajor(
+                            x, kms[0], shards[0][1]))
+                    else:
+                        parts = [x[:, r * Kl:(r + 1) * Kl].contiguous()
+                                 for r in range(tp)]
+                        # timed first, in this thread: the kernels are
+                        # loaded before the rank threads call them
+                        ms = timer.ms(lambda: w4a4_row_parallel(
+                            parts[0], ws[0], reduce_max=lambda t: t,
+                            reduce_sum=lambda t: t))
+                        outs = _ThreadRanks(tp).run(
+                            lambda r, mx, sm: w4a4_row_parallel(
+                                parts[r], ws[r], reduce_max=mx,
+                                reduce_sum=sm))
+                        got = outs[0]
+                        if not all(torch.equal(o, got) for o in outs[1:]):
+                            fail(f"dist: {arch} {name} tp {tp} at M = {M}: "
+                                 "the ranks' outputs differ")
+                    if not torch.equal(got, whole[M]):
+                        bad = (got != whole[M]).sum().item()
+                        fail(f"dist: {arch} {name} tp {tp} ({how}) at M = "
+                             f"{M}: {bad} outputs differ from the whole "
+                             "projection's kernel call")
+                    times.append(f"M={M}: shard {ms:.4f} ms, whole "
+                                 f"{whole_ms[M]:.4f} ms")
+                    n_checked += 1
+                say(f"dist: {arch} {name} ({how}-parallel) tp {tp}: shard "
+                    f"({Kl}, {Nl}) of ({K}, {N}), {tp} shards bit-equal to "
+                    f"the whole; {'; '.join(plans)}; {'; '.join(times)}")
+    return n_checked
+
+
+def dist_runs(torch):
+    """The distribution layer on the one card.  (1) NCCL at world 1 (a
+    ``file://`` store), its version printed and an all-reduce run.  (2)
+    Full-width qwen2-0.5b (24 layers, fake_quant W4A4, remat "none",
+    deterministic algorithms): DIST_TRAIN's steps of
+    ``train(mesh_spec="1,1")`` against ``train()``: losses and final
+    parameters bit-equal.  (3) W4A4-packed prefill and three decode steps
+    (contiguous cache, flash prefill) of full-width qwen2-0.5b under a
+    (1, 1) mesh against the unsharded steps: logits bit-equal, the fused
+    GEMM and flash prefill launched (counts zeroed just before the mesh
+    run).  (4) `_tp_shard_checks`.  Returns the mesh run's launches."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import Runtime, get_config
+    from repro_torch.distributed.sharding import mesh_context, place
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import init_distributed, single_device_mesh
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.launch.train import train
+    from repro_torch.models.transformer import init_caches
+    from repro_torch.serving.engine import build_params
+
+    t0 = time.perf_counter()
+    init_distributed("cuda")
+    one = torch.ones(4, device="cuda")
+    dist.all_reduce(one)
+    torch.cuda.synchronize()
+    say(f"dist: NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}, "
+        f"backend {dist.get_backend()}, world {dist.get_world_size()} "
+        f"(file:// store); all_reduce at world 1: {one.tolist()}")
+    try:
+        cfg = get_config("qwen2-0.5b")
+        kw = dict(cfg=cfg, ckpt_dir=None, quant_backend="fake_quant",
+                  seed=SEED, device="cuda", remat="none", **DIST_TRAIN)
+        torch.use_deterministic_algorithms(True)
+        try:
+            t1 = time.perf_counter()
+            plain, l_plain = train(cfg.name, **kw)
+            t2 = time.perf_counter()
+            meshed, l_mesh = train(cfg.name, mesh_spec="1,1", **kw)
+            t3 = time.perf_counter()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        diff = _train_state_equal(plain, meshed)
+        if diff or l_plain != l_mesh:
+            fail(f"dist: train(mesh_spec='1,1') differs from train() in "
+                 f"{diff[:8]} (losses {l_mesh} vs {l_plain})")
+        say(f"dist: {DIST_TRAIN['steps']} QAT steps of full-width "
+            f"{cfg.name} ({cfg.n_layers} layers, {DIST_TRAIN['batch']} x "
+            f"{DIST_TRAIN['seq']}) under a (1, 1) NCCL mesh in "
+            f"{t3 - t2:.1f} s against {t2 - t1:.1f} s unsharded: losses "
+            f"{l_mesh} and final params, moments and steps bit-equal")
+        del plain, meshed
+        torch.cuda.empty_cache()
+
+        rt = Runtime(attn_impl="flash", quant_backend="w4a4_packed")
+        params = build_params(cfg, rt, seed=SEED, device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(SEED + 41)
+        toks = torch.randint(0, cfg.vocab, (2, 64), generator=g,
+                             device="cuda", dtype=torch.int32)
+
+        def steps(p):
+            pre, dec = make_prefill_step(cfg, rt), make_decode_step(cfg, rt)
+            logits, caches = pre(p, toks, init_caches(cfg, rt, 2, 128))
+            out = [logits]
+            for i in range(3):
+                tok = torch.argmax(logits[:, :cfg.vocab], -1).to(torch.int32)
+                pos = torch.full((2, 1), toks.shape[1] + i,
+                                 dtype=torch.int32, device="cuda")
+                logits, caches = dec(p, tok[:, None], caches, pos)
+                out.append(logits)
+            return out
+
+        ref = steps(params)
+        mesh = single_device_mesh("cuda")
+        with mesh_context(mesh):
+            local, _ = place(params, mesh)
+            ops.reset_launch_counts()
+            got = steps(local)
+            torch.cuda.synchronize()
+            launches = ops.launch_counts()
+        bad = [i for i, (a, b) in enumerate(zip(got, ref))
+               if not torch.equal(a, b)]
+        if bad:
+            fail(f"dist: W4A4 steps {bad} under a (1, 1) mesh differ from "
+                 "the unsharded steps")
+        if not (launches["int4_matmul_fused"] and launches["flash_prefill"]):
+            fail(f"dist: the (1, 1) mesh's steps did not launch the fused "
+                 f"GEMM and flash prefill: {json.dumps(launches)}")
+        say(f"dist: W4A4-packed prefill (2 x 64) and 3 decode steps of "
+            f"full-width {cfg.name} under a (1, 1) mesh: logits bit-equal "
+            f"to the unsharded steps; launches {json.dumps(launches)}")
+        del params, local, ref, got
+        torch.cuda.empty_cache()
+        timer = Timer(torch)
+        t4 = time.perf_counter()
+        n = _tp_shard_checks(torch, timer)
+        say(f"dist: {n} shard combinations bit-equal in "
+            f"{time.perf_counter() - t4:.1f} s; the phase in "
+            f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
 def phase_serve(torch):
     """The bucketed path (bf16 pool, Poisson trace), then the ragged path
     (int8 pool, mixed trace), on one set of full-width W4A4 weights; then
@@ -2925,7 +3203,7 @@ def phase_serve(torch):
              "same)")
     say("serve (lut4): every request's tokens equal the w4a4_packed "
         "bucketed run's at the same depth, token for token")
-    for part in (mamba_runs, hybrid_runs, dense_runs, train_runs):
+    for part in (mamba_runs, hybrid_runs, dense_runs, train_runs, dist_runs):
         t0 = time.perf_counter()
         launches.append(part(torch))
         say(f"phase 4: {part.__name__} in {time.perf_counter() - t0:.1f} s")

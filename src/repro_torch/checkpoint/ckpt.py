@@ -122,12 +122,24 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def save_checkpoint(directory: str, step: int, tree: Any,
-                    extra_meta: Optional[Dict] = None) -> str:
+                    extra_meta: Optional[Dict] = None,
+                    shardings: Optional[Any] = None) -> str:
     """Atomic save of `tree` (nested dicts and lists of tensors) as step
     `step`.  A step already on disk is kept as it is (the JAX package
     writes the new copy and then discards it; the result is the same).
-    Returns the checkpoint's path."""
+    With `shardings` (a ``NamedSharding`` tree: `tree` holds this rank's
+    shards) every rank of the mesh must call it: the leaves are gathered
+    whole, rank 0 writes, and every rank waits for the write.  Returns the
+    checkpoint's path."""
     final = os.path.join(directory, f"step_{step:08d}")
+    if shardings is not None:
+        from ..distributed.sharding import tree_full
+
+        full = tree_full(_strip(tree), shardings)
+        if _rank() == 0:
+            save_checkpoint(directory, step, full, extra_meta)
+        _barrier()
+        return final
     if os.path.exists(final):
         return final
     tmp = final + f".tmp_{uuid.uuid4().hex[:8]}"
@@ -196,23 +208,50 @@ def _tensor(arr: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device=device, dtype=dtype)
 
 
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+
+
+def _strip(tree):
+    """`tree` without its derived leaves."""
+    if isinstance(tree, dict):
+        return {k: _strip(v) for k, v in tree.items()
+                if k not in DERIVED_KEYS}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_strip(v) for v in tree)
+    return tree
+
+
 def restore_checkpoint(directory: str, step: int, like: Any,
                        shardings: Optional[Any] = None) -> Any:
     """Restore step `step` into the structure of `like`, each leaf on its
-    `like` leaf's device and in its dtype.  `shardings` (placement across
-    devices) is not ported yet and must be None."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore_checkpoint: shardings need the distributed layer, "
-            "which is not ported yet")
+    `like` leaf's device and in its dtype.  With `shardings` (a
+    ``NamedSharding`` tree matching `like`, ``distributed.sharding.
+    specs_to_shardings``) `like` holds shards: each full leaf read is cut
+    to this rank's shard, onto any mesh (the elastic path)."""
     _, data = _read(directory, step)
+    flat_sh = _flatten(shardings) if shardings is not None else {}
     leaves = {}
     for key, leaf in _flatten(like).items():
         arr = data[key]
-        if tuple(arr.shape) != tuple(leaf.shape):
+        sh = flat_sh.get(key)
+        t = _tensor(arr, leaf.dtype, leaf.device)
+        if sh is not None:
+            t = sh.local(t)
+        if tuple(t.shape) != tuple(leaf.shape):
             raise ValueError(f"checkpoint leaf {key!r} has shape "
-                             f"{arr.shape}, the tree wants {tuple(leaf.shape)}")
-        leaves[key] = _tensor(arr, leaf.dtype, leaf.device)
+                             f"{arr.shape} ({tuple(t.shape)} here), the tree "
+                             f"wants {tuple(leaf.shape)}")
+        leaves[key] = t
     return _unflatten_like(like, leaves)
 
 
@@ -330,10 +369,16 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
 
     def maybe_save(self, step: int, tree: Any, force: bool = False,
-                   extra_meta: Optional[Dict] = None) -> bool:
+                   extra_meta: Optional[Dict] = None,
+                   shardings: Optional[Any] = None) -> bool:
+        """Save at every `save_every` steps (or when `force`d); with
+        `shardings` every rank calls it and rank 0 writes."""
         if force or (step > 0 and step % self.save_every == 0):
-            save_checkpoint(self.directory, step, tree, extra_meta)
-            self._gc()
+            save_checkpoint(self.directory, step, tree, extra_meta,
+                            shardings)
+            if _rank() == 0:
+                self._gc()
+            _barrier()
             return True
         return False
 
@@ -349,7 +394,8 @@ class CheckpointManager:
         return latest_step(self.directory)
 
     def restore(self, like: Any, shardings=None, step: Optional[int] = None):
-        """(the restored tree, its step): step `step`, or the latest."""
+        """(the restored tree, its step): step `step`, or the latest;
+        `shardings` as in `restore_checkpoint`."""
         step = step if step is not None else self.latest()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")

@@ -2,7 +2,7 @@
 copied field for field from ``repro/configs/`` with its public source in its
 docstring: qwen2-0.5b, qwen3-4b, qwen2-vl-2b, internlm2-20b, starcoder2-7b
 and musicgen-large (dense attention, the paged layout), arctic-480b and
-llama4-maverick (MoE "A" blocks, single-device experts; paged),
+llama4-maverick (MoE "A" blocks; paged),
 mamba2-130m (SSM) and recurrentgemma-9b (hybrid; both through the
 contiguous layout).  Select with ``--arch <name>``."""
 

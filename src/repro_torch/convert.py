@@ -9,7 +9,9 @@ torch bf16, packed int4 dicts keep their uint8 bytes, every other leaf keeps
 its dtype.  The port and the reference then compute on identical weights.
 ``train_state_from_jax`` does the same for a whole train state
 (``{"params", "opt": {"mu", "nu", "step"}, "step"}``), so both packages
-step from one state.
+step from one state.  ``params_to_mesh`` places a converted tree onto a
+mesh by the sharding rules, so both packages start a mesh run from the same
+weights.
 """
 
 from __future__ import annotations
@@ -50,3 +52,12 @@ def tree_to(tree, device):
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
     return tree
+
+
+def params_to_mesh(tree, mesh):
+    """A numpy-leaved reference tree as this rank's shards on `mesh`
+    (``distributed.sharding.place``, on the mesh's device): returns (the
+    local tree, its ``NamedSharding`` tree)."""
+    from .distributed.sharding import place
+
+    return place(params_from_jax(tree, mesh.device), mesh)

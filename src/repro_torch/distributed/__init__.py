@@ -1,2 +1,3 @@
-"""Distribution layer: the fault-tolerance runtime (sharding and
-pipeline parallelism are not ported yet)."""
+"""Distribution layer: the sharding rules and tensor-parallel
+redistributions (`sharding`, `tensor_parallel`), GPipe pipelining
+(`pipeline`) and the fault-tolerance runtime (`fault_tolerance`)."""

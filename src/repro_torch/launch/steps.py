@@ -36,10 +36,12 @@ on every later one.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, List, Optional
 
 import torch
 
+from ..distributed.sharding import sharded_global_norm, sync_grads
 from ..kernels import ops
 from ..models.transformer import (_logits, decode_step, forward,
                                   init_caches, init_model, lm_loss, prefill)
@@ -69,10 +71,15 @@ def init_train_state(gen: torch.Generator, cfg, device=None) -> Dict:
 
 
 def make_train_step(cfg, rt, *, peak_lr: float = 3e-4, warmup: int = 100,
-                    total_steps: int = 10000):
+                    total_steps: int = 10000, shardings=None):
     """``train_step(state, batch) -> (new_state, metrics)`` on tokens
     [B, S+1]: the loss and its gradient, then one AdamW step at the
-    schedule's rate for the state's step.  `metrics` holds ``loss``,
+    schedule's rate for the state's step.  Under a mesh
+    (``distributed.sharding.mesh_context``) the state holds this rank's
+    shards placed by the rules, `shardings` is their ``NamedSharding``
+    tree (``distributed.sharding.place``) and `batch` this data rank's
+    rows of the global batch: the gradients are summed over the data axes
+    and clipped by the global norm over every shard.  `metrics` holds ``loss``,
     ``nll``, ``aux``, ``lr`` and ``grad_norm`` (tensors on the device).
     A parameter the loss does not reach gets a zero gradient, as under
     ``jax.grad``.  Plans whose GEMMs only a kernel computes (lut4, w4a16,
@@ -97,10 +104,15 @@ def make_train_step(cfg, rt, *, peak_lr: float = 3e-4, warmup: int = 100,
                    for p, g in zip(leaves, grads)])
         grads = _like(live, it)
         with torch.no_grad():
+            kw = {}
+            if shardings is not None:
+                grads = sync_grads(grads, shardings)
+                kw["norm"] = functools.partial(sharded_global_norm,
+                                               shardings=shardings)
             lr = warmup_cosine(state["step"], peak_lr=peak_lr,
                                warmup_steps=warmup, total_steps=total_steps)
             params, opt, info = adamw_update(state["params"], grads,
-                                             state["opt"], lr)
+                                             state["opt"], lr, **kw)
         out = {"loss": loss.detach(), "lr": lr,
                **{k: v.detach() for k, v in metrics.items()}, **info}
         return {"params": params, "opt": opt, "step": state["step"] + 1}, out

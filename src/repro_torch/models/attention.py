@@ -12,6 +12,18 @@ Three interchangeable attention cores:
 
 Masks come from explicit absolute positions (``-1`` = padding), which makes
 causal, window and validity masking uniform across prefill and decode.
+Under a mesh (``distributed.sharding``) the projections are tensor
+parallel: ``wq/wk/wv`` by columns, ``wo`` by rows, where the rules shard
+them.  K and V are gathered whole after their projections, so every cache
+holds every KV head on every rank; the core then uses the ``model`` axis
+by `_attn_strategy`, as the JAX package does: "head" (KV heads divide tp,
+or, with Megatron-style KV-head duplication, the query heads do), "seq"
+(the query positions divide tp: each rank attends its slice of the
+queries over all keys) or "none" (replicated).  Flash prefill runs on
+each rank's operands in that layout (its heads, or its query positions);
+the fused paged decode and the ragged kernel run on every query head,
+gathered, on every rank.
+
 Two KV cache layouts, as in the JAX package: the paged pool
 (``serving.kv_pages``: a dict holding ``"tbl"``, updated in place) and the
 contiguous ring cache (`init_attn_cache`: one row of ``min(seq, window)``
@@ -28,11 +40,71 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ..core.qlinear import qdense
 from ..core.quant_plan import join_site
+from ..distributed.sharding import (tp_copy_in, tp_gather, tp_rank, tp_size,
+                                    tp_slice)
+from ..distributed.tensor_parallel import (column_dense, gather_columns,
+                                           row_dense)
 from .common import apply_mrope, apply_rope, normal_init, rms_norm
 
 NEG_INF = -1e30
+
+
+def _attn_strategy(n_units: int, seq: int) -> str:
+    """How the core uses the ``model`` axis: "head" where the units (KV
+    heads, or query heads after duplication) divide tp, "seq" where the
+    query positions do, else "none" (decode, tiny shapes)."""
+    tp = tp_size()
+    if tp <= 1:
+        return "none"
+    if n_units % tp == 0:
+        return "head"
+    if seq > 1 and seq % tp == 0:
+        return "seq"
+    return "none"
+
+
+def _constrain(t: torch.Tensor, strategy: str, *, role: str,
+               n_heads: int = 0) -> torch.Tensor:
+    """The core's operand `t` in `strategy`'s layout (the JAX package's
+    four constraint sites in ``_gqa_block``): ``role`` "q" ([B, S, H, hd],
+    whole or this rank's heads), "kv" ([B, Skv, KV, hd], whole) or "out"
+    (the core's output)."""
+    if tp_size() <= 1:
+        return t
+    if role == "q":
+        if strategy == "head":
+            return t if t.shape[2] != n_heads else tp_slice(t, 2)
+        t = t if t.shape[2] == n_heads else tp_gather(t, 2)
+        return tp_slice(t, 1) if strategy == "seq" else t
+    if role == "kv":
+        if strategy == "head":
+            return tp_slice(t, 2)
+        # seq-sharded queries attend over every key: partial gradients
+        return tp_copy_in(t) if strategy == "seq" else t
+    return tp_gather(t, 1) if strategy == "seq" else t
+
+
+def _tp_core(core, q, k, v, q_positions, strategy: str, n_heads: int):
+    """`core(q, k, v, q_positions)` under `strategy`; returns (out, heads
+    sharded).  At tp 1 it is `core` alone."""
+    if tp_size() <= 1:
+        return core(q, k, v, q_positions), False
+    KV = k.shape[2]
+    if strategy == "head" and KV % tp_size():
+        # Megatron-style KV-head duplication: each query-head shard holds
+        # copies of the KV heads it reads
+        k = torch.repeat_interleave(k, n_heads // KV, dim=2)
+        v = torch.repeat_interleave(v, n_heads // KV, dim=2)
+    q = _constrain(q, strategy, role="q", n_heads=n_heads)
+    k = _constrain(k, strategy, role="kv")
+    v = _constrain(v, strategy, role="kv")
+    qpos = q_positions
+    if strategy == "seq":
+        n = q.shape[1]
+        qpos = q_positions.narrow(1, n * tp_rank(), n).contiguous()
+    out = core(q, k, v, qpos)
+    return _constrain(out, strategy, role="out"), strategy == "head"
 
 
 def init_attention(gen: torch.Generator, cfg) -> Dict:
@@ -232,14 +304,24 @@ def apply_attention(params: Dict, x: torch.Tensor, cfg, rt,
     qkv_site = join_site(site, "attn.qkv")
     wo_site = join_site(site, "attn.wo")
     qc = rt.quant_cfg(cfg, qkv_site)
-    q = qdense(params["wq"], x, qc, params.get("wq_bias"), tag=qkv_site)
-    k = qdense(params["wk"], x, qc, params.get("wk_bias"), tag=qkv_site)
-    v = qdense(params["wv"], x, qc, params.get("wv_bias"), tag=qkv_site)
-    q = q.reshape(B, S, H, hd)
+    q, q_sh = column_dense(params["wq"], x, qc, params.get("wq_bias"),
+                           tag=qkv_site, n_out=H * hd)
+    k, k_sh = column_dense(params["wk"], x, qc, params.get("wk_bias"),
+                           tag=qkv_site, n_out=KV * hd)
+    v, v_sh = column_dense(params["wv"], x, qc, params.get("wv_bias"),
+                           tag=qkv_site, n_out=KV * hd)
+    if q_sh and H % tp_size():
+        q = tp_gather(q, -1)          # the shards cut a head: whole heads
+    # every cache holds every KV head
+    k, v = gather_columns(k, k_sh), gather_columns(v, v_sh)
+    q = q.reshape(B, S, -1, hd)
     k = k.reshape(B, S, KV, hd)
     v = v.reshape(B, S, KV, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
+        # this rank's query heads give the shared weight partial gradients
+        qn = params["q_norm"]
+        q = rms_norm(q, qn if q.shape[2] == H else tp_copy_in(qn),
+                     cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
     tpos = positions if positions.dim() == 2 else positions[0]  # temporal
     if cfg.rope == "rope":
@@ -250,15 +332,28 @@ def apply_attention(params: Dict, x: torch.Tensor, cfg, rt,
         q = apply_mrope(q, mp, cfg.rope_theta, cfg.mrope_sections)
         k = apply_mrope(k, mp, cfg.rope_theta, cfg.mrope_sections)
     positions = tpos
+    tp = tp_size()
+    dup = tp > 1 and KV % tp != 0 and H % tp == 0
+    strategy = _attn_strategy(H if dup else KV, S)
+
+    def attend(kf, vf, k_positions, impl):
+        def core(qq, kk, vv, qpos):
+            return attention_core(qq, kk, vv, q_positions=qpos,
+                                  k_positions=k_positions,
+                                  window=cfg.local_window, impl=impl,
+                                  chunk_q=rt.attn_chunk_q)
+        return _tp_core(core, q, kf, vf, positions, strategy, H)
 
     new_cache = None
+    heads_sh = False
     if cache is not None and "slots" in cache:
         from ..kernels import ops
         from ..serving.kv_pages import ragged_paged_write
 
         new_cache = ragged_paged_write(cache, k, v, positions)
+        qr = q if q.shape[2] == H else tp_gather(q, 2)    # every head
         out = ops.ragged_paged_attention(
-            q[0], new_cache["k"], new_cache["v"], new_cache["tbl"],
+            qr[0], new_cache["k"], new_cache["v"], new_cache["tbl"],
             cache["slots"], positions[0], new_cache.get("k_scale"),
             new_cache.get("v_scale"), window=cfg.local_window)[None]
     elif cache is not None and "tbl" in cache:
@@ -269,43 +364,32 @@ def apply_attention(params: Dict, x: torch.Tensor, cfg, rt,
             if rt.paged_attn == "fused":
                 from ..kernels import ops
 
+                qd = q if q.shape[2] == H else tp_gather(q, 2)  # every head
                 out = ops.paged_decode_attention(
-                    q[:, 0], new_cache["k"], new_cache["v"],
+                    qd[:, 0], new_cache["k"], new_cache["v"],
                     new_cache["tbl"], positions[:, -1],
                     new_cache.get("k_scale"), new_cache.get("v_scale"),
                     window=cfg.local_window)[:, None]
             else:
+                # the gather baseline
                 kf, vf, kpos = paged_read(new_cache, positions[:, -1])
-                out = attention_core(q, kf, vf, q_positions=positions,
-                                     k_positions=kpos,
-                                     window=cfg.local_window, impl="full",
-                                     chunk_q=rt.attn_chunk_q)
+                out, heads_sh = attend(kf, vf, kpos, "full")
         elif rt.prefill_over_cache:
             new_cache = paged_write(cache, k, v, positions) if update_cache \
                 else cache
             kf, vf, kpos = paged_read(new_cache, positions[:, -1])
-            out = attention_core(q, kf, vf, q_positions=positions,
-                                 k_positions=kpos, window=cfg.local_window,
-                                 impl=rt.attn_impl, chunk_q=rt.attn_chunk_q)
+            out, heads_sh = attend(kf, vf, kpos, rt.attn_impl)
         else:
-            out = attention_core(q, k, v, q_positions=positions,
-                                 k_positions=positions,
-                                 window=cfg.local_window, impl=rt.attn_impl,
-                                 chunk_q=rt.attn_chunk_q)
+            out, heads_sh = attend(k, v, positions, rt.attn_impl)
             if update_cache:
                 new_cache = paged_write(cache, k, v, positions)
     elif cache is not None and S == 1:
         new_cache = _cache_write(cache, k, v, positions)
         new_cache["pos"] = cache["pos"] + 1
         kf, vf = _cache_read(new_cache)
-        out = attention_core(q, kf, vf, q_positions=positions,
-                             k_positions=new_cache["kpos"],
-                             window=cfg.local_window, impl="full",
-                             chunk_q=rt.attn_chunk_q)
+        out, heads_sh = attend(kf, vf, new_cache["kpos"], "full")
     else:
-        out = attention_core(q, k, v, q_positions=positions,
-                             k_positions=positions, window=cfg.local_window,
-                             impl=rt.attn_impl, chunk_q=rt.attn_chunk_q)
+        out, heads_sh = attend(k, v, positions, rt.attn_impl)
         if update_cache and cache is not None:
             # the prompt's last min(S, size) positions, those the row has
             # already cached (a resume re-presenting them) dropped
@@ -315,6 +399,7 @@ def apply_attention(params: Dict, x: torch.Tensor, cfg, rt,
             new_cache = _cache_write(cache, k[:, -take:], v[:, -take:], wpos)
             new_cache["pos"] = cache["pos"] + S
 
-    out = out.reshape(B, S, H * hd)
-    y = qdense(params["wo"], out, rt.quant_cfg(cfg, wo_site), tag=wo_site)
+    out = out.reshape(B, S, -1)
+    y = row_dense(params["wo"], out, rt.quant_cfg(cfg, wo_site), tag=wo_site,
+                  k_in=H * hd, x_sharded=heads_sh)
     return y, new_cache

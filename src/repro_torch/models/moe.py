@@ -1,6 +1,6 @@
-"""Mixture-of-Experts block, the single-device path (PyTorch port of
+"""Mixture-of-Experts block with expert parallelism (PyTorch port of
 ``repro/models/moe.py``: `init_moe`, `_capacity`, `_expert_ffn`,
-`_moe_shard` and `apply_moe`'s branch without a mesh).
+`_moe_shard` and both branches of `apply_moe`).
 
 Dispatch is sort-based, as in the JAX package: an f32 router, softmax,
 top-k (renormalised for k > 1), a stable argsort of the flat expert ids,
@@ -27,7 +27,17 @@ fewer assignments (T * k) than there are experts, only the T * k most-used
 experts run (every expert with a token is among them): the others would
 map an all-zero buffer to zeros that no token gathers, so the output is
 the same, and a decode step dequantizes a few experts instead of all of
-them.  The shard_map path over a device mesh is not ported.
+them.
+
+Under a mesh whose ``model`` size divides the experts (the JAX package's
+``shard_map`` path) each rank holds E / tp experts (``e_start = rank *
+n_local``) and its data slice of the tokens.  Expert weights sharded on
+``data`` along their gatherable axis (the rules' FSDP placement) are
+gathered over ``data`` inside the block, cast to bf16 first under a bf16
+compute dtype; the gather's backward is the matching reduce-scatter.  The
+router is made whole, each rank combines its own experts' outputs and the
+partial outputs are summed over ``model``; the aux loss is the rank's data
+shard's estimator, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -38,6 +48,9 @@ import torch
 
 from ..core.quant import fake_quant, unpack_int4
 from ..core.quant_plan import join_site
+from ..distributed.sharding import (TP, current_mesh, gather_for_compute,
+                                    local_width, tp_copy_in, tp_gather,
+                                    tp_rank, tp_reduce)
 from .common import gelu_tanh, normal_init, silu
 
 #: experts dequantized and multiplied at a time (one full-width expert
@@ -133,18 +146,22 @@ def _top_k(probs: torch.Tensor, k: int):
 
 def _moe_shard(xf: torch.Tensor, router_w: torch.Tensor, experts: Dict, *,
                e_start: int, n_local: int, cfg, rt, site: str = "moe",
-               dispatch: Optional[Dict] = None):
+               dispatch: Optional[Dict] = None, reduce: bool = False):
     """Dispatch, compute and combine for `n_local` experts starting at
     `e_start`.  xf [T, D].  Returns (y [T, D], per-token aux [T]).  A
     `dispatch` dict, when given, receives the routing (``idx`` [T, k],
-    ``order``, ``rank``, ``local`` [T*k]) for tests."""
+    ``order``, ``rank``, ``local`` [T*k]) for tests.  `reduce`: the ranks
+    of ``model`` hold the other experts, so the output is their sum, and
+    the gates and the dispatched rows, which only this rank's experts
+    read, pass their partial gradients to the replicated router and input
+    through ``tp_copy_in``."""
     T, D = xf.shape
     E, k = cfg.n_experts, cfg.top_k
     C = _capacity(T, cfg)
 
     logits = xf.to(torch.float32) @ router_w.to(torch.float32)   # [T, E]
     probs = torch.softmax(logits, dim=-1)
-    gate, idx = _top_k(probs, k)                                 # [T, k]
+    gate, idx = _top_k(tp_copy_in(probs) if reduce else probs, k)  # [T, k]
     if k > 1:
         gate = gate / (torch.sum(gate, dim=-1, keepdim=True) + 1e-9)
 
@@ -165,7 +182,8 @@ def _moe_shard(xf: torch.Tensor, router_w: torch.Tensor, experts: Dict, *,
     w = local.to(xf.dtype)
 
     buf = torch.zeros((n_local, C, D), dtype=xf.dtype, device=xf.device)
-    buf.index_put_((slot_e, slot_c), w[:, None] * xf[tok], accumulate=True)
+    xd = tp_copy_in(xf) if reduce else xf
+    buf.index_put_((slot_e, slot_c), w[:, None] * xd[tok], accumulate=True)
 
     # at most T * k experts hold a token: run those alone (a decode step
     # touches a few of them), picked as the fixed count T * k of most-used
@@ -182,6 +200,8 @@ def _moe_shard(xf: torch.Tensor, router_w: torch.Tensor, experts: Dict, *,
     contrib = gathered * gw.to(xf.dtype)[:, None]
     y = torch.zeros((T, D), dtype=xf.dtype, device=xf.device)
     y.index_add_(0, tok, contrib)
+    if reduce:
+        y = tp_reduce(y)
 
     # Switch-style load-balance aux: E * sum_e(frac_tokens_e * mean_prob_e)
     frac = counts.to(torch.float32) / (T * k)
@@ -194,10 +214,52 @@ def _moe_shard(xf: torch.Tensor, router_w: torch.Tensor, experts: Dict, *,
 
 def apply_moe(params: Dict, x: torch.Tensor, cfg, rt,
               site: str = "moe") -> Tuple[torch.Tensor, torch.Tensor]:
-    """x [B, S, D] -> (y [B, S, D], aux scalar), every expert on this
-    device."""
+    """x [B, S, D] -> (y [B, S, D], aux scalar): every expert on this
+    device, or under a mesh whose ``model`` size divides the experts, this
+    rank's E / tp of them (`_moe_mesh`)."""
     B, S, D = x.shape
-    y, aux_t = _moe_shard(x.reshape(B * S, D), params["router"]["w"],
-                          params["experts"], e_start=0,
-                          n_local=cfg.n_experts, cfg=cfg, rt=rt, site=site)
+    mesh = current_mesh()
+    xf = x.reshape(B * S, D)
+    if mesh is not None and cfg.n_experts % mesh.shape[TP] == 0:
+        y, aux_t = _moe_mesh(params, xf, cfg, rt, site, mesh)
+    else:
+        y, aux_t = _moe_shard(xf, params["router"]["w"], params["experts"],
+                              e_start=0, n_local=cfg.n_experts, cfg=cfg,
+                              rt=rt, site=site)
     return y.reshape(B, S, D), torch.mean(aux_t)
+
+
+def _data_axis(name: str, leaf: str, cfg) -> Tuple[int, int]:
+    """(the axis of a stack's leaf that the rules shard on ``data``, its
+    whole size): F of w_in / w_gate (their nibble pairs: F / 2) and of
+    w_out; w_out's per-channel scale [E, 1, D] has none."""
+    F = cfg.d_ff_expert or cfg.d_ff
+    if name == "w_out":
+        return 1, (1 if leaf == "scale" else F)
+    return 2, (F // 2 if leaf == "packed" else F)
+
+
+def _moe_mesh(params: Dict, xf: torch.Tensor, cfg, rt, site: str, mesh):
+    """The expert-parallel block (the JAX package's ``shard_map`` body)."""
+    n_local = cfg.n_experts // mesh.shape[TP]
+    dp = mesh.shape["data"]
+    router = params["router"]["w"]
+    if local_width(router) != cfg.n_experts:
+        router = tp_gather(router, -1)
+
+    def gather(name, leaf, w):
+        if (rt.compute_dtype == "bfloat16" and w.dtype == torch.float32
+                and w.dim() == 3 and w.shape[-2] > 1):
+            w = w.to(torch.bfloat16)     # not the quant scales [E, 1, *]
+        ax, whole = _data_axis(name, leaf, cfg)
+        if dp > 1 and w.shape[ax] * dp == whole:
+            w = gather_for_compute(w, ax, "data")
+        return w
+
+    experts = {}
+    for name, w in params["experts"].items():
+        experts[name] = ({kk: gather(name, kk, ww) for kk, ww in w.items()}
+                         if isinstance(w, dict) else gather(name, None, w))
+    return _moe_shard(xf, router, experts, e_start=tp_rank() * n_local,
+                      n_local=n_local, cfg=cfg, rt=rt, site=site,
+                      reduce=True)

@@ -20,6 +20,10 @@ products in another order.  Decode (S == 1) is the one step
 
 Caches are ``{"conv": [B, K-1, W] f32, "h": [B, W] f32}``; a step returns
 a new cache dict (the JAX package's functional update).
+
+Under a mesh the rules shard only the gate projections ``w_a``/``w_x``
+(by columns); their outputs are made whole and the recurrence runs on
+every rank.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..core.qlinear import qdense
+from ..distributed.tensor_parallel import column_dense, gather_columns
 from ..core.quant_plan import join_site
 from .common import gelu_tanh, normal_init
 from .ssm import _causal_conv
@@ -93,6 +98,14 @@ def apply_rglru(params: Dict, x: torch.Tensor, cfg, rt,
         s = join_site(site, leaf)
         return qdense(params[leaf], inp, rt.quant_cfg(cfg, s), bias, tag=s)
 
+    def gate(leaf, inp, bias):
+        """The column-parallel gate projections (``lru/w_a|w_x``), made
+        whole: the recurrence runs on every rank."""
+        s, W = join_site(site, leaf), inp.shape[-1]
+        y, sh = column_dense(params[leaf], inp, rt.quant_cfg(cfg, s), bias,
+                             tag=s, n_out=W)
+        return gather_columns(y, sh)
+
     g = gelu_tanh(dense("in_g", x))
     u = dense("in_x", x)
     conv_state = cache["conv"] if cache is not None else None
@@ -100,8 +113,8 @@ def apply_rglru(params: Dict, x: torch.Tensor, cfg, rt,
                                conv_state)
 
     f32 = torch.float32
-    r = _logistic(dense("w_a", u, params["b_a"])).to(f32)
-    i = _logistic(dense("w_x", u, params["b_x"])).to(f32)
+    r = _logistic(gate("w_a", u, params["b_a"])).to(f32)
+    i = _logistic(gate("w_x", u, params["b_x"])).to(f32)
 
     sp = torch.logaddexp(params["lam"], torch.zeros_like(params["lam"]))
     log_a = -_C * sp * r                                        # [B,S,W] <= 0

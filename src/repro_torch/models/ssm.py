@@ -14,6 +14,10 @@ same recurrence in float32, its sums in another order.
 
 Caches are ``{"conv": [B, K-1, conv_dim] f32, "ssd": [B, H, P, N] f32}``;
 a step returns a new cache dict (the JAX package's functional update).
+
+Under a mesh ``in_proj`` is column-parallel and ``out_proj`` row-parallel
+where the rules shard them; the projection is made whole between them, so
+the convolution and the scan run on every rank.
 """
 
 from __future__ import annotations
@@ -22,8 +26,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ..core.qlinear import qdense
 from ..core.quant_plan import join_site
+from ..distributed.tensor_parallel import (column_dense, gather_columns,
+                                           row_dense)
 from .common import normal_init, rms_norm
 
 
@@ -95,7 +100,12 @@ def apply_mamba(params: Dict, x: torch.Tensor, cfg, rt,
                        cfg.ssm_headdim, cfg.ssm_groups)
     cd = conv_dim(cfg)
     s_in = join_site(site, "in_proj")
-    proj = qdense(params["in_proj"], x, rt.quant_cfg(cfg, s_in), tag=s_in)
+    n_in = 2 * di + 2 * G * N + H
+    proj, sh = column_dense(params["in_proj"], x, rt.quant_cfg(cfg, s_in),
+                            tag=s_in, n_out=n_in)
+    # the projection's columns cut across z, xBC and dt: the mixer runs on
+    # the whole projection, on every rank
+    proj = gather_columns(proj, sh)
     z = proj[..., :di]
     xBC = proj[..., di:di + cd]
     dt = proj[..., di + cd:]
@@ -183,5 +193,6 @@ def apply_mamba(params: Dict, x: torch.Tensor, cfg, rt,
     y = y.reshape(B, S, di)
     y = rms_norm(y * _silu(z), params["norm_w"], cfg.norm_eps)
     s_out = join_site(site, "out_proj")
-    out = qdense(params["out_proj"], y, rt.quant_cfg(cfg, s_out), tag=s_out)
+    out = row_dense(params["out_proj"], y, rt.quant_cfg(cfg, s_out),
+                    tag=s_out, k_in=di)
     return out, new_cache

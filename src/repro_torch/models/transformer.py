@@ -29,6 +29,14 @@ as soon as it is drawn (the layer-at-a-time build of
 and one block's float masters, or for an expert stack one expert's, and
 returns what ``pack_for_serving`` makes of the float tree.
 
+Under a mesh (``distributed.sharding.mesh_context``) every rank holds its
+shards of the parameters (``distributed.sharding.place``) and its data
+slice of the batch: the embedding is vocabulary-parallel where the rules
+shard its rows (each rank looks up its rows, the partial sums reduced at
+the ``act_btd`` site), the logits are the lm_head's (or tied embedding's)
+column shards, which the loss reduces with a vocabulary-parallel
+log-sum-exp, and `lm_loss` divides a global sum by the global token count.
+
 "A" blocks of an MoE stack (``cfg.family == "moe"``) run attention, then
 `models.moe.apply_moe` on the second norm, then the shared expert or the
 dense residual FFN beside it (``x + moe + extra``; when a config sets
@@ -50,8 +58,11 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from ..core.qlinear import qdense
 from ..core.quant_plan import join_site
+from ..distributed.sharding import (dp_size, dp_sum, tp_copy_in, tp_rank,
+                                    tp_reduce, tp_size)
+from ..distributed.tensor_parallel import (column_dense, gather_columns,
+                                           vocab_embed, vocab_xent)
 from .attention import apply_attention, init_attention, init_attn_cache
 from .common import normal_init, rms_norm, sinusoidal_pos_embed
 from .ffn import apply_ffn, init_ffn
@@ -143,10 +154,12 @@ def apply_block(block_type: str, p: Dict, x, cfg, rt, positions,
         extra = 0.0
         if cfg.shared_expert:
             extra = apply_ffn(p["shared"], n2, cfg, rt,
-                              site=join_site(site, "shared"))
+                              site=join_site(site, "shared"),
+                              d_ff=cfg.d_ff_expert or cfg.d_ff)
         if cfg.moe_dense_ff:
             extra = apply_ffn(p["dense_ffn"], n2, cfg, rt,
-                              site=join_site(site, "dense_ffn"))
+                              site=join_site(site, "dense_ffn"),
+                              d_ff=cfg.moe_dense_ff)
         x = x + my + extra
     elif block_type != "M" and cfg.d_ff:
         x = x + apply_ffn(p["ffn"], rms_norm(x, p["norm2"], cfg.norm_eps),
@@ -330,7 +343,8 @@ def forward(params: Dict, tokens: torch.Tensor, cfg, rt,
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device).repeat(B, 1)
     dt = torch.bfloat16 if rt.compute_dtype == "bfloat16" else torch.float32
-    x = params["embed"]["tok"][tokens.long()].to(dt)
+    x, partial = vocab_embed(params["embed"]["tok"], tokens, cfg.vocab_padded)
+    x = (tp_reduce(x) if partial else x).to(dt)
     if cfg.rope == "none":
         tpos = positions if positions.dim() == 2 else positions[0]
         x = x + sinusoidal_pos_embed(tpos, cfg.d_model).to(dt)
@@ -383,15 +397,27 @@ def forward(params: Dict, tokens: torch.Tensor, cfg, rt,
     return out, new_caches
 
 
-def _logits(params, x, cfg, rt):
-    """x [..., D] -> logits [..., Vp]: the tied embedding product in the
-    activation dtype (a plain large matmul, as the JAX package leaves it to
-    XLA), or the plan's lm_head site."""
+def _vocab_logits(params, x, cfg, rt):
+    """x [..., D] -> (logits [..., V_local], first column, sharded): the
+    tied embedding product in the activation dtype (a plain large matmul,
+    as the JAX package leaves it to XLA), or the plan's lm_head site; this
+    rank's vocabulary columns where the rules shard them."""
+    Vp = cfg.vocab_padded
     if cfg.tie_embeddings:
         w = params["embed"]["tok"].to(x.dtype)                  # [Vp, D]
-        return torch.matmul(x, w.t())
-    return qdense(params["lm_head"]["w"], x, rt.quant_cfg(cfg, "lm_head"),
-                  tag="lm_head")
+        sharded = tp_size() > 1 and w.shape[0] != Vp
+        logits = torch.matmul(tp_copy_in(x) if sharded else x, w.t())
+    else:
+        logits, sharded = column_dense(
+            params["lm_head"]["w"], x, rt.quant_cfg(cfg, "lm_head"),
+            tag="lm_head", n_out=Vp)
+    return logits, (tp_rank() * logits.shape[-1] if sharded else 0), sharded
+
+
+def _logits(params, x, cfg, rt):
+    """x [..., D] -> logits [..., Vp], every column on every rank."""
+    logits, _, sharded = _vocab_logits(params, x, cfg, rt)
+    return gather_columns(logits, sharded)
 
 
 # ------------------------------------------------------------------- loss --
@@ -403,7 +429,11 @@ def lm_loss(params: Dict, tokens: torch.Tensor, cfg, rt,
     summed over ``rt.loss_chunk`` rows at a time (a Python loop where the
     JAX package scans; 0, or a chunk that does not divide B*S or is not
     smaller, computes them at once), divided by B*S; plus
-    ``cfg.router_aux_coef * aux`` for an MoE stack."""
+    ``cfg.router_aux_coef * aux`` for an MoE stack.  Under a mesh with
+    more than one data rank, `tokens` are this rank's rows of the global
+    batch: the sum is divided by the global count and the aux by the data
+    ranks, so the rank's gradient is its share of the global one, and the
+    loss, nll and aux returned are the global values."""
     inp, tgt = tokens[:, :-1], tokens[:, 1:]
     hidden, _, aux = forward(params, inp, cfg, rt, positions,
                              return_hidden=True, return_aux=True)
@@ -418,23 +448,25 @@ def lm_loss(params: Dict, tokens: torch.Tensor, cfg, rt,
                                             tf[c:c + chunk], cfg, rt))
     else:
         total = torch.sum(_xent(params, hf, tf, cfg, rt))
-    nll = total / (B * S)
-    loss = nll + cfg.router_aux_coef * aux if cfg.n_experts else nll
-    return loss, {"nll": nll, "aux": aux}
+    dp = dp_size()
+    if dp == 1:
+        nll = total / (B * S)
+        loss = nll + cfg.router_aux_coef * aux if cfg.n_experts else nll
+        return loss, {"nll": nll, "aux": aux}
+    # this data rank's share of the global mean (its gradient is the
+    # rank's part of the global gradient); the value is the global loss
+    nll = total / (B * S * dp)
+    local = nll + cfg.router_aux_coef * aux / dp if cfg.n_experts else nll
+    loss = local + (dp_sum(local) - local).detach()
+    return loss, {"nll": dp_sum(nll), "aux": dp_sum(aux) / dp}
 
 
 def _xent(params, h, t, cfg, rt):
     """Per-row cross-entropy of hidden rows h [n, D] against targets t [n]:
-    float32 logits, the padded vocabulary's columns masked to -1e30."""
-    logits = _logits(params, h, cfg, rt).to(torch.float32)   # [n, Vp]
-    Vp = logits.shape[-1]
-    if Vp != cfg.vocab:
-        mask = torch.arange(Vp, device=logits.device) < cfg.vocab
-        logits = torch.where(mask[None, :], logits,
-                             torch.full((), -1e30, device=logits.device))
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, 1, t.long()[:, None])[:, 0]
-    return lse - picked
+    float32 logits, the padded vocabulary's columns masked to -1e30
+    (vocabulary-parallel where the logits are sharded)."""
+    logits, v0, sharded = _vocab_logits(params, h, cfg, rt)
+    return vocab_xent(logits.to(torch.float32), t, cfg.vocab, v0, sharded)
 
 
 # ------------------------------------------------------------ serve steps --

@@ -54,21 +54,24 @@ def global_norm(grads) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, norm=global_norm):
     """(grads scaled to a global norm of at most `max_norm`, as f32; the
-    norm before clipping)."""
-    gn = global_norm(grads)
+    norm before clipping).  `norm` computes the norm (a sharded tree's
+    sums over its shards: ``distributed.sharding.sharded_global_norm``)."""
+    gn = norm(grads)
     scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
     return tree_map(lambda g: g.to(torch.float32) * scale, grads), gn
 
 
 def adamw_update(params, grads, opt_state: Dict[str, Any], lr: torch.Tensor,
                  *, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-                 weight_decay: float = 0.1, max_grad_norm: float = 1.0
+                 weight_decay: float = 0.1, max_grad_norm: float = 1.0,
+                 norm=global_norm
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step: (new params in their dtypes, new state,
-    ``{"grad_norm": the norm before clipping}``)."""
-    grads, gn = clip_by_global_norm(grads, max_grad_norm)
+    ``{"grad_norm": the norm before clipping}``); `norm` as in
+    `clip_by_global_norm`."""
+    grads, gn = clip_by_global_norm(grads, max_grad_norm, norm)
     step = opt_state["step"] + 1
     sf = step.to(torch.float32)
     b1c = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32,

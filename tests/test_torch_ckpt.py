@@ -140,8 +140,17 @@ def test_restore_places_leaves_as_like_and_refuses_shardings(tmp_path):
     assert torch.equal(out["w"], torch.linspace(-1, 1, 8).double())
     with pytest.raises(ValueError, match="shape"):
         tck.restore_checkpoint(d, 1, {"w": torch.zeros(4)})
-    with pytest.raises(NotImplementedError):
-        tck.CheckpointManager(d).restore(like, shardings=object())
+    # a sharding cuts each full leaf to this rank's shard, which must be
+    # the `like` leaf's shape
+    class FirstHalf:
+        def local(self, t):
+            return t[: t.shape[0] // 2]
+
+    half, _ = tck.CheckpointManager(d).restore(
+        {"w": torch.zeros(4)}, shardings={"w": FirstHalf()})
+    assert torch.equal(half["w"], torch.linspace(-1, 1, 8)[:4])
+    with pytest.raises(ValueError, match="shape"):
+        tck.CheckpointManager(d).restore(like, shardings={"w": FirstHalf()})
 
 
 def test_derived_leaves_are_never_written(tmp_path):

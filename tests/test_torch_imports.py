@@ -75,7 +75,11 @@ def test_port_imports_neither_jax_nor_the_reference():
                  "repro_torch.optim.schedule",
                  "repro_torch.data",
                  "repro_torch.data.synthetic",
-                 "repro_torch.launch.train"):
+                 "repro_torch.launch.train",
+                 "repro_torch.distributed.sharding",
+                 "repro_torch.distributed.tensor_parallel",
+                 "repro_torch.distributed.pipeline",
+                 "repro_torch.launch.mesh"):
         assert name in report["modules"]
 
 

@@ -327,11 +327,16 @@ def test_train_refuses_a_mesh_a_missing_gpu_and_kernel_only_backends(
         with pytest.raises(NotImplementedError, match="no backward"):
             make_train_step(cfg, tconfigs.Runtime(quant_backend=quant))
 
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # a mesh larger than the running processes (none here) is refused
+    # before any process group starts
+    with pytest.raises(ValueError, match="mesh needs 8 ranks"):
         train(ARCH, steps=1, mesh_spec="2,4", device="cpu", ckpt_dir=None)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train(ARCH, steps=1, ckpt_dir=None)
+    # a cuda mesh without a GPU: no fallback to gloo or the CPU
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train(ARCH, steps=1, mesh_spec="1,1", ckpt_dir=None)
 
 
 def test_cli_prints_the_losses_last(tmp_path, capsys):
