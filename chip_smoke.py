@@ -171,7 +171,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
                  ragged step with an int8 pool at 8 of its layers, and its
                  captured decode step profiled), qwen2-vl-2b (8 of its 28
                  layers, M-RoPE),
-                 internlm2-20b (all 48 layers, built a layer at a time),
+                 internlm2-20b (24 of its 48 layers, built a layer at a
+                 time),
                  starcoder2-7b (32 layers, GELU FFN with biases),
                  musicgen-large (48 layers, sinusoidal positions, MHA at
                  hd 64), arctic-480b and llama4-maverick at MOE_LAYERS
@@ -210,7 +211,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
                  kernel; row shards: the global amax, the unfused kernel's
                  integer partials summed, then the scales), bit-equal to
                  the whole projection's kernel call at M = 8 and 256, each
-                 shard shape's plan and its time beside the whole's.
+                 shard shape's plan and its time beside the whole's; and
+                 their row-parallel projections under int_sim, lut4 and
+                 w4a16 from float masters and packed w4a16 (ROW_BACKENDS),
+                 every rank's shipped body in a thread of its own, the sum
+                 bit-equal to the whole call for the integer GEMMs and
+                 within W4A16_RTOL for W4A16.  Last, the dry-run
+                 (`dryrun_runs`): DRYRUN_CELLS on the production meshes,
+                 each in a subprocess on a fake process group of 256 or
+                 512 ranks (status lines printed, every one ok); four
+                 steps of full-width qwen2-0.5b at a (1, 1) mesh (the
+                 W4A4-packed eager decode over an int4 cache of 512, its
+                 prefill, a float prefill of 8 x 1024, a QAT train step)
+                 run on the card and dry-run:
+                 argument bytes equal, the dry-run's lower bound at most
+                 the measured time; and the pipeline's backward at one
+                 NCCL stage with a full-width block, bit-equal to the
+                 unpipelined block's.
   5. cpu      -- full width cut to 2 layers, on cuda and on cpu with the
                  same weights.  Bucketed: one prefill and three decode
                  steps with float weights in bf16 (logits within CPU_ATOL),
@@ -294,14 +311,16 @@ LAYERS = 24
 #: (arctic-480b's packed layer is 6.9 GB, llama4-maverick's 8.2 GB); 4
 #: layers until the training phase came, 2 since.  Since then also the
 #: W4A4 ragged run, on the first 8 of the bucketed run's 24 layers.
-#: internlm2-20b runs all 48 layers since the build packs a layer at a
-#: time (its f32 masters, ~79 GB, never exist at once).
+#: internlm2-20b ran all 48 layers from the layer-at-a-time build (its f32
+#: masters, ~79 GB, never exist at once) until the dry-run phase came; 24
+#: since, for the time.
 MOE_LAYERS = 2
 RUN_LAYERS = {**dict.fromkeys(("w4a16", "lut4", "prefix_bucketed",
                                "prefix_ragged", "chaos", "contiguous",
                                "compare", "qwen2-vl-2b", "qwen3-4b ragged",
                                "ragged"),
                               8),
+              "internlm2-20b": 24,
               **dict.fromkeys(("arctic-480b", "llama4-maverick-400b-a17b"),
                               MOE_LAYERS)}
 
@@ -2418,13 +2437,13 @@ def dense_runs(torch):
     pool, the bucketed step): qwen3-4b (36 layers, qk_norm, 32 heads over
     8, untied float lm_head), qwen2-vl-2b (M-RoPE on the text
     positions, 12 heads over 2, qkv bias, tied embeddings), internlm2-20b
-    (48 layers, 48 heads over 8, d_model 6144), starcoder2-7b (32 layers,
+    (24 of 48 layers, 48 heads over 8, d_model 6144), starcoder2-7b (32 layers,
     GELU FFN with biases, qkv bias, 36 heads over 4), musicgen-large (48
     layers, sinusoidal positions, 32 heads over 32 at hd 64, vocab 2048),
     arctic-480b (top-2 of 128 experts beside a dense residual FFN, 56
     heads over 8) and llama4-maverick (top-1 of 128 beside a shared
-    expert, 40 heads over 8), the MoE configs and qwen2-vl-2b cut to
-    RUN_LAYERS' depth.
+    expert, 40 heads over 8), the MoE configs, qwen2-vl-2b and
+    internlm2-20b cut to RUN_LAYERS' depth.
     Each run captured, then eager: every request ok with tokens in [0,
     vocab), launches per `_dense_launches` (the W4A4 GEMM 7 times a layer
     a forward, 6 for the GELU configs), captured tokens and launches
@@ -2897,7 +2916,7 @@ def _tp_shard_checks(torch, timer):
     projections at tp 2 and 4 on the one card, held bit for bit to the
     whole projection's fused kernel call: column shards through the fused
     kernel, concatenated; row shards through the shipped
-    ``w4a4_row_parallel``, one thread a rank, its max and sum collectives
+    ``w4a4_row_parallel``, one thread a rank, its ``RowComm``'s max and sum
     between the threads (`_ThreadRanks`).  Prints each shard shape's
     `w4a4_plan`, and its time at M = 8 and 256 beside the whole's: the
     column shard's fused call, the row shard's whole body (amax, quantize,
@@ -2905,10 +2924,14 @@ def _tp_shard_checks(torch, timer):
     identity."""
     from repro_torch.configs import get_config
     from repro_torch.core.quant import pack_int4, quant_scale, quantize
-    from repro_torch.distributed.tensor_parallel import w4a4_row_parallel
+    from repro_torch.distributed.tensor_parallel import (RowComm,
+                                                         w4a4_row_parallel)
     from repro_torch.kernels import ops
     from repro_torch.kernels.int4_matmul import w4a4_plan
     from repro_torch.kernels.packing import nmajor_to_kmajor_grouped
+
+    def ident(t):
+        return t
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
     n_checked = 0
@@ -2960,12 +2983,12 @@ def _tp_shard_checks(torch, timer):
                         # timed first, in this thread: the kernels are
                         # loaded before the rank threads call them
                         ms = timer.ms(lambda: w4a4_row_parallel(
-                            parts[0], ws[0], reduce_max=lambda t: t,
-                            reduce_sum=lambda t: t))
+                            parts[0], ws[0],
+                            comm=RowComm(ident, ident, 0, tp)))
                         outs = _ThreadRanks(tp).run(
                             lambda r, mx, sm: w4a4_row_parallel(
-                                parts[r], ws[r], reduce_max=mx,
-                                reduce_sum=sm))
+                                parts[r], ws[r],
+                                comm=RowComm(mx, sm, r, tp)))
                         got = outs[0]
                         if not all(torch.equal(o, got) for o in outs[1:]):
                             fail(f"dist: {arch} {name} tp {tp} at M = {M}: "
@@ -2981,7 +3004,120 @@ def _tp_shard_checks(torch, timer):
                 say(f"dist: {arch} {name} ({how}-parallel) tp {tp}: shard "
                     f"({Kl}, {Nl}) of ({K}, {N}), {tp} shards bit-equal to "
                     f"the whole; {'; '.join(plans)}; {'; '.join(times)}")
-    return n_checked
+    launches = {}
+    for arch in DIST_ARCHS:
+        n, got = _row_backend_shards(torch, timer, gen, get_config(arch))
+        n_checked += n
+        launches = {k: launches.get(k, 0) + v for k, v in got.items()}
+    return n_checked, launches
+
+
+#: the row-parallel bodies of the backends that quantize a float master per
+#: call or are weight-only (``tensor_parallel.master_rows``,
+#: ``packed_rows``): (backend, group size, packed)
+ROW_BACKENDS = (("int_sim", 0, False), ("lut4", 0, False),
+                ("w4a16", 128, False), ("w4a16", 0, False),
+                ("w4a16_packed", 0, True), ("w4a16_packed", 128, True))
+#: the integer ones are bit-equal to the whole call; W4A16 sums f32
+#: partials in another order
+ROW_EXACT = ("int_sim", "lut4")
+
+
+def _row_backend_shards(torch, timer, gen, cfg):
+    """`cfg`'s row-parallel projections (``wo``, ``ffn/w_out``) under each
+    of ROW_BACKENDS at tp 2 and 4 and M = 8 and 256: every rank's shipped
+    body (global scales max-reduced, the plan's kernel on the local rows,
+    the partials summed) in a thread of its own (`_ThreadRanks`), the sum
+    held to the whole projection's single-device call (``qdense``): bit
+    for bit for the integer GEMMs, within W4A16_RTOL for W4A16.  A packed
+    grouped weight whose groups the rules cannot cut whole at a tp (K / G
+    not divisible) is skipped, as ``place`` refuses it.  Prints each
+    shard's body time beside the whole call's.  Returns (checks, the
+    kernel launches of the rank runs)."""
+    from repro_torch.core.qlinear import (QuantConfig, pack_weight_nd,
+                                          prepack_tree, qdense)
+    from repro_torch.distributed.tensor_parallel import (RowComm,
+                                                         master_rows,
+                                                         packed_rows)
+    from repro_torch.kernels import ops
+
+    def ident(t):
+        return t
+
+    n_checked, launches = 0, {}
+    rows = [p for p in _tp_projections(cfg) if p[3] == "row"]
+    for name, K, N, _ in rows:
+        w = torch.randn((K, N), generator=gen, device="cuda") * 0.05
+        xs = {M: torch.randn((M, K), generator=gen, device="cuda") * 3
+              for M in DIST_ROWS}
+        for backend, G, packed in ROW_BACKENDS:
+            qc = QuantConfig(backend=backend, group_size=G)
+            label = f"{backend}{'/g' + str(G) if G else ''}"
+            whole_w = (prepack_tree({"w": pack_weight_nd(w, qc)})["w"]
+                       if packed else w)
+            whole = {M: qdense(whole_w, x, qc) for M, x in xs.items()}
+            sc = whole_w["scale"] if packed else None
+            groups = sc.shape[0] if packed and sc.dim() == 3 else 0
+            for tp in DIST_TPS:
+                k = K // tp
+                if groups % tp:
+                    say(f"dist rows: {cfg.name} {name} {label} tp {tp}: "
+                        f"skipped ({groups} groups of {G} do not cut whole "
+                        "over the ranks; place() refuses the weight)")
+                    continue
+                if packed:
+                    g = groups // tp
+                    shards = [prepack_tree({"w": {
+                        "packed": whole_w["packed"][r * k:(r + 1) * k],
+                        "scale": sc[r * g:(r + 1) * g] if groups else sc}}
+                    )["w"] for r in range(tp)]
+                    body = packed_rows
+                else:
+                    shards = [w[r * k:(r + 1) * k] for r in range(tp)]
+                    body = master_rows
+                times = []
+                for M, x in xs.items():
+                    parts = [x[:, r * k:(r + 1) * k].contiguous()
+                             for r in range(tp)]
+                    # timed first, in this thread (the kernels loaded)
+                    ms = timer.ms(lambda: body(
+                        shards[0], parts[0], qc,
+                        comm=RowComm(ident, ident, 0, tp)))
+                    whole_ms = timer.ms(lambda x=x: qdense(whole_w, x, qc))
+                    ops.reset_launch_counts()
+                    outs = _ThreadRanks(tp).run(
+                        lambda r, mx, sm: body(shards[r], parts[r], qc,
+                                               comm=RowComm(mx, sm, r, tp)))
+                    torch.cuda.synchronize()
+                    for kname, n in ops.launch_counts().items():
+                        launches[kname] = launches.get(kname, 0) + n
+                    got = outs[0]
+                    if not all(torch.equal(o, got) for o in outs[1:]):
+                        fail(f"dist rows: {cfg.name} {name} {label} tp {tp} "
+                             f"at M = {M}: the ranks' outputs differ")
+                    ref = whole[M]
+                    if backend in ROW_EXACT:
+                        if not torch.equal(got, ref):
+                            bad = (got != ref).sum().item()
+                            fail(f"dist rows: {cfg.name} {name} {label} tp "
+                                 f"{tp} at M = {M}: {bad} outputs differ "
+                                 "from the whole call")
+                        err = 0.0
+                    else:
+                        err = (got - ref).abs().max().item()
+                        lim = W4A16_RTOL * ref.abs().max().item()
+                        if err > lim:
+                            fail(f"dist rows: {cfg.name} {name} {label} tp "
+                                 f"{tp} at M = {M}: max |diff| {err:.3g} > "
+                                 f"{lim:.3g}")
+                    times.append(f"M={M}: shard {ms:.4f} ms, whole "
+                                 f"{whole_ms:.4f} ms, max |diff| {err:.3g}")
+                    n_checked += 1
+                say(f"dist rows: {cfg.name} {name} ({K}, {N}) {label} tp "
+                    f"{tp}: shard ({k}, {N}), the sum of {tp} ranks "
+                    f"{'bit-equal to' if backend in ROW_EXACT else 'within W4A16_RTOL of'}"
+                    f" the whole call; {'; '.join(times)}")
+    return n_checked, launches
 
 
 def dist_runs(torch):
@@ -3080,12 +3216,368 @@ def dist_runs(torch):
         torch.cuda.empty_cache()
         timer = Timer(torch)
         t4 = time.perf_counter()
-        n = _tp_shard_checks(torch, timer)
-        say(f"dist: {n} shard combinations bit-equal in "
-            f"{time.perf_counter() - t4:.1f} s; the phase in "
+        n, shard_launches = _tp_shard_checks(torch, timer)
+        launches = {k: launches[k] + shard_launches.get(k, 0)
+                    for k in launches}
+        say(f"dist: {n} shard combinations held to the whole call in "
+            f"{time.perf_counter() - t4:.1f} s (the row-parallel rank "
+            f"runs' launches {json.dumps(shard_launches)}); the phase in "
             f"{time.perf_counter() - t0:.1f} s")
     finally:
         dist.destroy_process_group()
+    return launches
+
+
+#: the dry-run's cells run on the chip machine's host (fake process groups,
+#: fake CPU tensors; nothing reaches the card): (arch, shape, multi-pod)
+DRYRUN_CELLS = (("qwen2-0.5b", "decode_32k", False),
+                ("qwen3-4b", "train_4k", False),
+                ("arctic-480b", "prefill_32k", False),
+                ("qwen2-0.5b", "train_4k", True))
+#: the calibration steps (full-width qwen2-0.5b at a (1, 1) mesh), each
+#: run on the card and dry-run: name -> (step kind, batch, sequence).  The
+#: eager W4A4 steps and the QAT step wait on the host's dispatch; the float
+#: prefill of 8 x 1024 keeps the card busy (bf16 GEMMs at M = 8192, flash
+#: prefill), so that its time comes near the bound and the gate can fail.
+CALIBRATION = {"decode": ("decode", 8, 512), "prefill": ("prefill", 2, 64),
+               "prefill_float": ("prefill", 8, 1024),
+               "train": ("train", 8, 128)}
+CALIBRATION_REPS = 10
+#: the pipeline check's microbatches (one stage; a full-width block)
+PIPE_MICRO = (1, 4)
+
+
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _tensors(tree))
+
+
+def _event_ms(torch, fn, reps: int, warmup: int = 2):
+    """Median ms of `fn()` over `reps` calls (CUDA events, after `warmup`
+    calls), and the peak memory allocated during them."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+    times.sort()
+    return times[len(times) // 2], torch.cuda.max_memory_allocated()
+
+
+def _calibration_real(torch, cfg, rts, shapes):
+    """The calibration steps on the card at a (1, 1) NCCL mesh: for each,
+    its arguments' bytes, median ms and peak memory; and the kernel
+    launches of the serving steps' calls.  One serving parameter tree at a
+    time: the W4A4-packed one for the decode and its prefill, then the
+    float one."""
+    from repro_torch.distributed.sharding import mesh_context, place
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import single_device_mesh
+    from repro_torch.launch.steps import (init_train_state, make_decode_step,
+                                          make_prefill_step, make_train_step)
+    from repro_torch.models.transformer import init_caches
+    from repro_torch.optim import adamw_init
+    from repro_torch.serving.engine import build_params
+
+    mesh = single_device_mesh("cuda")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    out, launches = {}, {}
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
+    with mesh_context(mesh):
+        params, backend = None, None
+        for name in ("decode", "prefill", "prefill_float"):
+            shape, rt = shapes[name], rts[name]
+            kind, B, S = shape.kind, shape.batch, shape.seq
+            if rt.quant_backend != backend:
+                params, backend = None, rt.quant_backend
+                torch.cuda.empty_cache()
+                params, _ = place(build_params(cfg, rt, seed=SEED,
+                                               device="cuda"), mesh)
+            caches = init_caches(cfg, rt, B, S, device="cuda")
+            if kind == "decode":
+                tok = torch.randint(0, cfg.vocab, (B, 1), generator=g,
+                                    device="cuda", dtype=torch.int32)
+                pos = torch.full((B, 1), S // 2, dtype=torch.int32,
+                                 device="cuda")
+                step = make_decode_step(cfg, rt)
+                args = (params, tok, caches, pos)
+            else:
+                tok = torch.randint(0, cfg.vocab, (B, S), generator=g,
+                                    device="cuda", dtype=torch.int32)
+                step = make_prefill_step(cfg, rt)
+                args = (params, tok, caches)
+            ops.reset_launch_counts()
+            ms, peak = _event_ms(torch, lambda: step(*args),
+                                 CALIBRATION_REPS)
+            for k, n in ops.launch_counts().items():
+                launches[k] = launches.get(k, 0) + n
+            out[name] = {"bytes": _nbytes(args), "ms": ms,
+                         "peak": peak - mem0}
+            del caches, args
+        del params
+        torch.cuda.empty_cache()
+        shape, rt = shapes["train"], rts["train"]
+        state = init_train_state(torch.Generator(device="cuda").manual_seed(
+            SEED), cfg)
+        p, psh = place(state["params"], mesh)
+        state = {"params": p, "opt": adamw_init(p), "step": state["step"]}
+        batch = torch.randint(0, cfg.vocab, (shape.batch, shape.seq + 1),
+                              generator=g, device="cuda", dtype=torch.int32)
+        step = make_train_step(cfg, rt, shardings=psh)
+        ms, peak = _event_ms(torch, lambda: step(state, batch),
+                             CALIBRATION_REPS)
+        out["train"] = {"bytes": _nbytes((state, batch)), "ms": ms,
+                        "peak": peak - mem0}
+        del state, batch, p, psh
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def _pipeline_on_card(torch):
+    """``pipeline_apply``'s forward and backward at a one-stage NCCL mesh
+    with a full-width qwen2-0.5b block (bf16 activations, f32 weights) as
+    the stage function, held bit for bit to the block applied to each
+    microbatch and differentiated microbatch by microbatch, last first
+    (the schedule's order of summing a stage's gradients): the loss, the
+    gradients of the input and of every parameter."""
+    from repro_torch.configs import Runtime, get_config
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import _like
+    from repro_torch.models.transformer import apply_block, init_block
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+
+    cfg = get_config("qwen2-0.5b")
+    rt = Runtime(quant_backend="float", attn_impl="chunked", remat="none")
+    stages = make_mesh((1,), ("stage",), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 51)
+    block = init_block(gen, "A", cfg)
+    stacked = tree_map(lambda t: t[None].contiguous(), block)
+    mb, S = 2, 64
+
+    def fn(p, xb):
+        pos = torch.arange(S, dtype=torch.int32,
+                           device="cuda").repeat(xb.shape[0], 1)
+        return apply_block("A", p, xb, cfg, rt, pos)[0]
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        for n_micro in PIPE_MICRO:
+            x = torch.randn((n_micro * mb, S, cfg.d_model), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            r = torch.randn(x.shape, generator=gen, device="cuda").to(
+                torch.bfloat16)
+            live = tree_map(lambda t: t.detach().requires_grad_(True),
+                            stacked)
+            xl = x.detach().requires_grad_(True)
+            y = pipeline_apply(fn, live, xl, mesh=stages, n_micro=n_micro)
+            loss = torch.sum(y.float() * r.float())
+            got = torch.autograd.grad(loss, [xl, *tree_leaves(live)])
+            # the reference: each microbatch through the block, the
+            # gradients taken last microbatch first and summed in that
+            # order
+            leaves = [t.detach()[0].requires_grad_(True)
+                      for t in tree_leaves(stacked)]
+            p0 = _like(stacked, iter(leaves))
+            xs = x.reshape(n_micro, mb, S, cfg.d_model)
+            rs = r.reshape(xs.shape)
+            ys, gx = [None] * n_micro, torch.zeros_like(xs)
+            gp = [torch.zeros_like(t) for t in leaves]
+            for i in reversed(range(n_micro)):
+                xi = xs[i].detach().requires_grad_(True)
+                ys[i] = fn(p0, xi)
+                gy = torch.autograd.grad(
+                    torch.sum(ys[i].float() * rs[i].float()), ys[i],
+                    retain_graph=True)[0]
+                gs = torch.autograd.grad(ys[i], [xi, *leaves], gy)
+                gx[i] = gs[0]
+                for acc, gi in zip(gp, gs[1:]):
+                    acc += gi
+            ref_loss = torch.sum(torch.cat([t.detach() for t in ys])
+                                 .float() * r.float())
+            bad = [] if torch.equal(loss.detach(), ref_loss) else ["loss"]
+            if not torch.equal(got[0], gx.reshape(x.shape)):
+                bad.append("x")
+            bad += [i for i, (a, b) in enumerate(zip(got[1:], gp))
+                    if not torch.equal(a[0], b)]
+            if bad:
+                fail(f"pipeline: at {n_micro} microbatches the pipelined "
+                     f"block's loss or gradients {bad[:8]} differ from the "
+                     "unpipelined block's")
+            say(f"pipeline: full-width {cfg.name} block, one stage, "
+                f"{n_micro} microbatches of {mb} x {S}: loss "
+                f"{loss.item():.6f} and the gradients of x and all "
+                f"{len(gp)} parameters bit-equal to the unpipelined "
+                "block's")
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+#: the calibration steps' dry-runs, in a process of their own on a fake
+#: process group of one rank: the counts of each kind's cell as JSON
+CALIBRATION_DRYRUN = r"""
+import json, sys
+from torch._subclasses.fake_tensor import FakeTensorMode
+from repro_torch.configs import Runtime, Shape, get_config
+from repro_torch.distributed.sharding import mesh_context
+from repro_torch.launch.dryrun import (build_cell, cell_terms, count_step,
+                                       memory_fields)
+from repro_torch.launch.mesh import init_fake, make_mesh
+
+cells = json.loads(sys.argv[1])
+init_fake(1)
+mesh = make_mesh((1, 1), ("data", "model"), device="fake")
+out = {}
+for name, (kind, B, S, rt) in cells.items():
+    with FakeTensorMode(), mesh_context(mesh):
+        cell = build_cell(get_config("qwen2-0.5b"), Shape(name, kind, S, B),
+                          Runtime(**rt), mesh)
+        c = count_step(cell.fn, cell.args)
+    out[name] = {"memory": memory_fields(cell, c), "parts": cell.parts,
+                 "terms": cell_terms(c)}
+print(json.dumps(out))
+"""
+#: the calibration steps' runtimes: the serving path's W4A4-packed weights
+#: over an int4 contiguous cache, and the trainer's QAT step
+CALIBRATION_RT = {
+    "decode": dict(attn_impl="flash", quant_backend="w4a4_packed",
+                   cache_dtype="int4"),
+    "prefill": dict(attn_impl="flash", quant_backend="w4a4_packed",
+                    cache_dtype="int4"),
+    "prefill_float": dict(attn_impl="flash", quant_backend="float"),
+    "train": dict(attn_impl="chunked", attn_chunk_q=128, loss_chunk=0,
+                  quant_backend="fake_quant", remat="dots")}
+
+
+class DryrunHost:
+    """The dry-run's host work, started as subprocesses before `dist_runs`
+    so that it overlaps the card's phases (no card: each process has
+    ``CUDA_VISIBLE_DEVICES`` empty and counts on fake CPU tensors): one
+    ``launch.dryrun`` CLI a DRYRUN_CELLS cell, on a fake group of 256 or
+    512 ranks, and CALIBRATION_DRYRUN.  `stop` ends whichever still
+    runs."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self.out_dir = tempfile.mkdtemp(prefix="dryrun_")
+        env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+        self.procs = {}
+        for arch, shape, multi_pod in DRYRUN_CELLS:
+            key = f"{arch}__{shape}__{'pod2' if multi_pod else 'pod1'}"
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--shape", shape, "--skip-probes",
+                   "--out", self.out_dir] + (["--multi-pod"] if multi_pod
+                                             else [])
+            self.procs[key] = self._start(cmd, env)
+        cells = {k: (kind, B, S, CALIBRATION_RT[k])
+                 for k, (kind, B, S) in CALIBRATION.items()}
+        self.procs["calibration"] = self._start(
+            [sys.executable, "-c", CALIBRATION_DRYRUN, json.dumps(cells)],
+            env)
+
+    @staticmethod
+    def _start(cmd, env):
+        return subprocess.Popen(cmd, env=env, cwd=str(ROOT),
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+
+    def wait(self, key: str) -> str:
+        """`key`'s standard output, once it has ended with exit code 0."""
+        proc = self.procs[key]
+        stdout, stderr = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            fail(f"dryrun: {key} exited {proc.returncode}: "
+                 f"{stderr[-2000:]}")
+        return stdout
+
+    def stop(self) -> None:
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(self.out_dir, ignore_errors=True)
+
+
+def dryrun_runs(torch, host: DryrunHost):
+    """The dry-run (``launch.dryrun``), after `dist_runs`; its host work
+    (`DryrunHost`) started before it.  (1) Calibration: CALIBRATION's four
+    steps of full-width qwen2-0.5b (the W4A4-packed eager decode over an
+    int4 contiguous cache, its prefill, a float prefill of 8 x 1024 that
+    keeps the card busy, one QAT train step) at a (1, 1) mesh, each on the card (median of CALIBRATION_REPS CUDA-event timings
+    after warm-up) and as a dry-run of the same cell on a fake group of one
+    rank: the dry-run's argument bytes must equal the real tensors', and
+    its ``step_s_lower_bound`` must not exceed the measured time; the peak
+    memory estimate is printed beside ``torch.cuda.max_memory_allocated``
+    over what was allocated before the step's arguments.  (2)
+    `_pipeline_on_card`.  (3) DRYRUN_CELLS on the production meshes (16 x
+    16; 2 x 16 x 16 for the multi-pod cell): each cell's status line
+    printed, any status but ok a failure.  Returns the kernel launches of
+    the real calibration steps."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import Runtime, Shape, get_config
+    from repro_torch.launch.mesh import init_distributed
+
+    t0 = time.perf_counter()
+    cfg = get_config("qwen2-0.5b")
+    rts = {k: Runtime(**kw) for k, kw in CALIBRATION_RT.items()}
+    shapes = {k: Shape(f"calibration_{k}", kind, S, B)
+              for k, (kind, B, S) in CALIBRATION.items()}
+    init_distributed("cuda")
+    try:
+        real, launches = _calibration_real(torch, cfg, rts, shapes)
+        _pipeline_on_card(torch)
+    finally:
+        dist.destroy_process_group()
+    dry = json.loads(host.wait("calibration").strip().splitlines()[-1])
+    for kind in CALIBRATION:
+        mem, terms, r = dry[kind]["memory"], dry[kind]["terms"], real[kind]
+        bound = terms["step_s_lower_bound"] * 1e3
+        _, B, S = CALIBRATION[kind]
+        say(f"dryrun calibration ({kind}, {B} x {S}): argument bytes "
+            f"{mem['argument_size_in_bytes']} dry-run, {r['bytes']} on the "
+            f"card ({json.dumps(dry[kind]['parts'])}); measured "
+            f"{r['ms']:.3f} ms (median of {CALIBRATION_REPS}) against the "
+            f"bound {bound:.4f} ms ({terms['bound']}; compute "
+            f"{terms['compute_s']:.3e}, memory {terms['memory_s']:.3e}, "
+            f"collective {terms['collective_s']:.3e} s): measured/bound "
+            f"{r['ms'] / bound:.1f}; peak estimate "
+            f"{mem['total_hbm_bytes'] / 2**30:.3f} GiB against "
+            f"max_memory_allocated {r['peak'] / 2**30:.3f} GiB over what "
+            "was allocated before")
+        if mem["argument_size_in_bytes"] != r["bytes"]:
+            fail(f"dryrun calibration ({kind}): the dry-run's argument "
+                 f"bytes {mem['argument_size_in_bytes']} are not the "
+                 f"card's {r['bytes']}")
+        if bound > r["ms"]:
+            fail(f"dryrun calibration ({kind}): the card beat the dry-run's "
+                 f"lower bound ({r['ms']:.4f} < {bound:.4f} ms): a wrong "
+                 "count or constant")
+    for key in host.procs:
+        if key == "calibration":
+            continue
+        stdout = host.wait(key)
+        lines = [ln for ln in stdout.splitlines() if key in ln]
+        say(f"dryrun: {lines[0] if lines else key + ' (no status line)'}")
+        path = os.path.join(host.out_dir, key + ".json")
+        rep = json.load(open(path)) if os.path.exists(path) else {}
+        if rep.get("status") != "ok":
+            fail(f"dryrun: {key} status {rep.get('status')}: "
+                 f"{rep.get('error', '')}")
+        say(f"dryrun: {key} on {rep['devices']} fake ranks "
+            f"{json.dumps(rep['mesh'])} in {rep['elapsed_s']} s: collectives "
+            f"{json.dumps(rep['collectives']['count_by_kind'])}, cross-pod "
+            f"bytes {rep['roofline']['cross_pod_bytes_per_dev']:.0f}")
+    say(f"dryrun: the phase in {time.perf_counter() - t0:.1f} s, the host "
+        f"work {time.perf_counter() - host.t0:.1f} s since it started")
     return launches
 
 
@@ -3203,10 +3695,20 @@ def phase_serve(torch):
              "same)")
     say("serve (lut4): every request's tokens equal the w4a4_packed "
         "bucketed run's at the same depth, token for token")
-    for part in (mamba_runs, hybrid_runs, dense_runs, train_runs, dist_runs):
+    for part in (mamba_runs, hybrid_runs, dense_runs, train_runs):
         t0 = time.perf_counter()
         launches.append(part(torch))
         say(f"phase 4: {part.__name__} in {time.perf_counter() - t0:.1f} s")
+    host = DryrunHost()
+    try:
+        for part in (dist_runs, dryrun_runs):
+            t0 = time.perf_counter()
+            launches.append(part(torch, host) if part is dryrun_runs
+                            else part(torch))
+            say(f"phase 4: {part.__name__} in "
+                f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        host.stop()
     return {k: sum(n[k] for n in launches) for k in launches[0]}
 
 

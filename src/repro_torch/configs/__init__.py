@@ -11,7 +11,8 @@ from __future__ import annotations
 from typing import Dict
 
 from .arctic_480b import CONFIG as _arctic
-from .base import ArchConfig, Runtime, ServingConfig  # noqa: F401
+from .base import (ArchConfig, Runtime, SHAPES, ServingConfig,  # noqa: F401
+                   Shape, runnable)
 from .internlm2_20b import CONFIG as _internlm2
 from .llama4_maverick import CONFIG as _llama4
 from .mamba2_130m import CONFIG as _mamba2

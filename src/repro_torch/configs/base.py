@@ -3,7 +3,8 @@ copied from ``repro/configs/base.py``).
 
 `ArchConfig` is the identity of a model; `Runtime` holds execution knobs
 that never change the model's math; `ServingConfig` the continuous-batching
-knobs.  The fields keep the JAX package's names and defaults so a config
+knobs; `Shape` / `SHAPES` the assigned input-shape cells of the dry-run,
+and `runnable` which of them a config takes.  The fields keep the JAX package's names and defaults so a config
 means the same thing in both packages.
 """
 
@@ -84,6 +85,14 @@ class ArchConfig:
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_headdim
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """True iff decode cost/cache is O(1)-or-O(window) in context length,
+        which is what long_500k requires (SSM state or local-window attn)."""
+        return self.family == "ssm" or (
+            self.family == "hybrid" and self.local_window > 0
+        )
+
     def reduced(self, **overrides) -> "ArchConfig":
         """A small same-family config for CPU tests (the JAX package's
         reduction, field for field)."""
@@ -107,6 +116,32 @@ class ArchConfig:
         )
         base.update(overrides)
         return dataclasses.replace(self, **base)
+
+
+@dataclasses.dataclass(frozen=True)
+class Shape:
+    """An assigned input-shape cell."""
+
+    name: str
+    kind: str        # train | prefill | decode
+    seq: int
+    batch: int
+
+
+SHAPES = {
+    "train_4k": Shape("train_4k", "train", 4096, 256),
+    "prefill_32k": Shape("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": Shape("decode_32k", "decode", 32768, 128),
+    "long_500k": Shape("long_500k", "decode", 524288, 1),
+}
+
+
+def runnable(arch: ArchConfig, shape: Shape) -> bool:
+    """long_500k needs sub-quadratic attention (a full-attention config's
+    cache and decode cost grow with the whole context)."""
+    if shape.name == "long_500k":
+        return arch.sub_quadratic
+    return True
 
 
 @dataclasses.dataclass(frozen=True)

@@ -30,6 +30,15 @@ already in the named layout) the port does nothing.  Batch dimensions
 stay data-local: each data rank holds its slice of the batch from the
 start, so only the ``model`` axis is redistributed.
 
+Every collective the port calls goes through one of six sites: `_all_gather`,
+`_all_reduce`, `sync_grads`, `sharded_global_norm` here and the pipeline's
+ring shift and all-reduce (``distributed.pipeline``).  Each appends
+``(kind, operand bytes, cross_pod)`` to ``COLLECTIVES.log`` while that is a
+list (``launch.dryrun`` sets it; None, the default, records nothing): the
+collective ledger, which stands in for the JAX dry-run's collectives
+parsed from the HLO.  A collective is cross-pod when its group holds the
+``pod`` axis.
+
 Gradients follow one convention: a tensor replicated over ``model`` has
 the full, identical gradient on every rank.  So an all-gather's backward takes the rank's slice, a slice's backward
 all-gathers, the all-reduce of partial sums passes its gradient through,
@@ -57,6 +66,27 @@ import torch.distributed as dist
 _state = types.SimpleNamespace(mesh=None)
 
 TP = "model"
+
+#: the collective ledger: ``log`` is None (nothing recorded) or a list that
+#: every collective site appends ``(kind, operand bytes, cross_pod)`` to;
+#: kinds are the JAX roofline's (``all-reduce``, ``all-gather``,
+#: ``collective-permute``)
+COLLECTIVES = types.SimpleNamespace(log=None)
+
+
+def record_collective(kind: str, t: torch.Tensor, group) -> None:
+    """One collective of `kind` on operand `t` over `group` into the
+    ledger, when it is on."""
+    log = COLLECTIVES.log
+    if log is not None:
+        log.append((kind, t.numel() * t.element_size(), _spans_pod(group)))
+
+
+def _spans_pod(group) -> bool:
+    """Whether `group` is one of the current mesh's groups over ``pod``."""
+    m = current_mesh()
+    return m is not None and any(
+        "pod" in axes and g is group for axes, g in m._groups.items())
 
 
 class Mesh:
@@ -169,6 +199,7 @@ def _all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     n = dist.get_world_size(group)
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(n)]
+    record_collective("all-gather", x, group)
     dist.all_gather(parts, x, group=group)
     return torch.cat(parts, dim=dim)
 
@@ -181,6 +212,7 @@ def _chunk(x: torch.Tensor, dim: int, group) -> torch.Tensor:
 
 def _all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     x = x.clone(memory_format=torch.contiguous_format)
+    record_collective("all-reduce", x, group)
     dist.all_reduce(x, op=op, group=group)
     return x
 
@@ -550,6 +582,7 @@ def sync_grads(grads, shardings):
         have = _flat_axes(sh.spec)
         for a in dp_axes():
             if a not in have and m.shape[a] > 1:
+                record_collective("all-reduce", g, m.group(a))
                 dist.all_reduce(g, group=m.group(a))
     return grads
 
@@ -566,10 +599,11 @@ def sharded_global_norm(grads, shardings) -> torch.Tensor:
     sq = torch.stack([torch.sum(g.to(torch.float32) ** 2) for g in leaves])
     if m is not None:
         for a in m.axis_names:
-            mask = torch.tensor([a in _flat_axes(s) for s in spec_leaves],
-                                device=sq.device)
-            if m.shape[a] > 1 and bool(mask.any()):
+            flags = [a in _flat_axes(s) for s in spec_leaves]
+            if m.shape[a] > 1 and any(flags):
+                mask = torch.tensor(flags, device=sq.device)
                 part = torch.where(mask, sq, torch.zeros_like(sq))
+                record_collective("all-reduce", part, m.group(a))
                 dist.all_reduce(part, group=m.group(a))
                 sq = torch.where(mask, part, sq)
     total = 0

@@ -23,16 +23,38 @@ divides, ``distributed.sharding.param_spec``).
     GEMM's result bit for bit.  ``fake_quant`` (the trainer's QAT backend)
     fake-quantizes each rank's rows with the whole K's scales (the weight's
     column amax and the activations' row amax max-reduced) and sums the
-    partials as the float GEMM does.  The other backends that
-    reduce a scale over K from a float master (``int_sim``, ``lut4``,
-    ``w4a16``, ``netlist``) and packed weight-only weights gather the input
-    and the weight's rows and compute the whole GEMM on every rank: the
-    single-device numerics, at an all-gather of the weight a call.
+    partials as the float GEMM does.  The backends that quantize a float
+    master per call follow the W4A4 pattern (`master_rows`): the weight's
+    column amax and the activations' row amax are max-reduced, each rank
+    quantizes its K rows with the global scales, and
+      - ``int_sim`` / ``pallas_int4`` and ``lut4`` run the plan's kernel
+        (the unfused W4A4 GEMM, or the table-lookup one) with unit scales;
+        ``netlist`` sums its circuit's products over the local K; other
+        widths sum ``int_mm_padded``'s int32 products: exact integer
+        partials, summed, then scaled, bit for bit the single-device GEMM;
+      - ``w4a16`` runs the W4A16 kernel on the local rows with the global
+        scales (per channel; per group, a group split between ranks cut
+        into sub-groups of ``gcd(K_local, G)`` rows, each with its group's
+        scale) and sums the f32 partials: the single-device GEMM up to the
+        order of the f32 sum.
+    Packed weight-only weights (``w4a16_packed``, or packed under
+    ``w4a16``) hold whole groups on each rank (the rules shard the nibbles
+    and a grouped scale's groups together, ``sharding._check_packed``):
+    each rank runs the W4A16 kernel on its rows and the f32 partials are
+    summed.  A packed W4A4 weight at activation widths other than 4 sums
+    ``int_mm_padded``'s partials after the global row scale.  Every
+    packed weight goes through `packed_rows`.  So no row-parallel call
+    gathers a weight, with one exception: a call on a float master being
+    differentiated (the trainer under ``int_sim``, ``pallas_int4``,
+    ``lut4`` or ``w4a16``, whose gradient reaches the weight and the
+    activations through the scales' amax) gathers the input and the
+    weight's rows and runs the single-device GEMM on every rank.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -66,19 +88,163 @@ def row_dense(w, x: torch.Tensor, qc, bias=None, tag: str = "", *,
     if not x_sharded:
         x = tp_slice(x, -1)
     packed = isinstance(w, dict) and "packed" in w
-    if packed and qc.backend in W4A4_BACKENDS and qc.a_bits == 4:
-        # qdense's order: the f32 product, the bias, then the cast
-        lead = x.shape[:-1]
-        y = w4a4_row_parallel(x.reshape(-1, x.shape[-1]), w,
-                              lut=qc.backend == "lut4")
-        y = y.reshape(*lead, y.shape[-1])
-        if bias is not None:
-            y = y + bias.to(y.dtype)
-        return y.to(x.dtype)
     if qc.backend in ("float", "fake_quant") and not packed:
         y = tp_reduce(float_rows(w, x, qc)).to(x.dtype)
         return y if bias is None else (y + bias.to(y.dtype)).to(x.dtype)
-    return qdense(_gather_rows(w), tp_gather(x, -1), qc, bias, tag=tag)
+    if not packed and torch.is_grad_enabled() and (x.requires_grad
+                                                   or w.requires_grad):
+        return qdense(tp_gather(w, -2), tp_gather(x, -1), qc, bias, tag=tag)
+    # qdense's order: the f32 product, the bias, then the cast
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    y = (packed_rows if packed else master_rows)(w, x2, qc, tag)
+    y = y.reshape(*lead, y.shape[-1])
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    return y.to(x.dtype)
+
+
+#: backends whose GEMM from a float master is an integer one
+INT_MASTER_BACKENDS = ("int_sim", "pallas_int4", "lut4", "netlist")
+
+
+def _int_partial(a_q: torch.Tensor, w_q: torch.Tensor, qc,
+                 tag: str = "") -> torch.Tensor:
+    """The exact integer partial sums [M, N] of this rank's quantized K
+    slices a_q [M, K_local] and w_q [K_local, N]: as f32 from the plan's
+    kernel with unit scales at 4 bits (|acc| <= 64 K < 2^24), as int32
+    from the circuit (``netlist``) or ``int_mm_padded`` (other widths)."""
+    from ..core.backends import int_mm_padded
+    from ..kernels.packing import pack_kmajor
+
+    if qc.backend == "netlist":
+        from ..core.mult4_proposed import build_proposed_mult4
+        from ..core.qlinear import check_int4
+        from ..core.quant import to_unsigned_mag
+
+        check_int4(qc, tag)
+        mag_a, sign_a = to_unsigned_mag(a_q)
+        mag_w, sign_w = to_unsigned_mag(w_q)
+        prod = build_proposed_mult4()(mag_a[:, :, None],
+                                      mag_w[None, :, :]).to(torch.int32)
+        prod = prod * sign_a[:, :, None] * sign_w[None, :, :]
+        return prod.sum(dim=1, dtype=torch.int32)
+    if qc.a_bits == 4 and qc.w_bits == 4:
+        return w4a4_row_partial(a_q, pack_kmajor(w_q).contiguous(),
+                                lut=qc.backend == "lut4")
+    return int_mm_padded(a_q, w_q)
+
+
+@dataclasses.dataclass(frozen=True)
+class RowComm:
+    """The ``model`` axis as a row-parallel body sees it: its max- and
+    sum-reductions, this rank's index and the axis's size.  `mesh_comm` is
+    the current mesh's; a caller that runs the ranks' bodies some other
+    way (one thread a rank) builds its own."""
+    reduce_max: Callable
+    reduce_sum: Callable
+    rank: int
+    size: int
+
+
+def mesh_comm() -> RowComm:
+    return RowComm(tp_max, tp_reduce, tp_rank(), tp_size())
+
+
+def _global_scale(t: torch.Tensor, dim: int, bits: int,
+                  comm: RowComm) -> torch.Tensor:
+    """``quant_scale`` over a dimension sharded over ``model``: the local
+    amax max-reduced."""
+    return quant_scale(comm.reduce_max(t.abs().amax(dim=dim, keepdim=True)),
+                       axis=dim, bits=bits)
+
+
+def master_rows(w: torch.Tensor, x2: torch.Tensor, qc, tag: str = "",
+                comm: Optional[RowComm] = None) -> torch.Tensor:
+    """Row-parallel GEMM of x2 [M, K_local] (this rank's K slice) against
+    this rank's K rows of a float master, quantized per call, summed over
+    ``model``: f32 [M, N], as ``core.backends``' single-device GEMM (see
+    the module docstring)."""
+    comm = comm or mesh_comm()
+    if qc.backend in INT_MASTER_BACKENDS:
+        xf = x2.to(torch.float32)
+        w_scale = _global_scale(w, 0, qc.w_bits, comm)       # [1, N]
+        w_q = quantize(w, w_scale, bits=qc.w_bits)
+        a_scale = _global_scale(xf, 1, qc.a_bits, comm)      # [M, 1]
+        a_q = quantize(xf, a_scale, bits=qc.a_bits)
+        acc = comm.reduce_sum(_int_partial(a_q, w_q, qc, tag))
+        return w4a4_row_epilogue(acc.to(torch.float32), a_scale, w_scale)
+    if qc.backend == "w4a16":
+        return comm.reduce_sum(_w4a16_master_partial(w, x2, qc, comm))
+    raise ValueError(f"site {tag!r}: no row-parallel GEMM for backend "
+                     f"{qc.backend!r} on a float master")
+
+
+def _w4a16_master_partial(w: torch.Tensor, x2: torch.Tensor, qc,
+                          comm: RowComm) -> torch.Tensor:
+    """This rank's f32 partial [M, N] of the ``w4a16`` GEMM from a float
+    master's K_local rows, quantized with the whole weight's scales: per
+    channel (the column amax max-reduced), or per group of G rows, where
+    each sub-group of ``gcd(K_local, G)`` rows takes its group's scale
+    (the groups' amax max-reduced over ``model``).  Widths other than 4
+    dequantize and multiply in f32, as ``core.backends`` does."""
+    import math
+
+    from ..core.quant import group_dequantize
+    from ..kernels import ops
+    from ..kernels.packing import pack_kmajor
+
+    Kl, N = w.shape
+    K = Kl * comm.size
+    G = qc.group_size if qc.group_size else K
+    if G >= K:
+        scale = _global_scale(w, 0, qc.w_bits, comm)         # [1, N]
+        w_q, g = quantize(w, scale, bits=qc.w_bits), Kl
+    else:
+        sub = math.gcd(Kl, G)
+        amax = w.reshape(Kl // sub, sub, N).abs().amax(dim=1)  # [Kl/sub, N]
+        # each sub-group's global group, then the groups' global amax
+        grp = (comm.rank * Kl + torch.arange(0, Kl, sub,
+                                             device=w.device)) // G
+        gmax = amax.new_zeros((K // G, N)).scatter_reduce(
+            0, grp[:, None].expand_as(amax), amax, "amax")
+        gmax = comm.reduce_max(gmax)
+        scale = quant_scale(gmax.index_select(0, grp)[:, None, :], axis=1,
+                            bits=qc.w_bits)               # [Kl/sub, 1, N]
+        w_q = quantize(w.reshape(Kl // sub, sub, N), scale,
+                       bits=qc.w_bits).reshape(Kl, N)
+        g = sub
+    if qc.w_bits != 4:
+        return torch.matmul(x2.to(torch.float32),
+                            group_dequantize(w_q, scale, g))
+    rm = 2 * g if scale.ndim == 3 else 2
+    return ops.w4a16_matmul_kmajor(x2, pack_kmajor(w_q, rm), scale, g)
+
+
+def packed_rows(w, x2: torch.Tensor, qc, tag: str = "",
+                comm: Optional[RowComm] = None) -> torch.Tensor:
+    """Row-parallel GEMM of x2 [M, K_local] against this rank's rows of a
+    packed weight, summed over ``model``: f32 [M, N].  W4A4 backends at
+    4-bit activations run `w4a4_row_parallel`; at other widths the integer
+    partials of the unpacked rows are summed after the global row scale.
+    The weight-only backends run the W4A16 kernel on the local rows (whole
+    groups) and sum the f32 partials."""
+    from ..core.qlinear import _packed_backend
+    from ..core.quant import unpack_int4
+
+    comm = comm or mesh_comm()
+    if qc.backend in W4A4_BACKENDS:
+        if qc.a_bits == 4:
+            return w4a4_row_parallel(x2, w, lut=qc.backend == "lut4",
+                                     comm=comm)
+        xf = x2.to(torch.float32)
+        w_scale = w["scale"].to(torch.float32)
+        a_scale = _global_scale(xf, 1, qc.a_bits, comm)
+        a_q = quantize(xf, a_scale, bits=qc.a_bits)
+        acc = comm.reduce_sum(_int_partial(
+            a_q, unpack_int4(w["packed"], axis=-1), qc, tag))
+        return w4a4_row_epilogue(acc.to(torch.float32), a_scale, w_scale)
+    return comm.reduce_sum(_packed_backend(w, x2, qc, tag))
 
 
 def _fake_quant_global(t: torch.Tensor, axis: int, bits: int):
@@ -109,16 +275,6 @@ def float_rows(w: torch.Tensor, x: torch.Tensor, qc) -> torch.Tensor:
     return torch.matmul(x.to(f32), w.to(x.dtype).to(f32))
 
 
-def _gather_rows(w):
-    """A row-sharded weight made whole: a float master's K rows, or a
-    packed weight's nibble rows and, when grouped, its scale groups."""
-    if not isinstance(w, dict):
-        return tp_gather(w, -2)
-    grouped = w["scale"].dim() == w["packed"].dim() + 1
-    return {"packed": tp_gather(w["packed"], -2),
-            "scale": tp_gather(w["scale"], -3) if grouped else w["scale"]}
-
-
 # ------------------------------------------------ row-parallel W4A4 --------
 def w4a4_row_partial(a_q: torch.Tensor, w_kmajor: torch.Tensor,
                      lut: bool = False) -> torch.Tensor:
@@ -141,26 +297,25 @@ def w4a4_row_epilogue(acc: torch.Tensor, a_scale: torch.Tensor,
     return acc * a_scale * w_scale
 
 
-def w4a4_row_parallel(x2: torch.Tensor, w, lut: bool = False, *,
-                      reduce_max=tp_max, reduce_sum=tp_reduce):
+def w4a4_row_parallel(x2: torch.Tensor, w, lut: bool = False,
+                      comm: Optional[RowComm] = None):
     """Row-parallel W4A4 GEMM of x2 [M, K_local] (this rank's K slice)
     against this rank's rows of a packed weight: global-amax quantize,
-    integer partials summed over ``model``, then the scales.  The two
-    collectives are `reduce_max` (of the rows' local amax [M, 1]) and
-    `reduce_sum` (of the integer partials [M, N]); a caller that runs the
-    ranks' bodies some other way passes its own."""
+    integer partials summed over ``model``, then the scales.  `comm`
+    (default `mesh_comm`) max-reduces the rows' local amax [M, 1] and sums
+    the integer partials [M, N]."""
     from ..kernels.packing import nmajor_to_kmajor_grouped
 
+    comm = comm or mesh_comm()
     w_scale = w["scale"].to(torch.float32)
     w_km = w.get("packed_km")
     if w_km is None:
         w_km = nmajor_to_kmajor_grouped(w["packed"], w_scale).contiguous()
     xf = x2.to(torch.float32)
     # the whole row's scale: the local amax max-reduced, then quant_scale
-    amax = reduce_max(xf.abs().amax(dim=1, keepdim=True))
-    a_scale = quant_scale(amax, axis=1, bits=4)
+    a_scale = _global_scale(xf, 1, 4, comm)
     a_q = quantize(xf, a_scale, bits=4)
-    acc = reduce_sum(w4a4_row_partial(a_q, w_km, lut))
+    acc = comm.reduce_sum(w4a4_row_partial(a_q, w_km, lut))
     return w4a4_row_epilogue(acc, a_scale, w_scale)
 
 

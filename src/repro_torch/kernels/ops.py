@@ -11,10 +11,16 @@ Each CUDA wrapper counts its own launches in a plain integer attribute
 (``launch_counts()`` reads them, ``reset_launch_counts()`` zeroes them), so
 a run can show that it went through the kernels.  A replayed CUDA graph
 runs no wrapper: its launches are added by ``add_launch_counts``.
+
+Each entry that launches a kernel passes its call through `COUNT_CALL`
+when that is set: the dry-run (``launch.dryrun``) sets it to count the
+kernel's operands and result at their stored size in place of the plain
+version's unfused ops.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import torch
@@ -66,6 +72,24 @@ def add_launch_counts(counts: Dict[str, int]) -> None:
         CUDA_WRAPPERS[name].launches += n
 
 
+#: the dry-run's hook, else None: each entry below that launches a kernel
+#: returns ``COUNT_CALL(name, call, args)`` in place of ``call()``, its own
+#: body on its arguments `args`
+COUNT_CALL = None
+
+
+def _entry(name: str):
+    """Pass the decorated entry of kernel `name` through COUNT_CALL."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def entry(*args, **kwargs):
+            if COUNT_CALL is None:
+                return fn(*args, **kwargs)
+            return COUNT_CALL(name, lambda: fn(*args, **kwargs), args)
+        return entry
+    return wrap
+
+
 def _on_cuda(t: torch.Tensor, op: str) -> bool:
     if t.device.type == "cuda":
         return True
@@ -74,6 +98,7 @@ def _on_cuda(t: torch.Tensor, op: str) -> bool:
     raise ValueError(f"{op}: no kernel for device {t.device}")
 
 
+@_entry("int4_matmul_fused")
 def int4_matmul_fused_kmajor(x, w_kmajor, w_scale):
     """Fused activation-quantize W4A4 on planar K-major weights
     ([ceil(K/2), N] uint8): float x [M, K] in, f32 [M, N] out."""
@@ -92,6 +117,7 @@ def int4_matmul(a_q, a_scale, w_packed, w_scale):
                               w_scale)
 
 
+@_entry("int4_matmul")
 def int4_matmul_kmajor(a_q, a_scale, w_kmajor, w_scale):
     """W4A4 GEMM on pre-quantized activations and planar K-major weights
     ([ceil(K/2), N] uint8)."""
@@ -108,6 +134,7 @@ def lut4_matmul(a_q, a_scale, w_packed, w_scale):
                               w_scale)
 
 
+@_entry("lut4_matmul")
 def lut4_matmul_kmajor(a_q, a_scale, w_kmajor, w_scale):
     """Table-lookup W4A4 GEMM on planar K-major weights."""
     if _on_cuda(a_q, "lut4_matmul"):
@@ -125,6 +152,7 @@ def w4a16_matmul(x, w_packed, w_scale, group_size: int):
         group_size)
 
 
+@_entry("w4a16_matmul")
 def w4a16_matmul_kmajor(x, w_kmajor, w_scale, group_size: int):
     """Weight-only int4 GEMM on planar K-major weights ([Kh, N] uint8)."""
     if _on_cuda(x, "w4a16_matmul"):
@@ -133,6 +161,7 @@ def w4a16_matmul_kmajor(x, w_kmajor, w_scale, group_size: int):
     return w4a16_matmul_plain(x, w_kmajor, w_scale, group_size)
 
 
+@_entry("lut_mul4")
 def mul4(a_q, b_q, strategy: str = "onehot"):
     """Elementwise exact int4 x int4 -> int8 product through the 256-entry
     product table; `strategy` ("onehot" | "take") names the JAX package's
@@ -142,6 +171,7 @@ def mul4(a_q, b_q, strategy: str = "onehot"):
     return lut_mul4_plain(a_q, b_q, strategy)
 
 
+@_entry("paged_decode_attention")
 def paged_decode_attention(q, k_pool, v_pool, tbl, last_pos, k_scale=None,
                            v_scale=None, *, window: int = 0):
     """Decode attention over the KV page pool: q [B, H, hd]; pools
@@ -160,6 +190,7 @@ def paged_decode_attention(q, k_pool, v_pool, tbl, last_pos, k_scale=None,
                                         pp=max(1, b["bk"] // ps))
 
 
+@_entry("ragged_decode_attention")
 def ragged_paged_attention(q, k_pool, v_pool, tbl, token_slot, token_pos,
                            k_scale=None, v_scale=None, *, window: int = 0):
     """Ragged token-major attention over the KV page pool, one launch for a
@@ -180,6 +211,7 @@ def ragged_paged_attention(q, k_pool, v_pool, tbl, token_slot, token_pos,
                                          pp=max(1, b["bk"] // ps))
 
 
+@_entry("flash_prefill")
 def flash_prefill(q, k, v, q_positions, k_positions, *, window: int = 0):
     """Tiled flash prefill with position masks: q [B, Sq, H, hd]; k/v
     [B, Skv, KV, hd]; positions [B, S] (-1 = padding)."""

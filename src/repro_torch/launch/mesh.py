@@ -11,6 +11,12 @@ starts a group of one process on a ``file://`` store.  A ``cuda`` request
 without NCCL or without a card for every local rank raises: nothing falls
 back to gloo or to the CPU.
 
+The dry-run (``launch.dryrun``) lays its meshes over a group on PyTorch's
+``fake`` backend (`init_fake`): N ranks in one process, whose collectives
+move nothing.  Its meshes are asked for with ``device="fake"``; a ``cuda``
+or ``cpu`` mesh on a fake group raises, as a ``fake`` mesh on a real group
+does.
+
 The port's mesh axes are the named ones of ``distributed.sharding.Mesh``,
 over which the model code's collectives run (the JAX package's
 ``jax.make_mesh`` builds Explicit axes under jax 0.9, which its own
@@ -29,9 +35,35 @@ import torch.distributed as dist
 from ..distributed.sharding import Mesh
 
 
+def init_fake(world: int) -> None:
+    """Make the default process group one of `world` ranks on the ``fake``
+    backend, this process rank 0 (a fake group of another size is
+    replaced; a real group raises).  The only user of PyTorch's private
+    ``torch.testing._internal.distributed.fake_pg``."""
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:
+        raise RuntimeError(
+            "the dry-run's fake process group needs torch.testing._internal."
+            f"distributed.fake_pg, which PyTorch {torch.__version__} "
+            "lacks") from e
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError(
+                f"a {dist.get_backend()} process group is running; the "
+                "dry-run's fake group would replace it")
+        if dist.get_world_size() == world:
+            return
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+
+
 def backend_for(device) -> str:
-    """NCCL for ``cuda``, gloo for ``cpu``; raises where the device's
-    backend is missing."""
+    """NCCL for ``cuda``, gloo for ``cpu``, the fake backend for
+    ``"fake"``; raises where the device's backend is missing."""
+    if device == "fake":
+        return "fake"
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -57,6 +89,11 @@ def init_distributed(device="cuda") -> torch.device:
     rank takes the card of its ``LOCAL_RANK``, and a node with fewer cards
     than local ranks raises."""
     backend = backend_for(device)
+    if backend == "fake":
+        if not dist.is_initialized() or dist.get_backend() != "fake":
+            raise RuntimeError("a fake mesh needs the fake process group "
+                               "(launch.mesh.init_fake)")
+        return torch.device("cpu")
     dev = torch.device(device)
     if dev.type == "cuda":
         local = int(os.environ.get("LOCAL_RANK", "0"))
@@ -90,7 +127,8 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
               device="cuda") -> Mesh:
     """A mesh of `shape` over `axes` on the default process group, which
     must hold exactly prod(shape) ranks (`init_distributed` starts one of
-    a single process where none is running)."""
+    a single process where none is running).  ``device="fake"`` lays it
+    over the fake group of `init_fake`, its tensors on the CPU."""
     from torch.distributed.device_mesh import init_device_mesh
 
     shape, axes = tuple(int(s) for s in shape), tuple(axes)
@@ -118,7 +156,8 @@ def single_device_mesh(device="cuda") -> Mesh:
 def make_production_mesh(*, multi_pod: bool = False, device="cuda") -> Mesh:
     """The assignment's production mesh: 16 x 16 (256 ranks), or 2 pods of
     them (512) with a leading ``pod`` axis.  Raises unless the process
-    group has that many ranks."""
+    group has that many ranks (the dry-run's fake group, ``device="fake"``,
+    has them on one host)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     want = 512 if multi_pod else 256

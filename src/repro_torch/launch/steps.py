@@ -27,6 +27,14 @@ tensors, so a captured graph reads and writes the same storage every
 call).  A row whose last position is negative (padding, warm-up) writes
 back what it read; rows the step does not name are untouched.
 
+The placement trees (`input_specs`, `_shard_cache_specs`, `state_specs`,
+`param_specs_only`) describe a cell's step inputs without allocating them:
+`TensorSpec` leaves (the port's ``jax.ShapeDtypeStruct`` with a sharding)
+holding the global shape and dtype, the rules' spec tuple and this rank's
+local shape.  The shapes are read from tensors made under a
+``FakeTensorMode`` (no storage).  ``launch.dryrun`` builds its fake step
+inputs at those local shapes.
+
 Where the JAX package compiles each step once per bucket shape
 (``jax.jit``), the engine on CUDA wraps each step in a `CapturedStep`: one
 CUDA graph per step shape, captured at the shape's first call and replayed
@@ -41,7 +49,9 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-from ..distributed.sharding import sharded_global_norm, sync_grads
+from ..distributed.sharding import (dp_axes, make_param_shardings,
+                                    mesh_context, sharded_global_norm,
+                                    specs_to_shardings, sync_grads)
 from ..kernels import ops
 from ..models.transformer import (_logits, decode_step, forward,
                                   init_caches, init_model, lm_loss, prefill)
@@ -263,6 +273,148 @@ def make_ragged_step(cfg, rt):
         return torch.where(emit_rows >= 0, nxt, -1), caches
 
     return ragged_step
+
+
+# ------------------------------------------------------------ input specs --
+@dataclasses.dataclass(frozen=True)
+class TensorSpec:
+    """A tensor described, not allocated: its global `shape` and `dtype`,
+    its `spec` (a ``distributed.sharding`` spec tuple; None without a
+    mesh) and `local_shape`, this rank's shard's shape under the mesh."""
+    shape: tuple
+    dtype: torch.dtype
+    spec: Optional[tuple] = None
+    local_shape: Optional[tuple] = None
+
+
+def _sds(shape, dtype, spec=None, mesh=None) -> TensorSpec:
+    """A `TensorSpec` of `shape` placed by `spec` on `mesh`: each sharded
+    dimension divided by the size of its axes (which must divide it)."""
+    shape = tuple(int(d) for d in shape)
+    if mesh is None or spec is None:
+        return TensorSpec(shape, dtype, None if mesh is None else spec,
+                          shape)
+    spec = tuple(spec)
+    local = list(shape)
+    for d, e in enumerate(spec):
+        if e is not None:
+            n = mesh.size(e)
+            if local[d] % n:
+                raise ValueError(f"dim {d} of {shape} does not divide over "
+                                 f"{e} ({n})")
+            local[d] //= n
+    return TensorSpec(shape, dtype, spec, tuple(local))
+
+
+def _abstract(fn):
+    """``fn()``'s tree with every tensor made under a fresh
+    ``FakeTensorMode``: shapes and dtypes, no storage."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        return fn()
+
+
+def _specs_tree(tree, specs, mesh):
+    """A `TensorSpec` tree of the tensors of `tree` under the spec tree
+    `specs` (tuples)."""
+    if isinstance(tree, dict):
+        return {k: _specs_tree(v, specs[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_specs_tree(v, s, mesh)
+                          for v, s in zip(tree, specs))
+    return _sds(tree.shape, tree.dtype, specs, mesh)
+
+
+def _dp_spec(mesh):
+    dpa = dp_axes() if mesh is not None else ()
+    if not dpa:
+        return None
+    return dpa if len(dpa) > 1 else dpa[0]
+
+
+def input_specs(cfg, shape, mesh=None, rt=None) -> Dict:
+    """`TensorSpec` stand-ins for the cell's step-function inputs: the
+    train batch [B, S+1], or the prompt [B, S] and the contiguous caches,
+    or the decode token and positions [B, 1] and the caches of context S.
+    Each data rank holds B / dp rows where dp divides B, else all B."""
+    from ..configs import Runtime
+
+    rt = rt or Runtime()
+    B, S = shape.batch, shape.seq
+
+    def tok(shp, b):
+        if mesh is None:
+            return _sds(shp, torch.int32)
+        dspec = _dp_spec(mesh)
+        return _sds(shp, torch.int32,
+                    (dspec if b % mesh.size(dspec) == 0 else None, None),
+                    mesh)
+
+    with mesh_context(mesh):
+        if shape.kind == "train":
+            return {"batch": tok((B, S + 1), B)}
+        caches = _abstract(lambda: init_caches(cfg, rt, batch=B, seq=S,
+                                               device="cpu"))
+        caches = _shard_cache_specs(caches, mesh)
+        if shape.kind == "prefill":
+            return {"tokens": tok((B, S), B), "caches": caches}
+        if shape.kind == "decode":
+            return {"token": tok((B, 1), B), "caches": caches,
+                    "positions": tok((B, 1), B)}
+    raise ValueError(shape.kind)
+
+
+def _shard_cache_specs(caches, mesh):
+    """KV/state caches: shard the *batch* dim over data when divisible.
+    Stacked per-repeat caches are [n_repeats, B, ...] (batch at dim 1);
+    tail-block caches are [B, ...] (batch at dim 0)."""
+    if mesh is None:
+        return _specs_tree(caches, tree_map(lambda t: None, caches), None)
+    dspec = _dp_spec(mesh)
+    size = mesh.size(dspec) if dspec is not None else 1
+
+    def shard_leaf(batch_dim):
+        def inner(leaf):
+            ax = [None] * leaf.dim()
+            if leaf.dim() > batch_dim and leaf.shape[batch_dim] % size == 0 \
+                    and leaf.shape[batch_dim] > 1:
+                ax[batch_dim] = dspec
+            return _sds(leaf.shape, leaf.dtype, tuple(ax), mesh)
+        return inner
+
+    return {"rep": tree_map(shard_leaf(1), caches["rep"]),
+            "tail": tree_map(shard_leaf(0), caches["tail"])}
+
+
+@functools.lru_cache(maxsize=4)
+def _abstract_state(cfg) -> Dict:
+    """The train state of `cfg` as fake tensors (shapes and dtypes; kept,
+    since an MoE config's full-width draw takes seconds even so)."""
+    return _abstract(lambda: init_train_state(
+        torch.Generator().manual_seed(0), cfg))
+
+
+def state_specs(cfg, mesh, *, zero: bool = True):
+    """(`TensorSpec` tree, ``NamedSharding`` tree) of the full train state;
+    `zero` shards the AdamW moments over ``data`` too (ZeRO)."""
+    state = _abstract_state(cfg)
+    pspecs = make_param_shardings(state["params"], mesh)
+    ospecs = {
+        "mu": make_param_shardings(state["opt"]["mu"], mesh, zero=zero),
+        "nu": make_param_shardings(state["opt"]["nu"], mesh, zero=zero),
+        "step": (),
+    }
+    specs = {"params": pspecs, "opt": ospecs, "step": ()}
+    return _specs_tree(state, specs, mesh), specs_to_shardings(specs, mesh)
+
+
+def param_specs_only(cfg, mesh):
+    """(`TensorSpec` tree, ``NamedSharding`` tree) of the f32 parameters."""
+    params = _abstract_state(cfg)["params"]
+    specs = make_param_shardings(params, mesh)
+    return (_specs_tree(params, specs, mesh),
+            specs_to_shardings(specs, mesh))
 
 
 # ------------------------------------------------------- captured steps --

@@ -79,7 +79,9 @@ def test_port_imports_neither_jax_nor_the_reference():
                  "repro_torch.distributed.sharding",
                  "repro_torch.distributed.tensor_parallel",
                  "repro_torch.distributed.pipeline",
-                 "repro_torch.launch.mesh"):
+                 "repro_torch.launch.mesh",
+                 "repro_torch.launch.dryrun",
+                 "repro_torch.launch.roofline"):
         assert name in report["modules"]
 
 

@@ -514,3 +514,94 @@ def failing_train_worker(rank, out):
             mesh_spec="1,2", device="cpu")
     with open(f"{out}.{rank}", "w") as f:
         f.write("finished")
+
+
+# ------------------------------------------- pipeline gradients (GPipe) --
+def pipe_stage(case: str):
+    """The stage function of a pipeline-gradient case: ``tanh(x @ w)``, or
+    a reduced qwen2-0.5b "A" block in float32 (one block a stage; its own
+    positions 0..S-1)."""
+    if case == "tanh":
+        return lambda w, xb: torch.tanh(xb @ w)
+    from repro_torch.configs import Runtime, get_config
+    from repro_torch.models.transformer import apply_block
+
+    cfg = get_config("qwen2-0.5b").reduced(n_layers=4)
+    rt = Runtime(quant_backend="float", compute_dtype="float32",
+                 attn_impl="full", remat="none")
+
+    def block(p, xb):
+        B, S = xb.shape[:2]
+        pos = torch.arange(S, dtype=torch.int32).repeat(B, 1)
+        return apply_block("A", p, xb, cfg, rt, pos)[0]
+
+    return block
+
+
+def pipe_loss(y: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    return torch.sum(y * r)
+
+
+def pipe_grad_worker(rank, d, cases):
+    """On a 4-stage mesh, for each case: pipeline_apply's outputs and the
+    gradients of sum(y * r) with respect to the stacked parameters and x
+    (every rank's; rank r's saved as ``<case>_rank<r>.pt``)."""
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.distributed.sharding import COLLECTIVES
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+
+    stages = _mesh((4,), ("stage",))
+    for case in cases:
+        fn = pipe_stage(case)
+        full = tree_map(torch.from_numpy, load_npz(f"{d}/{case}_in.npz"))
+        x, r = full.pop("x"), full.pop("r")
+        ws = full["ws"] if case == "tanh" else full
+        live = tree_map(lambda p: p.detach().requires_grad_(True), ws) \
+            if isinstance(ws, dict) else ws.detach().requires_grad_(True)
+        xl = x.detach().requires_grad_(True)
+        COLLECTIVES.log = []
+        y = pipeline_apply(fn, live, xl, mesh=stages, n_micro=8)
+        leaves = tree_leaves(live) if isinstance(live, dict) else [live]
+        grads = torch.autograd.grad(pipe_loss(y, r), [xl, *leaves])
+        log, COLLECTIVES.log = COLLECTIVES.log, None
+        names = (sorted(flatten(live)) if isinstance(live, dict)
+                 else ["ws"])
+        torch.save({"y": y.detach().numpy(),
+                    "gx": grads[0].numpy(),
+                    "g": {n: g.numpy() for n, g in zip(names, grads[1:])},
+                    "log": [k for k, _, _ in log]},
+                   f"{d}/{case}_rank{rank}.pt")
+
+
+# ------------------------------------------------- row-parallel GEMMs --
+def rows_worker(rank, d, tp, cases):
+    """On a (1, tp) mesh, for each case ``(name, backend, group_size,
+    a_bits, packed)``: ``row_dense`` of this rank's K slices of the
+    seeded input and weight (``<name>.npz``), and the collectives it
+    called (the ledger's kinds and bytes)."""
+    from repro_torch.core.qlinear import QuantConfig, pack_weight_nd
+    from repro_torch.core.qlinear import prepack_tree
+    from repro_torch.distributed.sharding import (COLLECTIVES,
+                                                  mesh_context, place)
+    from repro_torch.distributed.tensor_parallel import row_dense
+
+    mesh = _mesh((1, tp))
+    res = {}
+    with mesh_context(mesh):
+        for name, backend, G, a_bits, packed in cases:
+            with np.load(f"{d}/{name}.npz") as z:
+                w, x = torch.from_numpy(z["w"]), torch.from_numpy(z["x"])
+            qc = QuantConfig(backend=backend, group_size=G, a_bits=a_bits)
+            K = w.shape[0]
+            tree = {"wo": pack_weight_nd(w, qc) if packed else w}
+            local, _ = place(tree, mesh)
+            wl = prepack_tree(local)["wo"] if packed else local["wo"]
+            k = K // tp
+            xl = x[:, rank * k:(rank + 1) * k]
+            COLLECTIVES.log = []
+            with torch.no_grad():
+                y = row_dense(wl, xl, qc, k_in=K, x_sharded=True)
+            log, COLLECTIVES.log = COLLECTIVES.log, None
+            res[name] = {"y": y.numpy(), "log": log}
+    if rank == 0:
+        torch.save(res, f"{d}/rows_tp{tp}.pt")
