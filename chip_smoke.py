@@ -253,6 +253,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
                  and arctic-480b, W4A4 weights in float32, arctic's routed
                  expert ids equal on both devices, both within
                  CPU_W4A4_F32_ATOL.
+  6. analysis -- the port's static analyzer (python -m
+     and tuning  repro_torch.analysis) over the tree as shipped against
+                 analysis_baseline_torch.json, exit 0 and its counts; then
+                 the GEMM plans' timed search (kernels.autotune.tune) at
+                 qwen2-0.5b's (896, 4864): the W4A4 GEMM at M = 8 and 256,
+                 lut4 and W4A16 (G = 128) at M = 8, each candidate's us,
+                 the rule's and the winner's, the winner held to its plain
+                 version, the cache (a file of the run's own, set for the
+                 whole script) saved, dropped and read back into the
+                 wrappers' plans.
 
 The line before the last is a JSON object with every kernel's launches,
 error and times; the last line is {"ok": true, "device": {...}}.
@@ -260,6 +270,7 @@ error and times; the last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import json
 import math
@@ -3242,7 +3253,9 @@ DRYRUN_CELLS = (("qwen2-0.5b", "decode_32k", False),
 CALIBRATION = {"decode": ("decode", 8, 512), "prefill": ("prefill", 2, 64),
                "prefill_float": ("prefill", 8, 1024),
                "train": ("train", 8, 128)}
-CALIBRATION_REPS = 10
+#: timed repetitions of each calibration step: 10 until the analysis and
+#: tuning phase came (its ~9 s paid for by the train step's five, ~1 s each)
+CALIBRATION_REPS = 5
 #: the pipeline check's microbatches (one stage; a full-width block)
 PIPE_MICRO = (1, 4)
 
@@ -4012,8 +4025,8 @@ def _held_to_plain(torch, ops, worst: dict):
                                     W4A16_RTOL)}
 
     def holding(entry, name, plain, rtol):
-        def call(*args):
-            got = entry(*args)
+        def call(*args, **kwargs):
+            got = entry(*args, **kwargs)
             want = plain(*args)
             err = (got - want).abs().max().item()
             if not (got.is_cuda and err <= rtol * want.abs().max().item()):
@@ -4705,6 +4718,151 @@ def phase_cpu(torch):
     return readings
 
 
+# ------------------------------------------------- analysis and tuning ----
+#: the tune phase's GEMMs at qwen2-0.5b's w_in / w_gate (K 896, N 4864):
+#: (op, activation dtype, group size, M)
+TUNE_CASES = (("int4_matmul", "float32", 0, MAX_BATCH),
+              ("int4_matmul", "float32", 0, PROMPT_BUCKET),
+              ("gemm.lut4", "int8", 0, MAX_BATCH),
+              ("w4a16_matmul", "bfloat16", 128, MAX_BATCH))
+TUNE_K, TUNE_N = 896, 4864
+
+
+def analysis_run() -> dict:
+    """The port's static analyzer (``python -m repro_torch.analysis``, its
+    default paths) over the tree as shipped, against
+    analysis_baseline_torch.json: it must exit 0.  Its counts."""
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--baseline",
+         "analysis_baseline_torch.json", "--format", "json"],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(SRC)},
+        capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        fail(f"analysis: exit {out.returncode}\n{out.stdout[-4000:]}\n"
+             f"{out.stderr[-4000:]}")
+    counts = json.loads(out.stdout)["counts"]
+    say(f"analysis: {json.dumps(counts, sort_keys=True)}")
+    if counts["new"] or counts["stale_baseline"]:
+        fail(f"analysis: new or stale findings {counts}")
+    return counts
+
+
+def _tune_call(torch, gen, op, dtype, G, M):
+    """Inputs at (M, TUNE_K, TUNE_N) on the card: `run(plan)` launches the
+    op's CUDA wrapper (None: the cache's or the rule's plan), `plain` is
+    its plain version's output, `launch_plan()` the plan the wrapper would
+    take, read with nothing launched."""
+    from repro_torch.core.quant import group_quantize, quant_scale, quantize
+    from repro_torch.kernels import int4_matmul as i4
+    from repro_torch.kernels import lut4_matmul as l4
+    from repro_torch.kernels import w4a16_matmul as w16
+    from repro_torch.kernels.packing import pack_kmajor
+
+    K, N = TUNE_K, TUNE_N
+    x, w_q, w_km, w_scale = _gemm_inputs(torch, gen, M, K, N)
+    aligned = w_km.data_ptr() % 16 == 0
+    if op == "int4_matmul":
+        return (lambda plan=None: i4.int4_matmul_fused_cuda(
+                    x, w_km, w_scale, plan=plan),
+                i4.int4_matmul_fused_plain(x, w_km, w_scale),
+                lambda: i4.launch_plan(M, K, N, w_km.shape[0], aligned,
+                                       dtype))
+    if op == "gemm.lut4":
+        a_scale = quant_scale(x, axis=1, bits=4)
+        a_q = quantize(x, a_scale, bits=4)
+        return (lambda plan=None: l4.lut4_matmul_cuda(
+                    a_q, a_scale, w_km, w_scale, plan=plan),
+                l4.lut4_matmul_plain(a_q, a_scale, w_km, w_scale),
+                lambda: l4.launch_plan(M, K, N, w_km.shape[0], aligned))
+    w = torch.randn((K, N), generator=gen, device="cuda") * 0.05
+    wq, ws = group_quantize(w, G)
+    w_km = pack_kmajor(wq, 2 * G).contiguous()
+    xb = x.to(torch.bfloat16)
+    return (lambda plan=None: w16.w4a16_matmul_cuda(xb, w_km, ws, G,
+                                                     plan=plan),
+            w16.w4a16_matmul_plain(xb, w_km, ws, G),
+            lambda: w16.launch_plan(M, K, N, w_km.shape[0], G, True,
+                                    xb.data_ptr() % 16 == 0,
+                                    w_km.data_ptr() % 16 == 0))
+
+
+def tune_runs(torch) -> dict:
+    """The GEMM plans' timed search (``kernels.autotune.tune``, its CUDA-
+    event timer: device time a call, L2 flushed) at TUNE_CASES, into the
+    script's own cache file ($REPRO_AUTOTUNE_CACHE, set by main): each
+    candidate's us, the rule's and the winner's; the winner held to the
+    plain version (the integer GEMMs bit for bit, W4A16 within W4A16_RTOL
+    of the output's largest magnitude); then the cache saved, dropped,
+    read back, and the wrapper's plan for each shape the tuned entry,
+    launched bit-equal to the winner's call.  The cache is dropped again
+    and its file removed at the end."""
+    from repro_torch.kernels import autotune
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    report, held = {}, []
+    for op, dtype, G, M in TUNE_CASES:
+        run, plain, launch_plan = _tune_call(torch, gen, op, dtype, G, M)
+        rows = []
+
+        def make_call(entry, run=run):
+            def call():
+                return run(entry)
+            call.entry = entry
+            return call
+
+        def timer(fn, rows=rows):
+            us = autotune._default_timer(fn)
+            rows.append((fn.entry, us))
+            return us
+
+        best, best_us = autotune.tune(op, make_call, M, TUNE_K, TUNE_N,
+                                      dtype, group_size=G, timer=timer)
+        rule = autotune.tuning(op).rule(M, TUNE_K, TUNE_N, G, dtype)
+        rule_us = next(us for e, us in rows if e == rule)
+        label = f"{op} {dtype} G={G} M={M} K={TUNE_K} N={TUNE_N}"
+        for entry, us in rows:
+            say(f"tune: {label}: {json.dumps(entry, sort_keys=True)} "
+                f"{us:.2f} us")
+        got = run(best)
+        err = (got - plain).abs().max().item()
+        limit = W4A16_RTOL * plain.abs().max().item() \
+            if op == "w4a16_matmul" else 0.0
+        say(f"tune: {label}: rule {json.dumps(rule, sort_keys=True)} "
+            f"{rule_us:.2f} us, winner {json.dumps(best, sort_keys=True)} "
+            f"{best_us:.2f} us ({best_us / rule_us:.3f} of the rule's) of "
+            f"{len(rows)} timed; max |diff| to plain {err:.6g} (limit "
+            f"{limit:.6g})")
+        if not (math.isfinite(best_us) and err <= limit
+                and (op == "w4a16_matmul" or torch.equal(got, plain))):
+            fail(f"tune: {label}: the winner {best} differs from the plain "
+                 f"version by {err:.6g} (limit {limit:.6g})")
+        report[label] = {"rule": rule, "rule_us": rule_us, "best": best,
+                         "best_us": best_us, "timed": len(rows),
+                         "max_abs_err": err}
+        held.append((op, dtype, G, M, best, run, got, launch_plan))
+    path = autotune.cache_path()
+    autotune.reset()
+    n = autotune.load_cache()
+    if n != len({(op, dtype, G, M) for op, dtype, G, M in TUNE_CASES}):
+        fail(f"tune: {path} held {n} entries after a reload")
+    for op, dtype, G, M, best, run, got, launch_plan in held:
+        cached = autotune.lookup(op, M, TUNE_K, TUNE_N, dtype, G)
+        want = autotune.tuning(op).check(best, M, TUNE_K, TUNE_N, G, dtype)
+        plan = launch_plan()
+        if cached != best or plan != want:
+            fail(f"tune: after the reload {op} M={M} takes {plan} (cache "
+                 f"{cached}), not the tuned {want}")
+        again = run()
+        if not torch.equal(again, got):
+            fail(f"tune: {op} M={M}: the cached plan's launch differs from "
+                 "the winner's call")
+    autotune.reset()
+    os.remove(path)
+    say(f"tune: {n} entries saved to, reloaded from and removed with "
+        f"{path}; each wrapper took its tuned plan")
+    return report
+
+
 # --------------------------------------------------------------- main ----
 SOURCES = {
     "int4_matmul_fused": ("src/repro_torch/csrc/int4_matmul.cu",
@@ -4730,6 +4888,12 @@ def main() -> None:
     import torch
 
     kind, smi = phase_device(torch)
+    # the run's own plan cache: no cache under the home directory changes
+    # any run, and the tune phase writes only here
+    tune_dir = tempfile.mkdtemp(prefix="chip_smoke_autotune_")
+    atexit.register(shutil.rmtree, tune_dir, True)
+    os.environ["REPRO_AUTOTUNE_CACHE"] = os.path.join(tune_dir,
+                                                      "autotune.json")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -4779,6 +4943,10 @@ def main() -> None:
     say(f"phase 4 (serve): {time.perf_counter() - t_start:.1f} s after "
         "device checks")
     phase_cpu(torch)
+    t0 = time.perf_counter()
+    analysis_run()
+    tune_runs(torch)
+    say(f"phase 6 (analysis, tuning): {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, res in results.items():
         source, replaces = SOURCES[name]

@@ -19,7 +19,10 @@ tensors.
 Both entries run one kernel on the int8 tensor cores, cut by `w4a4_plan`
 (CTA tile, weight load width, packed rows per split, number of splits);
 a call's splits of one output tile are one thread-block cluster that adds
-its int32 partials in the kernel, so a call is one launch.
+its int32 partials in the kernel, so a call is one launch.  A plan tuned
+for the call's shape (``autotune`` op ``"int4_matmul"``) takes the rule's
+place where the cache holds one (`launch_plan`); the sums are exact
+integers, so every plan gives the same bits.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ import functools
 import torch
 
 from ..core.quant import quant_scale, quantize
-from . import _build
+from . import _build, autotune
 from .packing import unpack_kmajor
 
 def int4_matmul_fused_plain(x: torch.Tensor, w_kmajor: torch.Tensor,
@@ -122,16 +125,96 @@ def w4a4_plan(M: int, K: int, N: int, Kh: int,
     return W4A4Plan(bm, bn, vec, rows, splits, tiles * splits)
 
 
+#: the CTA tiles (bm, bn) the kernel instantiates (csrc/int4_matmul.cu)
+TILES = ((16, 64), (32, 64), (64, 64), (64, 128))
+
+
+def plan_entry(p: W4A4Plan) -> dict:
+    """A plan's tunable fields: what an ``autotune`` cache entry holds."""
+    return {"bm": p.bm, "bn": p.bn, "rows": p.rows, "splits": p.splits}
+
+
+def w4a4_plan_from(entry: dict, M: int, K: int, N: int, Kh: int,
+                   aligned: bool = True) -> W4A4Plan:
+    """The plan of a tuned entry ({bm, bn, rows[, splits]}) at this shape;
+    ValueError unless the kernel takes it: a tile of `TILES`, at most
+    MAX_SPLITS splits, each a multiple of KSTEP packed rows when there
+    are several.  The weight load width follows `aligned`, as the rule's."""
+    if M < 1 or N < 1 or 2 * Kh not in (K, K + 1):
+        raise ValueError(f"w4a4 plan: M = {M}, K = {K}, N = {N}, Kh = {Kh}")
+    bm, bn, rows = (autotune.int_field(entry, k) for k in ("bm", "bn",
+                                                           "rows"))
+    if (bm, bn) not in TILES:
+        raise ValueError(f"w4a4 plan: tile {bm} x {bn}; the kernel "
+                         f"instantiates {TILES}")
+    if rows < 1:
+        raise ValueError(f"w4a4 plan: {rows} rows per split")
+    splits = -(-Kh // rows)
+    if splits == 1:
+        rows = Kh
+    if splits > MAX_SPLITS or (splits > 1 and rows % KSTEP):
+        raise ValueError(f"w4a4 plan: {splits} splits of {rows} rows; at "
+                         f"most {MAX_SPLITS}, of a multiple of {KSTEP}")
+    if autotune.int_field(entry, "splits", splits) != splits:
+        raise ValueError(f"w4a4 plan: {entry['splits']} splits; {rows} "
+                         f"rows a split make {splits}")
+    vec = 16 if aligned and N % 16 == 0 else 1
+    return W4A4Plan(bm, bn, vec, rows, splits,
+                    -(-N // bn) * -(-M // bm) * splits)
+
+
+def w4a4_candidates(M: int, K: int, N: int, G: int = 0,
+                    dtype: str = "") -> list:
+    """The tuner's search space: the rule's plan first, then every tile
+    of `TILES` whose rows do not exceed M rounded up to 16 (and the
+    rule's), each at 1, 2, 4 and MAX_SPLITS splits."""
+    Kh = -(-K // 2)
+    out = [plan_entry(w4a4_plan(M, K, N, Kh))]
+    cap = max(16, -(-M // 16) * 16)
+    for bm, bn in TILES:
+        if bm > cap and bm != out[0]["bm"]:
+            continue
+        for s in (1, 2, 4, MAX_SPLITS):
+            rows = Kh if s == 1 else -(-(-(-Kh // s)) // KSTEP) * KSTEP
+            splits = -(-Kh // rows)
+            e = {"bm": bm, "bn": bn, "rows": Kh if splits == 1 else rows,
+                 "splits": splits}
+            if e not in out:
+                out.append(e)
+    return out
+
+
+def _tuning_check(entry, M, K, N, G, dtype) -> W4A4Plan:
+    if G or dtype not in ("float32", "int8"):
+        raise ValueError(f"w4a4 plan: group size {G}, dtype {dtype}: the "
+                         "kernel takes float32 x or int8 a_q, ungrouped")
+    return w4a4_plan_from(entry, M, K, N, -(-K // 2))
+
+
+TUNING = autotune.Tuning(
+    check=_tuning_check, candidates=w4a4_candidates,
+    rule=lambda M, K, N, G, dtype: plan_entry(w4a4_plan(M, K, N,
+                                                        -(-K // 2))))
+
+
+def launch_plan(M: int, K: int, N: int, Kh: int, aligned: bool, dtype: str,
+                tag: str = "", plan: dict = None) -> W4A4Plan:
+    """The plan a launch takes: `plan` where the caller gives one (the
+    tuner's candidates), else the tuned entry for this shape and
+    activation dtype where the cache holds one, else `w4a4_plan`.  An
+    entry the kernel cannot take raises ValueError, before any launch."""
+    if plan is None:
+        plan = autotune.lookup("int4_matmul", M, K, N, dtype, tag=tag)
+    if plan is None:
+        return w4a4_plan(M, K, N, Kh, aligned)
+    return w4a4_plan_from(plan, M, K, N, Kh, aligned)
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     for fn in (lib.w4a4_fused_launch, lib.w4a4_launch):
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-
-
-def _plan_args(M, K, N, Kh, w_kmajor):
-    p = w4a4_plan(M, K, N, Kh, w_kmajor.data_ptr() % 16 == 0)
-    return p.bm, p.bn, p.vec, p.rows, p.splits
 
 
 def check_w4a4_operands(what: str, a: torch.Tensor, a_dtype: torch.dtype,
@@ -163,9 +246,12 @@ def check_w4a4_operands(what: str, a: torch.Tensor, a_dtype: torch.dtype,
 
 
 def int4_matmul_fused_cuda(x: torch.Tensor, w_kmajor: torch.Tensor,
-                           w_scale: torch.Tensor) -> torch.Tensor:
+                           w_scale: torch.Tensor, *, tag: str = "",
+                           plan: dict = None) -> torch.Tensor:
     """Launch the W4A4 kernel on CUDA tensors: x [M, K] f32, w_kmajor
-    [ceil(K/2), N] uint8, w_scale [1, N] f32 -> [M, N] f32."""
+    [ceil(K/2), N] uint8, w_scale [1, N] f32 -> [M, N] f32, cut by
+    `launch_plan` (`tag`: the call site, for a site-tuned entry; `plan`:
+    a plan entry to take in place of the cache's and the rule's)."""
     check_w4a4_operands("int4_matmul_fused_cuda", x, torch.float32,
                         w_kmajor, w_scale)
     M, K = x.shape
@@ -173,12 +259,14 @@ def int4_matmul_fused_cuda(x: torch.Tensor, w_kmajor: torch.Tensor,
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     if M == 0 or N == 0:
         return out
+    p = launch_plan(M, K, N, Kh, w_kmajor.data_ptr() % 16 == 0, "float32",
+                    tag, plan)
     a_scale = quant_scale(x, axis=1, bits=4)
     lib = _build.load("int4_matmul", _bind)
     code = lib.w4a4_fused_launch(
         _build.ptr(x), _build.ptr(a_scale), _build.ptr(w_kmajor),
-        _build.ptr(w_scale), _build.ptr(out), M, K, N, Kh,
-        *_plan_args(M, K, N, Kh, w_kmajor), _build.stream_of(x))
+        _build.ptr(w_scale), _build.ptr(out), M, K, N, Kh, p.bm, p.bn,
+        p.vec, p.rows, p.splits, _build.stream_of(x))
     _build.check(lib, code, "int4_matmul_fused")
     int4_matmul_fused_cuda.launches += 1
     return out
@@ -188,11 +276,12 @@ int4_matmul_fused_cuda.launches = 0
 
 
 def int4_matmul_cuda(a_q: torch.Tensor, a_scale: torch.Tensor,
-                     w_kmajor: torch.Tensor,
-                     w_scale: torch.Tensor) -> torch.Tensor:
+                     w_kmajor: torch.Tensor, w_scale: torch.Tensor, *,
+                     tag: str = "", plan: dict = None) -> torch.Tensor:
     """Launch the unfused W4A4 kernel on CUDA tensors: a_q [M, K] int8,
     a_scale [M, 1] f32, w_kmajor [ceil(K/2), N] uint8, w_scale [1, N] f32
-    -> [M, N] f32."""
+    -> [M, N] f32, cut by `launch_plan` (`tag`, `plan` as for the fused
+    entry)."""
     check_w4a4_operands("int4_matmul_cuda", a_q, torch.int8, w_kmajor,
                         w_scale, a_scale)
     M, K = a_q.shape
@@ -200,11 +289,13 @@ def int4_matmul_cuda(a_q: torch.Tensor, a_scale: torch.Tensor,
     out = torch.empty((M, N), dtype=torch.float32, device=a_q.device)
     if M == 0 or N == 0:
         return out
+    p = launch_plan(M, K, N, Kh, w_kmajor.data_ptr() % 16 == 0, "int8", tag,
+                    plan)
     lib = _build.load("int4_matmul", _bind)
     code = lib.w4a4_launch(
         _build.ptr(a_q), _build.ptr(a_scale), _build.ptr(w_kmajor),
-        _build.ptr(w_scale), _build.ptr(out), M, K, N, Kh,
-        *_plan_args(M, K, N, Kh, w_kmajor), _build.stream_of(a_q))
+        _build.ptr(w_scale), _build.ptr(out), M, K, N, Kh, p.bm, p.bn,
+        p.vec, p.rows, p.splits, _build.stream_of(a_q))
     _build.check(lib, code, "int4_matmul")
     int4_matmul_cuda.launches += 1
     return out

@@ -21,7 +21,10 @@ packed rows per split, number of splits, weight load width); with more
 than one split a second kernel adds the splits' int32 partials and applies
 the epilogue.  The CTA rows also fix how a product is picked from
 registers: the activation codes are the selectors at 64 rows (M > 16),
-the weight nibbles at M <= 16 (csrc/lut4_matmul.cu).
+the weight nibbles at M <= 16 (csrc/lut4_matmul.cu).  A plan tuned for
+the call's shape (``autotune`` op ``"gemm.lut4"``) takes the rule's place
+where the cache holds one (`launch_plan`); the int32 sums are exact, so
+every plan gives the same bits.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import functools
 
 import torch
 
-from . import _build
+from . import _build, autotune
 from .int4_matmul import check_w4a4_operands, int4_matmul_plain
 from .ref import product_lut_on
 
@@ -98,6 +101,92 @@ def lut4_plan(M: int, K: int, N: int, Kh: int,
     return Lut4Plan(bm, vec, rows, splits, tiles * splits)
 
 
+#: the CTA rows the kernel instantiates; M > 16 takes 64, M <= 16 a power
+#: of two from M up to 16 (csrc/lut4_matmul.cu)
+BMS = (1, 2, 4, 8, 16, 64)
+#: the most splits a candidate of the tuner takes (each split adds an int32
+#: partial of the whole output to the reduce)
+MAX_CANDIDATE_SPLITS = 32
+
+
+def plan_entry(p: Lut4Plan) -> dict:
+    """A plan's tunable fields: what an ``autotune`` cache entry holds."""
+    return {"bm": p.bm, "rows": p.rows, "splits": p.splits}
+
+
+def lut4_plan_from(entry: dict, M: int, K: int, N: int, Kh: int,
+                   aligned: bool = True) -> Lut4Plan:
+    """The plan of a tuned entry ({bm, rows[, splits]}) at this shape;
+    ValueError unless the kernel takes it: CTA rows 64 at M > 16, else a
+    power of two from M up to 16.  The weight load width follows
+    `aligned`, as the rule's."""
+    if M < 1 or N < 1 or 2 * Kh not in (K, K + 1):
+        raise ValueError(f"lut4 plan: M = {M}, K = {K}, N = {N}, Kh = {Kh}")
+    bm, rows = autotune.int_field(entry, "bm"), autotune.int_field(entry,
+                                                                    "rows")
+    if bm not in BMS or (bm != 64 if M > 16 else not M <= bm <= 16):
+        raise ValueError(f"lut4 plan: {bm} rows a CTA at M = {M}; the "
+                         "kernel takes 64 above 16 rows, else a power of "
+                         "two from M up to 16")
+    if rows < 1:
+        raise ValueError(f"lut4 plan: {rows} rows per split")
+    splits = -(-Kh // rows)
+    if splits == 1:
+        rows = Kh
+    if autotune.int_field(entry, "splits", splits) != splits:
+        raise ValueError(f"lut4 plan: {entry['splits']} splits; {rows} "
+                         f"rows a split make {splits}")
+    vec = 16 if aligned and N % 16 == 0 else 1
+    return Lut4Plan(bm, vec, rows, splits, -(-N // BN) * -(-M // bm) * splits)
+
+
+def lut4_candidates(M: int, K: int, N: int, G: int = 0,
+                    dtype: str = "") -> list:
+    """The tuner's search space: the rule's plan first, then every CTA row
+    count the kernel takes at M, each at one split and at MIN_ROWS times
+    powers of two rows (at most MAX_CANDIDATE_SPLITS splits)."""
+    Kh = -(-K // 2)
+    out = [plan_entry(lut4_plan(M, K, N, Kh))]
+    bms = [64] if M > 16 else [b for b in BMS if M <= b <= 16]
+    rows_set, r = [Kh], MIN_ROWS
+    while r < Kh:
+        if -(-Kh // r) <= MAX_CANDIDATE_SPLITS:
+            rows_set.append(r)
+        r *= 2
+    for bm in bms:
+        for rows in rows_set:
+            e = {"bm": bm, "rows": rows, "splits": -(-Kh // rows)}
+            if e not in out:
+                out.append(e)
+    return out
+
+
+def _tuning_check(entry, M, K, N, G, dtype) -> Lut4Plan:
+    if G or dtype != "int8":
+        raise ValueError(f"lut4 plan: group size {G}, dtype {dtype}: the "
+                         "kernel takes int8 a_q, ungrouped")
+    return lut4_plan_from(entry, M, K, N, -(-K // 2))
+
+
+TUNING = autotune.Tuning(
+    check=_tuning_check, candidates=lut4_candidates,
+    rule=lambda M, K, N, G, dtype: plan_entry(lut4_plan(M, K, N,
+                                                        -(-K // 2))))
+
+
+def launch_plan(M: int, K: int, N: int, Kh: int, aligned: bool,
+                tag: str = "", plan: dict = None) -> Lut4Plan:
+    """The plan a launch takes: `plan` where the caller gives one, else the
+    tuned entry for this shape where the cache holds one, else
+    `lut4_plan`.  An entry the kernel cannot take raises ValueError,
+    before any launch."""
+    if plan is None:
+        plan = autotune.lookup("gemm.lut4", M, K, N, "int8", tag=tag)
+    if plan is None:
+        return lut4_plan(M, K, N, Kh, aligned)
+    return lut4_plan_from(plan, M, K, N, Kh, aligned)
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     lib.lut4_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 \
         + [ctypes.c_void_p]
@@ -105,13 +194,14 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 
 def lut4_matmul_cuda(a_q: torch.Tensor, a_scale: torch.Tensor,
-                     w_kmajor: torch.Tensor,
-                     w_scale: torch.Tensor) -> torch.Tensor:
+                     w_kmajor: torch.Tensor, w_scale: torch.Tensor, *,
+                     tag: str = "", plan: dict = None) -> torch.Tensor:
     """Launch the table-lookup kernel on CUDA tensors: a_q [M, K] int8,
     a_scale [M, 1] f32, w_kmajor [ceil(K/2), N] uint8, w_scale [1, N] f32
-    -> [M, N] f32.  With more than one split an int32 workspace
-    [splits, M, N] and the reduce kernel; one launch count a call either
-    way."""
+    -> [M, N] f32, cut by `launch_plan` (`tag`: the call site; `plan`: an
+    entry to take in place of the cache's and the rule's).  With more than
+    one split an int32 workspace [splits, M, N] and the reduce kernel; one
+    launch count a call either way."""
     check_w4a4_operands("lut4_matmul_cuda", a_q, torch.int8, w_kmajor,
                         w_scale, a_scale)
     M, K = a_q.shape
@@ -119,7 +209,7 @@ def lut4_matmul_cuda(a_q: torch.Tensor, a_scale: torch.Tensor,
     out = torch.empty((M, N), dtype=torch.float32, device=a_q.device)
     if M == 0 or N == 0:
         return out
-    p = lut4_plan(M, K, N, Kh, w_kmajor.data_ptr() % 16 == 0)
+    p = launch_plan(M, K, N, Kh, w_kmajor.data_ptr() % 16 == 0, tag, plan)
     ws = (torch.empty((p.splits, M, N), dtype=torch.int32, device=a_q.device)
           if p.splits > 1 else None)
     lib = _build.load("lut4_matmul", _bind)

@@ -57,20 +57,23 @@ def _output_like(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return buf[off:off + a.numel()].view(a.shape)
 
 
+def check_mul4_operands(what: str, *ts: torch.Tensor) -> None:
+    """Raise unless the tensors are int8 of one shape on one CUDA device."""
+    if not (ts[0].is_cuda and all(t.device == ts[0].device for t in ts)):
+        raise ValueError(f"{what}: all operands must be on one CUDA device")
+    if any(t.dtype != torch.int8 for t in ts):
+        raise TypeError(f"{what}: dtypes {[t.dtype for t in ts]}; want int8")
+    if any(t.shape != ts[0].shape for t in ts):
+        raise ValueError(f"{what}: shapes {[tuple(t.shape) for t in ts]} "
+                         f"differ")
+
+
 def lut_mul4_cuda(a_q: torch.Tensor, b_q: torch.Tensor,
                   strategy: str = "onehot") -> torch.Tensor:
     """Launch the table kernel on CUDA int8 tensors of one shape -> int8 of
     that shape."""
     _check_strategy(strategy)
-    if not (a_q.is_cuda and b_q.device == a_q.device):
-        raise ValueError("lut_mul4_cuda: both operands must be on one CUDA "
-                         "device")
-    if a_q.dtype != torch.int8 or b_q.dtype != torch.int8:
-        raise TypeError(f"lut_mul4_cuda: dtypes {a_q.dtype}, {b_q.dtype}; "
-                        f"want int8")
-    if a_q.shape != b_q.shape:
-        raise ValueError(f"lut_mul4_cuda: shapes {tuple(a_q.shape)} and "
-                         f"{tuple(b_q.shape)} differ")
+    check_mul4_operands("lut_mul4_cuda", a_q, b_q)
     a, b = a_q.contiguous(), b_q.contiguous()
     n = a.numel()
     out = _output_like(a, b)
@@ -93,6 +96,9 @@ def lut_mul4_floor_cuda(a_q: torch.Tensor, b_q: torch.Tensor,
     """Launch an empty kernel on the grid `lut_mul4_cuda` takes for these
     contiguous operands and output: the floor of a call, for measurement
     only (not counted as a launch)."""
+    check_mul4_operands("lut_mul4_floor_cuda", a_q, b_q, out)
+    if not all(t.is_contiguous() for t in (a_q, b_q, out)):
+        raise ValueError("lut_mul4_floor_cuda: operands must be contiguous")
     lib = _build.load("lut_mul4", _bind)
     code = lib.lut_mul4_floor_launch(_build.ptr(a_q), _build.ptr(b_q),
                                      _build.ptr(out), a_q.numel(),

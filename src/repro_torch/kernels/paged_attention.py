@@ -295,6 +295,9 @@ def decode_floor_cuda(rows: int, KV: int, ps: int, pps: int,
     decode launch (paged or ragged) of `rows` rows over a table of pps pages
     of ps tokens takes: the floor of a call, for measurement only (not
     counted as a launch)."""
+    if min(rows, KV, ps, pps) < 1 or torch.device(device).type != "cuda":
+        raise ValueError(f"decode_floor_cuda: rows {rows}, KV {KV}, page "
+                         f"size {ps}, pages {pps} on {device}")
     lib = _build.load("paged_decode", _bind_decode)
     code = lib.decode_floor_launch(
         rows, KV, ps, pps,

@@ -22,6 +22,11 @@ At M > 16 ``prefill_plan`` picks one tiled kernel: bf16 x on the tensor
 cores (bf16 ``mma.sync``, f32 sums: x * q is exact in f32, so it computes
 what the Pallas kernel and its XLA twin compute, up to f32 rounding), f32
 x, or bf16 x grouped with G % 16 != 0, on the first port's FFMA kernel.
+A plan tuned for the call's shape (``autotune`` op ``"w4a16_matmul"``:
+the split-K plan's rows of x per CTA and rows per split, or the
+tensor-core kernel's rows per CTA) takes the rule's place where the cache
+holds one (`launch_plan`).  Another split reorders the f32 sums, within
+the same rounding bound.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ import functools
 
 import torch
 
-from . import _build
+from . import _build, autotune
 from .packing import unpack_kmajor
 
 
@@ -151,6 +156,129 @@ def prefill_plan(M: int, K: int, N: int, Kh: int, group_size: int,
     return PrefillPlan("mma", bm, x_vec, w_vec)
 
 
+#: rows of x per split-K CTA the kernel instantiates, by weight load width
+_SPLITK_MT = {16: (1, 2), 1: (1, 2, 4, 8)}
+#: rows of x per CTA the prefill kernels instantiate
+_PREFILL_BM = {"mma": (64, 32), "ffma": (64,)}
+
+
+def plan_entry(p) -> dict:
+    """A plan's tunable fields: what an ``autotune`` cache entry holds
+    (split-K: rows of x per CTA, packed rows per split; prefill: the
+    kernel, which the rule picks by x's type and G, and its rows of x per
+    CTA)."""
+    if isinstance(p, SplitKPlan):
+        return {"mt": p.mt, "rows": p.rows, "splits": p.splits}
+    return {"kernel": p.kernel, "bm": p.bm}
+
+
+def w4a16_plan_from(entry: dict, M: int, K: int, N: int, Kh: int,
+                    group_size: int, x_bf16: bool = True,
+                    x_aligned: bool = True, w_aligned: bool = True):
+    """The plan of a tuned entry at this shape; ValueError unless the
+    kernel takes it.  At M <= 16 a split-K plan ({mt, rows[, splits]}):
+    rows of x per CTA of `_SPLITK_MT` for the load width, at most 128
+    packed rows a split, a divisor of G when grouped.  Above, a prefill
+    plan ({kernel, bm}): the rule's kernel, rows per CTA of
+    `_PREFILL_BM`.  Load widths follow alignment, as the rule's."""
+    G = group_size
+    if M <= SPLITK_MAX_M:
+        rule = splitk_plan(M, N, Kh, G, w_aligned)
+        mt, rows = autotune.int_field(entry, "mt"), \
+            autotune.int_field(entry, "rows")
+        if mt not in _SPLITK_MT[rule.vec]:
+            raise ValueError(f"w4a16 plan: {mt} rows of x a CTA with "
+                             f"{rule.vec}-byte loads; the kernel takes "
+                             f"{_SPLITK_MT[rule.vec]}")
+        if not 1 <= rows <= _SPLITK_MAX_ROWS or (G and G % rows):
+            raise ValueError(f"w4a16 plan: {rows} rows a split; at most "
+                             f"{_SPLITK_MAX_ROWS}, dividing G = {G}")
+        splits = max(1, -(-Kh // rows))
+        if autotune.int_field(entry, "splits", splits) != splits:
+            raise ValueError(f"w4a16 plan: {entry['splits']} splits; "
+                             f"{rows} rows a split make {splits}")
+        tiles = -(-N // rule.bn) * -(-M // mt)
+        return SplitKPlan(rule.vec, rule.bn, mt, rows, splits,
+                          tiles * splits)
+    rule = prefill_plan(M, K, N, Kh, G, x_bf16, x_aligned, w_aligned)
+    bm = autotune.int_field(entry, "bm")
+    if entry.get("kernel", rule.kernel) != rule.kernel \
+            or bm not in _PREFILL_BM[rule.kernel]:
+        raise ValueError(f"w4a16 plan: {entry.get('kernel')} kernel, {bm} "
+                         f"rows a CTA; x's type and G pick {rule.kernel}, "
+                         f"which takes {_PREFILL_BM[rule.kernel]} rows")
+    return dataclasses.replace(rule, bm=bm)
+
+
+def _kh(K: int, G: int) -> int:
+    """Packed rows of a weight of K rows: K padded to 2G when grouped."""
+    return -(-K // (2 * G)) * G if G else -(-K // 2)
+
+
+def _rule(M: int, K: int, N: int, G: int, dtype: str):
+    Kh = _kh(K, G)
+    if M <= SPLITK_MAX_M:
+        return splitk_plan(M, N, Kh, G)
+    return prefill_plan(M, K, N, Kh, G, dtype == "bfloat16")
+
+
+def w4a16_candidates(M: int, K: int, N: int, G: int = 0,
+                     dtype: str = "bfloat16") -> list:
+    """The tuner's search space: the rule's plan first; at M <= 16 every
+    rows of x per CTA the load width takes up to M rounded up to a power
+    of two, times rows per split (grouped: the divisors of G from 4 to
+    128; per channel: 4 to 128 by powers of two); above, each rows per CTA
+    of the rule's kernel."""
+    rule = _rule(M, K, N, G, dtype)
+    out = [plan_entry(rule)]
+    if M > SPLITK_MAX_M:
+        cands = [{"kernel": rule.kernel, "bm": b}
+                 for b in _PREFILL_BM[rule.kernel]]
+    else:
+        Kh = _kh(K, G)
+        cap = 1 << (M - 1).bit_length()
+        mts = [m for m in _SPLITK_MT[rule.vec] if m <= cap]
+        rows_set = [d for d in range(min(G, _SPLITK_MAX_ROWS), 3, -1)
+                    if G % d == 0] if G else [128, 64, 32, 16, 8, 4]
+        cands = [{"mt": m, "rows": r, "splits": max(1, -(-Kh // r))}
+                 for m in mts for r in rows_set]
+    out += [e for e in cands if e != out[0]]
+    return out
+
+
+def _tuning_check(entry, M, K, N, G, dtype):
+    if dtype not in ("bfloat16", "float32"):
+        raise ValueError(f"w4a16 plan: dtype {dtype}; the kernel takes "
+                         "bfloat16 or float32 x")
+    return w4a16_plan_from(entry, M, K, N, _kh(K, G), G,
+                           dtype == "bfloat16")
+
+
+TUNING = autotune.Tuning(
+    check=_tuning_check, candidates=w4a16_candidates,
+    rule=lambda M, K, N, G, dtype: plan_entry(_rule(M, K, N, G, dtype)))
+
+
+def launch_plan(M: int, K: int, N: int, Kh: int, G: int, x_bf16: bool,
+                x_aligned: bool, w_aligned: bool, tag: str = "",
+                plan: dict = None):
+    """The plan a launch takes (a `SplitKPlan` at M <= 16, else a
+    `PrefillPlan`): `plan` where the caller gives one, else the tuned
+    entry for this shape, x's dtype and G where the cache holds one, else
+    the rule's.  An entry the kernel cannot take raises ValueError,
+    before any launch."""
+    if plan is None:
+        plan = autotune.lookup("w4a16_matmul", M, K, N,
+                               "bfloat16" if x_bf16 else "float32", G,
+                               tag=tag)
+    if plan is not None:
+        return w4a16_plan_from(plan, M, K, N, Kh, G, x_bf16, x_aligned,
+                               w_aligned)
+    if M <= SPLITK_MAX_M:
+        return splitk_plan(M, N, Kh, G, w_aligned)
+    return prefill_plan(M, K, N, Kh, G, x_bf16, x_aligned, w_aligned)
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     lib.w4a16_launch.argtypes = [ctypes.c_void_p, ctypes.c_int] \
         + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
@@ -158,12 +286,15 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 
 def w4a16_matmul_cuda(x: torch.Tensor, w_kmajor: torch.Tensor,
-                      w_scale: torch.Tensor, group_size: int) -> torch.Tensor:
+                      w_scale: torch.Tensor, group_size: int, *,
+                      tag: str = "", plan: dict = None) -> torch.Tensor:
     """Launch the W4A16 kernel on CUDA tensors: x [M, K] bf16 or f32,
     w_kmajor [Kh, N] uint8, w_scale [1, N] or [K // G, 1, N] f32 ->
-    [M, N] f32.  At M <= 16 the split-K kernel and its reduce, with an f32
-    workspace [splits, M, N]; at M > 16 the kernel ``prefill_plan`` picks;
-    one launch count a call either way."""
+    [M, N] f32, cut by `launch_plan` (`tag`: the call site; `plan`: an
+    entry to take in place of the cache's and the rule's).  At M <= 16 the
+    split-K kernel and its reduce, with an f32 workspace [splits, M, N];
+    at M > 16 the prefill plan's kernel; one launch count a call either
+    way."""
     ops_ = (x, w_kmajor, w_scale)
     if not (x.is_cuda and all(t.device == x.device for t in ops_)):
         raise ValueError("w4a16_matmul_cuda: all operands must be on one "
@@ -197,23 +328,21 @@ def w4a16_matmul_cuda(x: torch.Tensor, w_kmajor: torch.Tensor,
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     if M == 0 or N == 0:
         return out
-    lib = _build.load("w4a16_matmul", _bind)
     x_bf16 = x.dtype == torch.bfloat16
-    w_aligned = w_kmajor.data_ptr() % 16 == 0
+    p = launch_plan(M, K, N, Kh, G, x_bf16, x.data_ptr() % 16 == 0,
+                    w_kmajor.data_ptr() % 16 == 0, tag, plan)
     ws = None
-    if M <= SPLITK_MAX_M:
-        p = splitk_plan(M, N, Kh, G, w_aligned)
+    if isinstance(p, SplitKPlan):
         ws = torch.empty((p.splits, M, N), dtype=torch.float32,
                          device=x.device)
-        plan = (_PATHS["splitk"], p.vec, 0, p.mt, p.rows, p.splits)
+        args = (_PATHS["splitk"], p.vec, 0, p.mt, p.rows, p.splits)
     else:
-        q = prefill_plan(M, K, N, Kh, G, x_bf16, x.data_ptr() % 16 == 0,
-                         w_aligned)
-        plan = (_PATHS[q.kernel], q.w_vec, q.x_vec, q.bm, 0, 0)
+        args = (_PATHS[p.kernel], p.w_vec, p.x_vec, p.bm, 0, 0)
+    lib = _build.load("w4a16_matmul", _bind)
     code = lib.w4a16_launch(
         _build.ptr(x), int(x_bf16), _build.ptr(w_kmajor),
         _build.ptr(w_scale), _build.ptr(out), _build.ptr(ws), M, K, N, Kh, G,
-        n_groups, *plan, _build.stream_of(x))
+        n_groups, *args, _build.stream_of(x))
     _build.check(lib, code, "w4a16_matmul")
     w4a16_matmul_cuda.launches += 1
     return out

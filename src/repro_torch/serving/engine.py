@@ -68,6 +68,7 @@ import torch
 
 from ..core.quant_plan import SERVE_PACKED, LayerPacker, active_plan
 from ..distributed.fault_tolerance import StepDeadlineExceeded, Watchdog
+from ..kernels import autotune
 from ..launch.steps import (CapturedStep, cuda_graph_capture,
                             make_ragged_step, make_serving_steps)
 from ..models.transformer import init_caches, init_model, with_layer_views
@@ -206,6 +207,11 @@ class InferenceEngine:
         self.scheduler = Scheduler(self.kv, sv.max_batch,
                                    metrics=self.metrics,
                                    max_queue=sv.max_queue)
+        # tuned plans for the GEMM kernels: every CUDA wrapper looks its
+        # shape up in kernels.autotune's cache when it cuts a launch (and
+        # when a step is captured), so loading the cache before the first
+        # step is all the wiring needed; no cache file, the rules' plans
+        autotune.ensure_loaded()
         self._prefill, self._prefill_tail, self._decode = make_serving_steps(
             cfg, rt, paged=self._paged, max_ctx=sv.max_ctx)
         # ragged token-major step: one step function whose shape is the

@@ -943,10 +943,10 @@ def test_w4a16_card_vs_cpu_catches_a_planted_fault(cuda, monkeypatch, plan):
 
     kernel = ops.w4a16_matmul_cuda
 
-    def broken(x, w_km, w_scale, group_size):
+    def broken(x, w_km, w_scale, group_size, **kwargs):
         w_scale = w_scale.clone()
         w_scale[0] *= 2
-        return kernel(x, w_km, w_scale, group_size)
+        return kernel(x, w_km, w_scale, group_size, **kwargs)
 
     monkeypatch.setattr(ops, "w4a16_matmul_cuda", broken)
     planted, launches = cs._two_devices(torch, rt)

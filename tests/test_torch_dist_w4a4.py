@@ -146,36 +146,3 @@ def test_inconsistent_packed_shards_are_refused_at_placement():
     specs = {"packed": (None, None), "scale": (None, "model")}
     with pytest.raises(ValueError, match="inconsistently"):
         _check_packed({"wq": packed}, {"wq": specs})
-
-
-#: 4 heads over 2 KV heads ("head" at tp 2, duplicated KV heads at tp 4)
-#: and 6 heads over 2 ("seq" for the 8-token prefill, "none" for decode,
-#: at tp 4)
-PAGED_CASES = {2: [("qwen3", dict(arch="qwen3-4b", n_layers=2))],
-               4: [("qwen3", dict(arch="qwen3-4b", n_layers=2)),
-                   ("odd_heads", dict(arch="qwen3-4b", n_layers=2,
-                                      n_heads=6, n_kv_heads=2))]}
-
-
-@pytest.mark.parametrize("tp", TPS)
-def test_flash_prefill_and_fused_paged_decode_run_under_tp(tmp_path, tp):
-    """Under a (1, tp) mesh the paged serving steps still go through flash
-    prefill (on each rank's heads or query positions) and the fused paged
-    decode (on the gathered heads), once a layer a step, and their logits
-    are the single process's within 1e-5 (float32; greedy tokens equal)."""
-    from repro_torch.configs import get_config
-
-    out = tmp_path / "paged.pt"
-    W.spawn(W.paged_tp_worker, tp, tmp_path, str(out), PAGED_CASES[tp])
-    res = torch.load(out, weights_only=False)
-    for name, kw in PAGED_CASES[tp]:
-        kw = dict(kw)
-        cfg = get_config(kw.pop("arch")).reduced(**kw)
-        want, want_calls = W.paged_kernel_steps(cfg)
-        got, calls = res[name]
-        assert calls == want_calls == {
-            "flash_prefill": cfg.n_layers,
-            "paged_decode_attention": 3 * cfg.n_layers}, name
-        assert _greedy(got, cfg.vocab) == _greedy(want, cfg.vocab), name
-        for g, w in zip(got, want):
-            np.testing.assert_allclose(g, w, rtol=0, atol=1e-5, err_msg=name)
