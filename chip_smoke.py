@@ -259,10 +259,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
                  the GEMM plans' timed search (kernels.autotune.tune) at
                  qwen2-0.5b's (896, 4864): the W4A4 GEMM at M = 8 and 256,
                  lut4 and W4A16 (G = 128) at M = 8, each candidate's us,
-                 the rule's and the winner's, the winner held to its plain
-                 version, the cache (a file of the run's own, set for the
-                 whole script) saved, dropped and read back into the
-                 wrappers' plans.
+                 the rule's and the winner's, every timed candidate held
+                 to its plain version, the cache (a file of the run's own,
+                 set for the whole script) saved, dropped and read back
+                 into the wrappers' plans, and the host us of a wrapper's
+                 plan with the cache loaded, empty and not read.
 
 The line before the last is a JSON object with every kernel's launches,
 error and times; the last line is {"ok": true, "device": {...}}.
@@ -4786,16 +4787,31 @@ def _tune_call(torch, gen, op, dtype, G, M):
                                     w_km.data_ptr() % 16 == 0))
 
 
+def _plan_host_us(held, calls: int = 20000) -> list:
+    """Host us of one `launch_plan()` (the plan a wrapper cuts, with
+    nothing launched) for each tuned case: the mean of `calls` calls."""
+    out = []
+    for *_, launch_plan in held:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            launch_plan()
+        out.append((time.perf_counter() - t0) / calls * 1e6)
+    return out
+
+
 def tune_runs(torch) -> dict:
     """The GEMM plans' timed search (``kernels.autotune.tune``, its CUDA-
     event timer: device time a call, L2 flushed) at TUNE_CASES, into the
     script's own cache file ($REPRO_AUTOTUNE_CACHE, set by main): each
-    candidate's us, the rule's and the winner's; the winner held to the
-    plain version (the integer GEMMs bit for bit, W4A16 within W4A16_RTOL
-    of the output's largest magnitude); then the cache saved, dropped,
-    read back, and the wrapper's plan for each shape the tuned entry,
-    launched bit-equal to the winner's call.  The cache is dropped again
-    and its file removed at the end."""
+    candidate's us, the rule's and the winner's; every timed candidate's
+    output, not only the winner's, held to the plain version (the integer
+    GEMMs bit for bit, W4A16 within W4A16_RTOL of the output's largest
+    magnitude), since a cache file may hold any of them; then the cache
+    saved, dropped, read back, and the wrapper's plan for each shape the
+    tuned entry, launched bit-equal to the winner's call, and the host's
+    cost of the wrapper's plan with the cache loaded, empty and not read
+    (`_plan_host_us`).  The cache is dropped again and its file removed at
+    the end."""
     from repro_torch.kernels import autotune
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
@@ -4810,19 +4826,28 @@ def tune_runs(torch) -> dict:
             call.entry = entry
             return call
 
-        def timer(fn, rows=rows):
+        def timer(fn, rows=rows, plain=plain, op=op):
             us = autotune._default_timer(fn)
-            rows.append((fn.entry, us))
+            out = fn()
+            err = (out - plain).abs().max().item()
+            ok = err <= W4A16_RTOL * plain.abs().max().item() \
+                if op == "w4a16_matmul" else torch.equal(out, plain)
+            rows.append((fn.entry, us, err, ok))
             return us
 
         best, best_us = autotune.tune(op, make_call, M, TUNE_K, TUNE_N,
                                       dtype, group_size=G, timer=timer)
         rule = autotune.tuning(op).rule(M, TUNE_K, TUNE_N, G, dtype)
-        rule_us = next(us for e, us in rows if e == rule)
+        rule_us = next(us for e, us, _, _ in rows if e == rule)
         label = f"{op} {dtype} G={G} M={M} K={TUNE_K} N={TUNE_N}"
-        for entry, us in rows:
+        for entry, us, err, ok in rows:
             say(f"tune: {label}: {json.dumps(entry, sort_keys=True)} "
-                f"{us:.2f} us")
+                f"{us:.2f} us, max |diff| to plain {err:.6g}"
+                f"{'' if ok else ' DIFFERS'}")
+        wrong = [entry for entry, _, _, ok in rows if not ok]
+        if wrong:
+            fail(f"tune: {label}: {len(wrong)} of {len(rows)} candidates "
+                 f"differ from the plain version: {wrong}")
         got = run(best)
         err = (got - plain).abs().max().item()
         limit = W4A16_RTOL * plain.abs().max().item() \
@@ -4838,7 +4863,8 @@ def tune_runs(torch) -> dict:
                  f"version by {err:.6g} (limit {limit:.6g})")
         report[label] = {"rule": rule, "rule_us": rule_us, "best": best,
                          "best_us": best_us, "timed": len(rows),
-                         "max_abs_err": err}
+                         "max_abs_err": err,
+                         "candidates_max_abs_err": max(r[2] for r in rows)}
         held.append((op, dtype, G, M, best, run, got, launch_plan))
     path = autotune.cache_path()
     autotune.reset()
@@ -4856,8 +4882,25 @@ def tune_runs(torch) -> dict:
         if not torch.equal(again, got):
             fail(f"tune: {op} M={M}: the cached plan's launch differs from "
                  "the winner's call")
+    hit = _plan_host_us(held)
     autotune.reset()
     os.remove(path)
+    autotune.ensure_loaded()                  # the file is gone: empty
+    empty = _plan_host_us(held)
+    real_lookup = autotune.lookup
+    autotune.lookup = lambda *a, **kw: None
+    try:
+        rule_only = _plan_host_us(held)
+    finally:
+        autotune.lookup = real_lookup
+    autotune.reset()
+    for (op, dtype, G, M, *_), h, e, r in zip(held, hit, empty, rule_only):
+        say(f"tune: host us a wrapper's plan, {op} {dtype} M={M}: cache "
+            f"loaded {h:.3f}, cache empty {e:.3f}, lookup not called "
+            f"{r:.3f}")
+        report[f"host {op} {dtype} M={M}"] = {
+            "plan_us_cache_loaded": h, "plan_us_cache_empty": e,
+            "plan_us_no_lookup": r}
     say(f"tune: {n} entries saved to, reloaded from and removed with "
         f"{path}; each wrapper took its tuned plan")
     return report

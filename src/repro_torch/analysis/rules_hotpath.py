@@ -195,7 +195,7 @@ _OPERAND_ATTRS = {"shape", "dtype", "device", "type", "is_cuda",
 #: the device tests that make an ``if`` a dispatch by device
 _DEVICE_CALLS = {"torch.cuda.is_available"}
 #: modules that may decide by device: the dispatcher, the build (it finds
-#: nvcc) and the tuner (its timer and its opt-in gate)
+#: nvcc) and the tuner (its timer)
 _DISPATCH_HOMES = ("ops.py", "_build.py", "autotune.py", "__init__.py")
 
 
@@ -248,27 +248,63 @@ def _raises(body: List[ast.stmt]) -> bool:
     return any(isinstance(s, ast.Raise) for s in body)
 
 
-def _reads_operand_attr(test: ast.AST) -> bool:
+def _names_in(node: ast.AST) -> Set[str]:
+    return {sub.id for sub in ast.walk(node) if isinstance(sub, ast.Name)}
+
+
+def _operands(fn: ast.AST, launch: ast.Call) -> Set[str]:
+    """The names whose values reach ``launch``'s arguments: those it
+    passes (``_build.ptr(a)``, ``a.numel()``), and, through the
+    assignments of ``fn``, the names those were computed from."""
+    names: Set[str] = set()
+    for arg in list(launch.args) + [kw.value for kw in launch.keywords]:
+        names |= _names_in(arg)
+    assigns = [node for node in _owned_nodes(fn)
+               if isinstance(node, (ast.Assign, ast.AnnAssign, ast.AugAssign))
+               and node.value is not None]
+    grew = True
+    while grew:
+        grew = False
+        for node in assigns:
+            targets = node.targets if isinstance(node, ast.Assign) \
+                else [node.target]
+            if any(_names_in(t) & names for t in targets):
+                more = _names_in(node.value) - names
+                if more:
+                    names |= more
+                    grew = True
+    return names
+
+
+def _reads_operand_attr(test: ast.AST, operands: Set[str]) -> bool:
     for sub in ast.walk(test):
-        if isinstance(sub, ast.Attribute) and sub.attr in _OPERAND_ATTRS:
+        if isinstance(sub, ast.Attribute) and sub.attr in _OPERAND_ATTRS \
+                and _names_in(sub.value) & operands:
             return True
-        if isinstance(sub, ast.Call) and dotted_name(sub.func) == "len":
+        if isinstance(sub, ast.Call) and dotted_name(sub.func) == "len" \
+                and any(_names_in(a) & operands for a in sub.args):
             return True
     return False
 
 
-def _checks_before(fn: ast.AST, line: int) -> bool:
-    """A ``check_*`` call, or an ``if`` on an operand's shape / dtype /
-    device / contiguity that raises, before source line ``line``."""
+def _checks_before(fn: ast.AST, launch: ast.Call) -> bool:
+    """A ``check_*`` call given one of the launch's operands, or an ``if``
+    on an operand's shape / dtype / device / contiguity that raises,
+    before the launch.  A check of anything else (a strategy name, a
+    flag) is not an operand check."""
+    line = launch.lineno
+    operands = _operands(fn, launch)
     for node in _owned_nodes(fn):
         if getattr(node, "lineno", line) >= line:
             continue
         if isinstance(node, ast.Call):
             last = dotted_name(node.func).split(".")[-1]
-            if _CHECK_FN_RE.match(last):
+            args = list(node.args) + [kw.value for kw in node.keywords]
+            if _CHECK_FN_RE.match(last) \
+                    and any(_names_in(a) & operands for a in args):
                 return True
         if isinstance(node, ast.If) and _raises(node.body) \
-                and _reads_operand_attr(node.test):
+                and _reads_operand_attr(node.test, operands):
             return True
     return False
 
@@ -315,7 +351,7 @@ def check_cuda_hygiene(sf: SourceFile) -> Iterable[Finding]:
         if not isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
             continue
         launches = _launches(fn)
-        if launches and not _checks_before(fn, launches[0].lineno):
+        if launches and not _checks_before(fn, launches[0]):
             call = launches[0]
             yield Finding(
                 rule="cuda-kernel-hygiene", path=sf.rel,

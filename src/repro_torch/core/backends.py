@@ -87,8 +87,7 @@ def _int4_backend(w, x2, cfg, tag):
     training = torch.is_grad_enabled() and (w.requires_grad
                                             or x2.requires_grad)
     if cfg.a_bits == 4 and cfg.w_bits == 4 and not training:
-        return ops.int4_matmul_fused_kmajor(xf, pack_kmajor(w_q), w_scale,
-                                            tag=tag)
+        return ops.int4_matmul_fused_kmajor(xf, pack_kmajor(w_q), w_scale)
     return int_gemm(xf, w_q, w_scale, cfg.a_bits)
 
 
@@ -119,8 +118,7 @@ def _lut4_backend(w, x2, cfg, tag):
     w_q = quantize(w, w_scale, bits=4)
     a_scale = quant_scale(xf, axis=1, bits=4)            # [M, 1]
     a_q = quantize(xf, a_scale, bits=4)
-    return ops.lut4_matmul_kmajor(a_q, a_scale, pack_kmajor(w_q), w_scale,
-                                   tag=tag)
+    return ops.lut4_matmul_kmajor(a_q, a_scale, pack_kmajor(w_q), w_scale)
 
 
 @register_backend("w4a16")
@@ -135,8 +133,7 @@ def _w4a16_backend(w, x2, cfg, tag):
         return torch.matmul(x2.to(torch.float32),
                             group_dequantize(w_q, w_scale, g))
     rm = 2 * g if w_scale.ndim == 3 else 2
-    return ops.w4a16_matmul_kmajor(x2, pack_kmajor(w_q, rm), w_scale, g,
-                                    tag=tag)
+    return ops.w4a16_matmul_kmajor(x2, pack_kmajor(w_q, rm), w_scale, g)
 
 
 @register_backend("netlist")

@@ -125,16 +125,15 @@ def _packed_backend(w, x2: torch.Tensor, cfg: QuantConfig, tag: str = ""):
         if cfg.backend == "lut4":
             a_scale = quant_scale(xf, axis=1, bits=4)
             a_q = quantize(xf, a_scale, bits=4)
-            return ops.lut4_matmul_kmajor(a_q, a_scale, w_km, w_scale,
-                                          tag=tag)
-        return ops.int4_matmul_fused_kmajor(xf, w_km, w_scale, tag=tag)
+            return ops.lut4_matmul_kmajor(a_q, a_scale, w_km, w_scale)
+        return ops.int4_matmul_fused_kmajor(xf, w_km, w_scale)
     if cfg.backend not in ("w4a16", "w4a16_packed"):
         raise ValueError(
             f"packed weight at site {tag!r} reached backend {cfg.backend!r}, "
             f"which has no packed-weight path")
     K = x2.shape[1]
     g = K // w_scale.shape[0] if w_scale.ndim == 3 else K
-    return ops.w4a16_matmul_kmajor(x2, w_km, w_scale, g, tag=tag)
+    return ops.w4a16_matmul_kmajor(x2, w_km, w_scale, g)
 
 
 #: linear-weight leaf names eligible for serving-side packing

@@ -18,14 +18,15 @@ check, the candidate set, the rule's entry); this module owns the cache
 and the search:
 
   * ``lookup(op, M, K, N, dtype, ...)`` — what every CUDA wrapper asks
-    before it cuts a launch: the tuned entry for the shape (a site-tagged
-    entry first, then the shape-generic one), else None, and the wrapper
-    takes its rule's plan.  Never searches: a lookup is cheap and
-    deterministic.  The plain versions never ask.
+    before it cuts a launch: the tuned entry for the shape, else None, and
+    the wrapper takes its rule's plan.  The wrappers ask by shape alone; a
+    site-tagged entry (``tag=``) is read only by a lookup that names the
+    site.  Never searches, and returns at once while the cache is empty.
+    The plain versions never ask.
   * ``tune(...)`` — the timed search over an op's candidate plans, run
-    explicitly (``chip_smoke.py``'s tune phase on the card, or a caller
-    gated by ``should_tune``); results persist to an on-disk JSON cache
-    keyed by (op, shape, dtype, group size, backend ``cuda``, tag).
+    explicitly (``chip_smoke.py``'s tune phase on the card); results
+    persist to an on-disk JSON cache keyed by (op, shape, dtype, group
+    size, backend ``cuda``, tag).
 
 Cache location: ``$REPRO_AUTOTUNE_CACHE`` if set, else
 ``~/.cache/repro_torch/autotune.json``.  With no cache file every launch
@@ -51,7 +52,6 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple
 from ..observability.metrics import global_registry
 
 ENV_CACHE_PATH = "REPRO_AUTOTUNE_CACHE"
-ENV_AUTOTUNE = "REPRO_AUTOTUNE"
 #: the backend field of every key: the JAX package's entries never match
 BACKEND = "cuda"
 #: the ops the tuner searches, each a GEMM kernel's plan
@@ -200,6 +200,8 @@ def lookup(op: str, M: int, K: int, N: int, dtype: str,
     """The tuned plan entry for this GEMM if cached (site-tagged entry
     first, then the shape-generic one), without its time; else None."""
     ensure_loaded()
+    if not _CACHE:                     # untuned: no key built, no search
+        return None
     for key in ((cache_key(op, M, K, N, dtype, group_size, tag=tag),)
                 if tag else ()) + (cache_key(op, M, K, N, dtype, group_size),):
         hit = _CACHE.get(key)
@@ -212,16 +214,6 @@ def candidate_plans(op: str, M: int, K: int, N: int, dtype: str,
                     group_size: int = 0) -> List[Dict]:
     """The op's search space at this shape, the rule's entry included."""
     return tuning(op).candidates(M, K, N, group_size, dtype)
-
-
-def should_tune() -> bool:
-    """Opt-in gate for implicit tuning: CUDA hosts or REPRO_AUTOTUNE=1."""
-    env = os.environ.get(ENV_AUTOTUNE)
-    if env is not None:
-        return env not in ("0", "false", "False")
-    import torch
-
-    return torch.cuda.is_available()
 
 
 # --------------------------------------------------------------- search ----

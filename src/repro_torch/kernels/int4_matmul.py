@@ -198,13 +198,13 @@ TUNING = autotune.Tuning(
 
 
 def launch_plan(M: int, K: int, N: int, Kh: int, aligned: bool, dtype: str,
-                tag: str = "", plan: dict = None) -> W4A4Plan:
+                plan: dict = None) -> W4A4Plan:
     """The plan a launch takes: `plan` where the caller gives one (the
     tuner's candidates), else the tuned entry for this shape and
     activation dtype where the cache holds one, else `w4a4_plan`.  An
     entry the kernel cannot take raises ValueError, before any launch."""
     if plan is None:
-        plan = autotune.lookup("int4_matmul", M, K, N, dtype, tag=tag)
+        plan = autotune.lookup("int4_matmul", M, K, N, dtype)
     if plan is None:
         return w4a4_plan(M, K, N, Kh, aligned)
     return w4a4_plan_from(plan, M, K, N, Kh, aligned)
@@ -246,12 +246,12 @@ def check_w4a4_operands(what: str, a: torch.Tensor, a_dtype: torch.dtype,
 
 
 def int4_matmul_fused_cuda(x: torch.Tensor, w_kmajor: torch.Tensor,
-                           w_scale: torch.Tensor, *, tag: str = "",
+                           w_scale: torch.Tensor, *,
                            plan: dict = None) -> torch.Tensor:
     """Launch the W4A4 kernel on CUDA tensors: x [M, K] f32, w_kmajor
     [ceil(K/2), N] uint8, w_scale [1, N] f32 -> [M, N] f32, cut by
-    `launch_plan` (`tag`: the call site, for a site-tuned entry; `plan`:
-    a plan entry to take in place of the cache's and the rule's)."""
+    `launch_plan` (`plan`: a plan entry to take in place of the cache's
+    and the rule's)."""
     check_w4a4_operands("int4_matmul_fused_cuda", x, torch.float32,
                         w_kmajor, w_scale)
     M, K = x.shape
@@ -260,7 +260,7 @@ def int4_matmul_fused_cuda(x: torch.Tensor, w_kmajor: torch.Tensor,
     if M == 0 or N == 0:
         return out
     p = launch_plan(M, K, N, Kh, w_kmajor.data_ptr() % 16 == 0, "float32",
-                    tag, plan)
+                    plan)
     a_scale = quant_scale(x, axis=1, bits=4)
     lib = _build.load("int4_matmul", _bind)
     code = lib.w4a4_fused_launch(
@@ -277,10 +277,10 @@ int4_matmul_fused_cuda.launches = 0
 
 def int4_matmul_cuda(a_q: torch.Tensor, a_scale: torch.Tensor,
                      w_kmajor: torch.Tensor, w_scale: torch.Tensor, *,
-                     tag: str = "", plan: dict = None) -> torch.Tensor:
+                     plan: dict = None) -> torch.Tensor:
     """Launch the unfused W4A4 kernel on CUDA tensors: a_q [M, K] int8,
     a_scale [M, 1] f32, w_kmajor [ceil(K/2), N] uint8, w_scale [1, N] f32
-    -> [M, N] f32, cut by `launch_plan` (`tag`, `plan` as for the fused
+    -> [M, N] f32, cut by `launch_plan` (`plan` as for the fused
     entry)."""
     check_w4a4_operands("int4_matmul_cuda", a_q, torch.int8, w_kmajor,
                         w_scale, a_scale)
@@ -289,8 +289,7 @@ def int4_matmul_cuda(a_q: torch.Tensor, a_scale: torch.Tensor,
     out = torch.empty((M, N), dtype=torch.float32, device=a_q.device)
     if M == 0 or N == 0:
         return out
-    p = launch_plan(M, K, N, Kh, w_kmajor.data_ptr() % 16 == 0, "int8", tag,
-                    plan)
+    p = launch_plan(M, K, N, Kh, w_kmajor.data_ptr() % 16 == 0, "int8", plan)
     lib = _build.load("int4_matmul", _bind)
     code = lib.w4a4_launch(
         _build.ptr(a_q), _build.ptr(a_scale), _build.ptr(w_kmajor),

@@ -175,13 +175,13 @@ TUNING = autotune.Tuning(
 
 
 def launch_plan(M: int, K: int, N: int, Kh: int, aligned: bool,
-                tag: str = "", plan: dict = None) -> Lut4Plan:
+                plan: dict = None) -> Lut4Plan:
     """The plan a launch takes: `plan` where the caller gives one, else the
     tuned entry for this shape where the cache holds one, else
     `lut4_plan`.  An entry the kernel cannot take raises ValueError,
     before any launch."""
     if plan is None:
-        plan = autotune.lookup("gemm.lut4", M, K, N, "int8", tag=tag)
+        plan = autotune.lookup("gemm.lut4", M, K, N, "int8")
     if plan is None:
         return lut4_plan(M, K, N, Kh, aligned)
     return lut4_plan_from(plan, M, K, N, Kh, aligned)
@@ -195,10 +195,10 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 def lut4_matmul_cuda(a_q: torch.Tensor, a_scale: torch.Tensor,
                      w_kmajor: torch.Tensor, w_scale: torch.Tensor, *,
-                     tag: str = "", plan: dict = None) -> torch.Tensor:
+                     plan: dict = None) -> torch.Tensor:
     """Launch the table-lookup kernel on CUDA tensors: a_q [M, K] int8,
     a_scale [M, 1] f32, w_kmajor [ceil(K/2), N] uint8, w_scale [1, N] f32
-    -> [M, N] f32, cut by `launch_plan` (`tag`: the call site; `plan`: an
+    -> [M, N] f32, cut by `launch_plan` (`plan`: an
     entry to take in place of the cache's and the rule's).  With more than
     one split an int32 workspace [splits, M, N] and the reduce kernel; one
     launch count a call either way."""
@@ -209,7 +209,7 @@ def lut4_matmul_cuda(a_q: torch.Tensor, a_scale: torch.Tensor,
     out = torch.empty((M, N), dtype=torch.float32, device=a_q.device)
     if M == 0 or N == 0:
         return out
-    p = launch_plan(M, K, N, Kh, w_kmajor.data_ptr() % 16 == 0, tag, plan)
+    p = launch_plan(M, K, N, Kh, w_kmajor.data_ptr() % 16 == 0, plan)
     ws = (torch.empty((p.splits, M, N), dtype=torch.int32, device=a_q.device)
           if p.splits > 1 else None)
     lib = _build.load("lut4_matmul", _bind)

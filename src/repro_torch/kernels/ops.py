@@ -1,7 +1,5 @@
 """Public entry points for the kernels: device dispatch, tile lookup for the
-plain versions, and launch counts.  The GEMM entries take the call site's
-`tag`, which the CUDA wrappers pass to the plan lookup
-(``kernels.autotune``); the plain versions ignore it.
+plain versions, and launch counts.
 
 Dispatch follows the tensor's device and nothing else: a CPU tensor runs
 the kernel's plain PyTorch version, a CUDA tensor launches the hand-written
@@ -101,67 +99,65 @@ def _on_cuda(t: torch.Tensor, op: str) -> bool:
 
 
 @_entry("int4_matmul_fused")
-def int4_matmul_fused_kmajor(x, w_kmajor, w_scale, tag: str = ""):
+def int4_matmul_fused_kmajor(x, w_kmajor, w_scale):
     """Fused activation-quantize W4A4 on planar K-major weights
-    ([ceil(K/2), N] uint8): float x [M, K] in, f32 [M, N] out.  `tag`
-    names the call site (``qdense``'s), for a site-tuned plan."""
+    ([ceil(K/2), N] uint8): float x [M, K] in, f32 [M, N] out."""
     if _on_cuda(x, "int4_matmul_fused"):
         return int4_matmul_fused_cuda(x.to(torch.float32).contiguous(),
-                                      w_kmajor, w_scale, tag=tag)
+                                      w_kmajor, w_scale)
     return int4_matmul_fused_plain(x, w_kmajor, w_scale)
 
 
-def int4_matmul(a_q, a_scale, w_packed, w_scale, tag: str = ""):
+def int4_matmul(a_q, a_scale, w_packed, w_scale):
     """W4A4 GEMM on pre-quantized activations: a_q [M, K] int8, a_scale
     [M, 1] f32, the serialized interleaved weight [K, N/2] uint8
     (``core.quant.pack_int4``), w_scale [1, N] -> f32 [M, N]."""
     return int4_matmul_kmajor(a_q, a_scale,
                               nmajor_to_kmajor(w_packed).contiguous(),
-                              w_scale, tag=tag)
+                              w_scale)
 
 
 @_entry("int4_matmul")
-def int4_matmul_kmajor(a_q, a_scale, w_kmajor, w_scale, tag: str = ""):
+def int4_matmul_kmajor(a_q, a_scale, w_kmajor, w_scale):
     """W4A4 GEMM on pre-quantized activations and planar K-major weights
     ([ceil(K/2), N] uint8)."""
     if _on_cuda(a_q, "int4_matmul"):
-        return int4_matmul_cuda(a_q, a_scale, w_kmajor, w_scale, tag=tag)
+        return int4_matmul_cuda(a_q, a_scale, w_kmajor, w_scale)
     return int4_matmul_plain(a_q, a_scale, w_kmajor, w_scale)
 
 
-def lut4_matmul(a_q, a_scale, w_packed, w_scale, tag: str = ""):
+def lut4_matmul(a_q, a_scale, w_packed, w_scale):
     """Table-lookup W4A4 GEMM; operands as `int4_matmul` (serialized
     interleaved weight)."""
     return lut4_matmul_kmajor(a_q, a_scale,
                               nmajor_to_kmajor(w_packed).contiguous(),
-                              w_scale, tag=tag)
+                              w_scale)
 
 
 @_entry("lut4_matmul")
-def lut4_matmul_kmajor(a_q, a_scale, w_kmajor, w_scale, tag: str = ""):
+def lut4_matmul_kmajor(a_q, a_scale, w_kmajor, w_scale):
     """Table-lookup W4A4 GEMM on planar K-major weights."""
     if _on_cuda(a_q, "lut4_matmul"):
-        return lut4_matmul_cuda(a_q, a_scale, w_kmajor, w_scale, tag=tag)
+        return lut4_matmul_cuda(a_q, a_scale, w_kmajor, w_scale)
     return lut4_matmul_plain(a_q, a_scale, w_kmajor, w_scale)
 
 
-def w4a16_matmul(x, w_packed, w_scale, group_size: int, tag: str = ""):
+def w4a16_matmul(x, w_packed, w_scale, group_size: int):
     """Weight-only int4 GEMM: x [M, K] bf16/f32, the serialized interleaved
     weight [K, N/2], scales [1, N] or [K // G, 1, N] -> f32 [M, N].  Grouped
     weights are repacked with K padded to a multiple of 2G."""
     row_mult = 2 * group_size if w_scale.ndim == 3 else 2
     return w4a16_matmul_kmajor(
         x, nmajor_to_kmajor(w_packed, row_mult).contiguous(), w_scale,
-        group_size, tag=tag)
+        group_size)
 
 
 @_entry("w4a16_matmul")
-def w4a16_matmul_kmajor(x, w_kmajor, w_scale, group_size: int,
-                        tag: str = ""):
+def w4a16_matmul_kmajor(x, w_kmajor, w_scale, group_size: int):
     """Weight-only int4 GEMM on planar K-major weights ([Kh, N] uint8)."""
     if _on_cuda(x, "w4a16_matmul"):
         return w4a16_matmul_cuda(x.contiguous(), w_kmajor,
-                                 w_scale.contiguous(), group_size, tag=tag)
+                                 w_scale.contiguous(), group_size)
     return w4a16_matmul_plain(x, w_kmajor, w_scale, group_size)
 
 

@@ -260,8 +260,7 @@ TUNING = autotune.Tuning(
 
 
 def launch_plan(M: int, K: int, N: int, Kh: int, G: int, x_bf16: bool,
-                x_aligned: bool, w_aligned: bool, tag: str = "",
-                plan: dict = None):
+                x_aligned: bool, w_aligned: bool, plan: dict = None):
     """The plan a launch takes (a `SplitKPlan` at M <= 16, else a
     `PrefillPlan`): `plan` where the caller gives one, else the tuned
     entry for this shape, x's dtype and G where the cache holds one, else
@@ -269,8 +268,7 @@ def launch_plan(M: int, K: int, N: int, Kh: int, G: int, x_bf16: bool,
     before any launch."""
     if plan is None:
         plan = autotune.lookup("w4a16_matmul", M, K, N,
-                               "bfloat16" if x_bf16 else "float32", G,
-                               tag=tag)
+                               "bfloat16" if x_bf16 else "float32", G)
     if plan is not None:
         return w4a16_plan_from(plan, M, K, N, Kh, G, x_bf16, x_aligned,
                                w_aligned)
@@ -287,10 +285,10 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 def w4a16_matmul_cuda(x: torch.Tensor, w_kmajor: torch.Tensor,
                       w_scale: torch.Tensor, group_size: int, *,
-                      tag: str = "", plan: dict = None) -> torch.Tensor:
+                      plan: dict = None) -> torch.Tensor:
     """Launch the W4A16 kernel on CUDA tensors: x [M, K] bf16 or f32,
     w_kmajor [Kh, N] uint8, w_scale [1, N] or [K // G, 1, N] f32 ->
-    [M, N] f32, cut by `launch_plan` (`tag`: the call site; `plan`: an
+    [M, N] f32, cut by `launch_plan` (`plan`: an
     entry to take in place of the cache's and the rule's).  At M <= 16 the
     split-K kernel and its reduce, with an f32 workspace [splits, M, N];
     at M > 16 the prefill plan's kernel; one launch count a call either
@@ -330,7 +328,7 @@ def w4a16_matmul_cuda(x: torch.Tensor, w_kmajor: torch.Tensor,
         return out
     x_bf16 = x.dtype == torch.bfloat16
     p = launch_plan(M, K, N, Kh, G, x_bf16, x.data_ptr() % 16 == 0,
-                    w_kmajor.data_ptr() % 16 == 0, tag, plan)
+                    w_kmajor.data_ptr() % 16 == 0, plan)
     ws = None
     if isinstance(p, SplitKPlan):
         ws = torch.empty((p.splits, M, N), dtype=torch.float32,

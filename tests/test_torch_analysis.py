@@ -336,6 +336,36 @@ def test_launch_after_unrelated_raise_fires():
     assert "no operand check" in fs[0].message
 
 
+def test_check_call_on_no_operand_fires():
+    # lut_mul4_cuda's idiom: a check_* of the strategy name alone is not
+    # the operand check; the one that counts names what the launch is
+    # given, directly or through the names it was computed from
+    bad = """
+    from . import _build
+
+    def fixture_cuda(a, b, strategy):
+        _check_strategy(strategy)
+        lib = _build.load("fixture", _bind)
+        code = lib.fixture_launch(_build.ptr(a), _build.ptr(b))
+        return code
+    """
+    fs = run(bad, rel=KERNEL_REL, only="cuda-kernel-hygiene")
+    assert rules_of(fs) == ["cuda-kernel-hygiene"]
+    assert "no operand check" in fs[0].message
+    clean = """
+    from . import _build
+
+    def fixture_cuda(a, b, strategy):
+        _check_strategy(strategy)
+        check_mul4_operands("fixture_cuda", a, b)
+        a2 = a.reshape(-1)
+        lib = _build.load("fixture", _bind)
+        code = lib.fixture_launch(_build.ptr(a2), _build.ptr(b))
+        return code
+    """
+    assert run(clean, rel=KERNEL_REL, only="cuda-kernel-hygiene") == []
+
+
 def test_try_fallback_to_plain_fires():
     bad = """
     def matmul(x, w, s):

@@ -164,6 +164,18 @@ def test_candidates_include_rule_and_are_unique():
                                         "bfloat16", 128)) == 2
 
 
+def test_untuned_lookup_builds_no_key(monkeypatch):
+    """With the cache empty a lookup returns at once: every eager launch
+    of an untuned run pays no key formatting and no dict search."""
+    def no_key(*a, **kw):
+        raise AssertionError("an untuned lookup built a cache key")
+
+    monkeypatch.setattr(autotune, "cache_key", no_key)
+    for op, dtype, G in OPS:
+        assert autotune.lookup(op, 8, K, N, dtype, G) is None
+    assert autotune._LOADED_FROM is not None        # the file was read
+
+
 def test_lookup_without_cache_returns_rule_plans(launched):
     """No cache file: the lookup finds nothing and every wrapper launches
     its rule's plan."""
@@ -333,8 +345,7 @@ def test_tune_key_matches_wrapper_lookup_key(isolated_cache, launched,
                                              monkeypatch):
     """Each CUDA wrapper asks the cache under the key ``tune`` writes
     (op, shape, *activation* dtype, group size): a drift here would make
-    every tuned entry dead weight.  A site-tagged lookup falls back to the
-    untagged tuned entry."""
+    every tuned entry dead weight."""
     asked = []
     real = autotune.lookup
 
@@ -353,11 +364,8 @@ def test_tune_key_matches_wrapper_lookup_key(isolated_cache, launched,
             key = autotune.cache_key(op, M, K, N, dtype, G)
             assert key in autotune._CACHE
             asked.clear()
-            got = _launch_args(launched, op, M, K, N, G, dtype,
-                               tag="ffn.w_in")
-            assert asked == [autotune.cache_key(op, M, K, N, dtype, G,
-                                                tag="ffn.w_in")]
-            assert asked[0].startswith(key + "|")
+            got = _launch_args(launched, op, M, K, N, G, dtype)
+            assert asked == [key]
             want = _launch_args(launched, op, M, K, N, G, dtype,
                                 plan=target)
             assert got == want
@@ -426,11 +434,11 @@ def test_plain_versions_ignore_the_cache(monkeypatch):
     lookup."""
     x, a_q, a_scale, w_km, w_scale = _operands(8, K, N)
     _, _, _, w_g, s_g = _operands(8, K, N, 128)
-    calls = (lambda: ops.int4_matmul_fused_kmajor(x, w_km, w_scale, tag="t"),
+    calls = (lambda: ops.int4_matmul_fused_kmajor(x, w_km, w_scale),
              lambda: ops.int4_matmul_kmajor(a_q, a_scale, w_km, w_scale),
              lambda: ops.lut4_matmul_kmajor(a_q, a_scale, w_km, w_scale),
              lambda: ops.w4a16_matmul_kmajor(x.to(torch.bfloat16), w_g, s_g,
-                                             128, tag="t"))
+                                             128))
     before = [c() for c in calls]
     for op, dtype, G in OPS:
         autotune._CACHE[autotune.cache_key(op, 8, K, N, dtype, G)] = \
@@ -469,9 +477,10 @@ def test_engine_loads_the_cache_when_built(isolated_cache):
 @pytest.mark.cuda
 def test_tuned_plans_hold_to_plain_on_card(tmp_path):
     """On the card: the tuner's CUDA-event timer over each op's candidates
-    at one qwen2-0.5b shape, and the winner, taken back from the saved
-    cache by the wrapper, against its plain version: the integer kernels
-    bit for bit, W4A16 within 1e-4 of the output's largest magnitude."""
+    at one qwen2-0.5b shape; every timed candidate's output, and the
+    winner's taken back from the saved cache by the wrapper, against the
+    plain version: the integer kernels bit for bit, W4A16 within 1e-4 of
+    the output's largest magnitude."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
     dev = torch.device("cuda")
@@ -498,15 +507,33 @@ def test_tuned_plans_hold_to_plain_on_card(tmp_path):
             def run(plan=None):
                 return w16.w4a16_matmul_cuda(x, w_km, w_scale, G, plan=plan)
             plain = w16.w4a16_matmul_plain(x, w_km, w_scale, G)
-        best, us = autotune.tune(op, lambda e: (lambda: run(e)), M, K, N,
-                                 dtype, group_size=G, path=path)
-        assert us < float("inf")
+
+        def held(got, entry, op=op, plain=plain):
+            if op == "w4a16_matmul":
+                err = (got - plain).abs().max().item()
+                assert err <= 1e-4 * plain.abs().max().item(), (op, entry,
+                                                                err)
+            else:
+                assert torch.equal(got, plain), (op, M, entry)
+
+        timed = []
+
+        def timer(fn, held=held):
+            us = autotune._default_timer(fn)
+            held(fn(), fn.entry)
+            timed.append(fn.entry)
+            return us
+
+        def make_call(entry, run=run):
+            def call():
+                return run(entry)
+            call.entry = entry
+            return call
+
+        best, us = autotune.tune(op, make_call, M, K, N, dtype, group_size=G,
+                                 timer=timer, path=path)
+        assert us < float("inf") and best in timed
         autotune.reset()
         assert autotune.load_cache(path) >= 1
         assert autotune.lookup(op, M, K, N, dtype, G) == best
-        got = run()
-        if op == "w4a16_matmul":
-            err = (got - plain).abs().max().item()
-            assert err <= 1e-4 * plain.abs().max().item(), (op, best, err)
-        else:
-            assert torch.equal(got, plain), (op, M, best)
+        held(run(), best)

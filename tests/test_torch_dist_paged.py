@@ -8,6 +8,8 @@ its ~40 s alone: here each test spawns its own ranks and needs no JAX
 reference, so the two files run on two workers.
 """
 
+import json
+
 import numpy as np
 import pytest
 
@@ -53,3 +55,17 @@ def test_flash_prefill_and_fused_paged_decode_run_under_tp(tmp_path, tp):
         assert _greedy(got, cfg.vocab) == _greedy(want, cfg.vocab), name
         for g, w in zip(got, want):
             np.testing.assert_allclose(g, w, rtol=0, atol=1e-5, err_msg=name)
+
+
+def test_failed_rank_leaves_its_exit_code_and_stderr(tmp_path):
+    """When a rank dies, `spawn` raises with every rank's exit code and the
+    end of its standard error, and leaves both under the test's tmp dir:
+    an intermittent failure of the ranks above shows its cause."""
+    with pytest.raises(AssertionError) as info:
+        W.spawn(W.dying_rank_worker, 2, tmp_path)
+    msg = str(info.value)
+    assert "rank 1 (exit 7)" in msg and "rank 1 exits with 7" in msg
+    logs = tmp_path / "ranks_dying_rank_worker_2"
+    codes = json.loads((logs / "exitcodes.json").read_text())["exitcodes"]
+    assert codes[1] == 7 and codes[0] != 0
+    assert "rank 1 exits with 7" in (logs / "rank1.stderr").read_text()

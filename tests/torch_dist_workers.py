@@ -12,6 +12,8 @@ files and writes its results for the test process to compare.
 from __future__ import annotations
 
 import datetime
+import faulthandler
+import json
 import os
 import subprocess
 import sys
@@ -26,15 +28,53 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # ------------------------------------------------------------ processes --
 def spawn(fn, world: int, tmp, *args, backend: str = "gloo") -> None:
     """Run ``fn(rank, *args)`` in `world` ranks (gloo on the CPU; "nccl":
-    rank r on card r) and wait for all."""
+    rank r on card r) and wait for all.  Each rank's standard error goes
+    to ``ranks_<fn>_<world>/rank<r>.stderr`` under `tmp` (with
+    ``faulthandler`` on, so a crash leaves its Python stack there); when a
+    rank fails, every rank's exit code is written beside them
+    (``exitcodes.json``) and the error raised carries each rank's exit
+    code and the end of its standard error."""
     import torch.multiprocessing as mp
 
     store = os.path.join(str(tmp), f"pg_{fn.__name__}_{world}")
-    mp.spawn(_entry, args=(fn, world, store, args, backend), nprocs=world,
-             join=True)
+    logs = os.path.join(str(tmp), f"ranks_{fn.__name__}_{world}")
+    os.makedirs(logs, exist_ok=True)
+    ctx = mp.start_processes(_entry, args=(fn, world, store, args, backend,
+                                           logs),
+                             nprocs=world, join=False, start_method="spawn")
+    try:
+        while not ctx.join():
+            pass
+    except Exception as e:
+        raise AssertionError(_rank_report(ctx.processes, logs, e)) from e
 
 
-def _entry(rank, fn, world, store, args, backend="gloo"):
+def _rank_report(processes, logs: str, err: Exception,
+                 tail: int = 4000) -> str:
+    codes = [p.exitcode for p in processes]
+    with open(os.path.join(logs, "exitcodes.json"), "w") as f:
+        json.dump({"exitcodes": codes, "error": str(err)}, f, indent=1)
+    parts = [f"{type(err).__name__}: {err}", f"rank exit codes {codes} "
+             f"(negative: killed by that signal); logs in {logs}"]
+    for rank in range(len(processes)):
+        try:
+            with open(os.path.join(logs, f"rank{rank}.stderr"),
+                      errors="replace") as f:
+                text = f.read()
+        except OSError as e:
+            text = f"<unreadable: {e}>"
+        parts.append(f"--- rank {rank} (exit {codes[rank]}) stderr, last "
+                     f"{tail} chars ---\n{text[-tail:]}")
+    return "\n".join(parts)
+
+
+def _entry(rank, fn, world, store, args, backend="gloo", logs=None):
+    if logs is not None:
+        fd = os.open(os.path.join(logs, f"rank{rank}.stderr"),
+                     os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+        os.dup2(fd, 2)
+        os.close(fd)
+        faulthandler.enable()
     torch.set_num_threads(1)
     kw = {}
     if backend == "nccl":
@@ -49,6 +89,13 @@ def _entry(rank, fn, world, store, args, backend="gloo"):
         fn(rank, *args)
     finally:
         dist.destroy_process_group()
+    # A rank whose work is done leaves without the interpreter's and the C++
+    # runtime's exit-time teardown: there a four-rank gloo run once aborted
+    # ("terminate called without an active exception", SIGABRT, no Python
+    # frame) after rank 0 had written its results, which failed the test.
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 
 
 def run_jax(script: str, args=(), n_devices: int = 4,
@@ -489,6 +536,15 @@ def configs_worker(rank, out, archs, shapes):
             res[(arch, tuple(shape))] = config_loss(arch, mesh)
     if rank == 0:
         torch.save(res, out)
+
+
+def dying_rank_worker(rank):
+    """Rank 1 writes a line to its standard error and exits with code 7
+    before the barrier that rank 0 waits in."""
+    if rank == 1:
+        print("rank 1 exits with 7", file=sys.stderr, flush=True)
+        os._exit(7)
+    dist.barrier()
 
 
 def failing_train_worker(rank, out):
