@@ -3295,7 +3295,8 @@ def _calibration_real(torch, cfg, rts, shapes):
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import single_device_mesh
     from repro_torch.launch.steps import (init_train_state, make_decode_step,
-                                          make_prefill_step, make_train_step)
+                                          make_prefill_step, make_train_step,
+                                          train_shardings)
     from repro_torch.models.transformer import init_caches
     from repro_torch.optim import adamw_init
     from repro_torch.serving.engine import build_params
@@ -3345,7 +3346,7 @@ def _calibration_real(torch, cfg, rts, shapes):
         state = {"params": p, "opt": adamw_init(p), "step": state["step"]}
         batch = torch.randint(0, cfg.vocab, (shape.batch, shape.seq + 1),
                               generator=g, device="cuda", dtype=torch.int32)
-        step = make_train_step(cfg, rt, shardings=psh)
+        step = make_train_step(cfg, rt, shardings=train_shardings(psh, mesh))
         ms, peak = _event_ms(torch, lambda: step(state, batch),
                              CALIBRATION_REPS)
         out["train"] = {"bytes": _nbytes((state, batch)), "ms": ms,
@@ -4727,6 +4728,15 @@ TUNE_CASES = (("int4_matmul", "float32", 0, MAX_BATCH),
               ("gemm.lut4", "int8", 0, MAX_BATCH),
               ("w4a16_matmul", "bfloat16", 128, MAX_BATCH))
 TUNE_K, TUNE_N = 896, 4864
+#: ... and the attention ops at the main path's shapes: (op, case): the
+#: paged decode batch of `check_decode` (qwen2-0.5b, B = 8, ps 16, a
+#: 512-token table, bf16 pool), the ragged serving pack of `check_ragged`
+#: (T = 64: 8 decode rows, a 48-row chunk, 8 padding; int8 pool), and
+#: flash prefill fresh 256 at hd 64 (qwen2-0.5b) and hd 128 (qwen3-4b)
+TUNE_ATTN_CASES = (("attn.paged_decode", "decode"),
+                   ("attn.ragged", "ragged"),
+                   ("attn.prefill", "fresh256"),
+                   ("attn.prefill", "hd128"))
 
 
 def analysis_run() -> dict:
@@ -4748,11 +4758,13 @@ def analysis_run() -> dict:
     return counts
 
 
-def _tune_call(torch, gen, op, dtype, G, M):
-    """Inputs at (M, TUNE_K, TUNE_N) on the card: `run(plan)` launches the
-    op's CUDA wrapper (None: the cache's or the rule's plan), `plain` is
-    its plain version's output, `launch_plan()` the plan the wrapper would
-    take, read with nothing launched."""
+def _tune_gemm(torch, gen, op, dtype, G, M):
+    """A `TUNE_CASES` GEMM at (M, TUNE_K, TUNE_N) on the card: `run(plan)`
+    launches the op's CUDA wrapper (None: the cache's or the rule's plan),
+    `held(out)` is its max |diff| to the plain version and whether that is
+    within the op's limit (the integer GEMMs bit for bit, W4A16 within
+    W4A16_RTOL of the output's largest magnitude), `launch_plan()` the
+    plan the wrapper would take, read with nothing launched."""
     from repro_torch.core.quant import group_quantize, quant_scale, quantize
     from repro_torch.kernels import int4_matmul as i4
     from repro_torch.kernels import lut4_matmul as l4
@@ -4763,35 +4775,136 @@ def _tune_call(torch, gen, op, dtype, G, M):
     x, w_q, w_km, w_scale = _gemm_inputs(torch, gen, M, K, N)
     aligned = w_km.data_ptr() % 16 == 0
     if op == "int4_matmul":
-        return (lambda plan=None: i4.int4_matmul_fused_cuda(
-                    x, w_km, w_scale, plan=plan),
-                i4.int4_matmul_fused_plain(x, w_km, w_scale),
-                lambda: i4.launch_plan(M, K, N, w_km.shape[0], aligned,
-                                       dtype))
-    if op == "gemm.lut4":
+        run, plain, launch_plan = (
+            lambda plan=None: i4.int4_matmul_fused_cuda(x, w_km, w_scale,
+                                                        plan=plan),
+            i4.int4_matmul_fused_plain(x, w_km, w_scale),
+            lambda: i4.launch_plan(M, K, N, w_km.shape[0], aligned, dtype))
+    elif op == "gemm.lut4":
         a_scale = quant_scale(x, axis=1, bits=4)
         a_q = quantize(x, a_scale, bits=4)
-        return (lambda plan=None: l4.lut4_matmul_cuda(
-                    a_q, a_scale, w_km, w_scale, plan=plan),
-                l4.lut4_matmul_plain(a_q, a_scale, w_km, w_scale),
-                lambda: l4.launch_plan(M, K, N, w_km.shape[0], aligned))
-    w = torch.randn((K, N), generator=gen, device="cuda") * 0.05
-    wq, ws = group_quantize(w, G)
-    w_km = pack_kmajor(wq, 2 * G).contiguous()
-    xb = x.to(torch.bfloat16)
-    return (lambda plan=None: w16.w4a16_matmul_cuda(xb, w_km, ws, G,
-                                                     plan=plan),
+        run, plain, launch_plan = (
+            lambda plan=None: l4.lut4_matmul_cuda(a_q, a_scale, w_km,
+                                                  w_scale, plan=plan),
+            l4.lut4_matmul_plain(a_q, a_scale, w_km, w_scale),
+            lambda: l4.launch_plan(M, K, N, w_km.shape[0], aligned))
+    else:
+        w = torch.randn((K, N), generator=gen, device="cuda") * 0.05
+        wq, ws = group_quantize(w, G)
+        w_km = pack_kmajor(wq, 2 * G).contiguous()
+        xb = x.to(torch.bfloat16)
+        run, plain, launch_plan = (
+            lambda plan=None: w16.w4a16_matmul_cuda(xb, w_km, ws, G,
+                                                    plan=plan),
             w16.w4a16_matmul_plain(xb, w_km, ws, G),
             lambda: w16.launch_plan(M, K, N, w_km.shape[0], G, True,
                                     xb.data_ptr() % 16 == 0,
                                     w_km.data_ptr() % 16 == 0))
+
+    def held(out):
+        err = (out - plain).abs().max().item()
+        if op == "w4a16_matmul":
+            return err, err <= W4A16_RTOL * plain.abs().max().item()
+        return err, torch.equal(out, plain)
+
+    return {"label": f"{op} {dtype} G={G} M={M} K={K} N={N}",
+            "key": (M, K, N, dtype, G), "run": run, "held": held,
+            "pair": None, "launch_plan": launch_plan}
+
+
+def _tune_attn(torch, gen, op, case):
+    """A `TUNE_ATTN_CASES` attention op on the card, as `_tune_gemm`
+    returns a GEMM: `held(out)` is within ATTN_ATOL of the plain version
+    with idle and padding rows exactly zero; for the decode ops `pair(plan)`
+    holds a decode-only ragged pack bit-equal to the paged decode kernel
+    under the split."""
+    from repro_torch.kernels.autotune import attn_default_blocks
+    from repro_torch.kernels.paged_attention import (
+        POOL_NAMES, decode_plan_for, flash_launch_plan, flash_prefill_cuda,
+        flash_prefill_plain, paged_decode_attention_cuda,
+        paged_decode_attention_plain)
+    from repro_torch.kernels.ragged_attention import (
+        ragged_decode_attention_cuda, ragged_decode_attention_plain)
+
+    ps, pps = PAGE_SIZE, DECODE_PPS
+    if op == "attn.prefill":
+        Sq, Skv, n_real, hit, nh, nkv, hd = FLASH_CASES[case]
+        q, k, v, qpos, kpos = _flash_inputs(torch, gen, Sq, Skv, n_real, hit,
+                                            nh, nkv, hd)
+        bk = attn_default_blocks("attn.prefill", Sq, Skv, nh * hd)["bk"]
+        plain = flash_prefill_plain(q, k, v, qpos, kpos, bk=bk)
+        zero = qpos[0] < 0
+
+        def run(plan=None):
+            return flash_prefill_cuda(q, k, v, qpos, kpos, plan=plan)
+
+        def held(out):
+            err = (out.float() - plain.float()).abs().max().item()
+            return err, err <= ATTN_ATOL and not out[0, zero].any()
+
+        return {"label": f"{op} {case}: B=1, Sq={Sq}, Skv={Skv}, H={nh}, "
+                         f"KV={nkv}, hd={hd}",
+                "key": ((1, Sq), Skv, (nh, hd), "bfloat16", nkv),
+                "run": run, "held": held, "pair": None,
+                "launch_plan": lambda: flash_launch_plan(1, Sq, Skv, nh, nkv,
+                                                         hd)}
+    pp = max(1, attn_default_blocks(op, MAX_BATCH, pps * ps, H * HD,
+                                    group_size=ps)["bk"] // ps)
+    if op == "attn.paged_decode":
+        q, tbl, lp, pools = decode_inputs(torch, gen)
+        k, v, ks, vs = pools["bfloat16"]
+        plain = paged_decode_attention_plain(q, k, v, tbl, lp, pp=pp)
+        zero = lp < 0
+        dq, dtbl, dpos = q, tbl, lp
+        dslot = torch.arange(len(lp), dtype=torch.int32, device="cuda")
+        label = (f"{op}: B={len(lp)}, H={H}, KV={KV}, hd={HD}, ps={ps}, "
+                 f"{pps * ps}-token table, bf16 pool")
+
+        def run(plan=None):
+            return paged_decode_attention_cuda(q, k, v, tbl, lp, plan=plan)
+    else:
+        slot, pos, row_last = _ragged_pack(torch)
+        tbl = _table(torch, gen, len(row_last), 320, pps, row_last)
+        q = torch.randn((slot.shape[0], H, HD), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        k, v, ks, vs = _pools(torch, gen, 320, ps)["int8"]
+        plain = ragged_decode_attention_plain(q, k, v, tbl, slot, pos, ks,
+                                              vs, pp=pp)
+        zero = (slot < 0) | (pos < 0)
+        n_dec = len(row_last) - 1
+        dq, dtbl, dpos, dslot = (t[:n_dec].contiguous()
+                                 for t in (q, tbl, pos, slot))
+        label = (f"{op}: T={slot.shape[0]} ({n_dec} decode rows, a 48-row "
+                 f"chunk, {int(zero.sum())} padding), H={H}, KV={KV}, "
+                 f"hd={HD}, ps={ps}, int8 pool")
+
+        def run(plan=None):
+            return ragged_decode_attention_cuda(q, k, v, tbl, slot, pos, ks,
+                                                vs, plan=plan)
+
+    def held(out):
+        err = (out.float() - plain.float()).abs().max().item()
+        return err, err <= ATTN_ATOL and not out[zero].any()
+
+    def pair(plan):
+        paged = paged_decode_attention_cuda(dq, k, v, dtbl, dpos, ks, vs,
+                                            plan=plan)
+        rag = ragged_decode_attention_cuda(dq, k, v, dtbl, dslot, dpos, ks,
+                                           vs, plan=plan)
+        return torch.equal(paged, rag)
+
+    return {"label": label,
+            "key": (KV, pps * ps, HD, POOL_NAMES[k.dtype], ps), "run": run,
+            "held": held, "pair": pair,
+            "launch_plan": lambda: decode_plan_for(tbl, k)}
 
 
 def _plan_host_us(held, calls: int = 20000) -> list:
     """Host us of one `launch_plan()` (the plan a wrapper cuts, with
     nothing launched) for each tuned case: the mean of `calls` calls."""
     out = []
-    for *_, launch_plan in held:
+    for case in held:
+        launch_plan = case["launch_plan"]
         t0 = time.perf_counter()
         for _ in range(calls):
             launch_plan()
@@ -4800,24 +4913,32 @@ def _plan_host_us(held, calls: int = 20000) -> list:
 
 
 def tune_runs(torch) -> dict:
-    """The GEMM plans' timed search (``kernels.autotune.tune``, its CUDA-
-    event timer: device time a call, L2 flushed) at TUNE_CASES, into the
-    script's own cache file ($REPRO_AUTOTUNE_CACHE, set by main): each
-    candidate's us, the rule's and the winner's; every timed candidate's
-    output, not only the winner's, held to the plain version (the integer
-    GEMMs bit for bit, W4A16 within W4A16_RTOL of the output's largest
-    magnitude), since a cache file may hold any of them; then the cache
-    saved, dropped, read back, and the wrapper's plan for each shape the
-    tuned entry, launched bit-equal to the winner's call, and the host's
-    cost of the wrapper's plan with the cache loaded, empty and not read
-    (`_plan_host_us`).  The cache is dropped again and its file removed at
-    the end."""
+    """The plans' timed search (``kernels.autotune.tune``, its CUDA-event
+    timer: device time a call, L2 flushed) at TUNE_CASES and
+    TUNE_ATTN_CASES, into the script's own cache file
+    ($REPRO_AUTOTUNE_CACHE, set by main): each candidate's us, the rule's
+    and the winner's; every timed candidate's output, not only the
+    winner's, held to the plain version (the integer GEMMs bit for bit,
+    W4A16 within W4A16_RTOL of the output's largest magnitude, attention
+    within ATTN_ATOL with idle and padding rows exactly zero), since a
+    cache file may hold any of them, and under every decode split a
+    decode-only ragged pack bit-equal to the paged decode kernel; then the
+    cache saved, dropped, read back, and the wrapper's plan for each shape
+    the tuned entry, launched bit-equal to the winner's call, and the
+    host's cost of the wrapper's plan with the cache loaded, empty and not
+    read (`_plan_host_us`).  The cache is dropped again and its file
+    removed at the end."""
     from repro_torch.kernels import autotune
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
-    report, held = {}, []
-    for op, dtype, G, M in TUNE_CASES:
-        run, plain, launch_plan = _tune_call(torch, gen, op, dtype, G, M)
+    cases = [dict(_tune_gemm(torch, gen, *c), op=c[0])
+             for c in TUNE_CASES] \
+        + [dict(_tune_attn(torch, gen, op, c), op=op)
+           for op, c in TUNE_ATTN_CASES]
+    report = {}
+    for case in cases:
+        op, label, run = case["op"], case["label"], case["run"]
+        M, K, N, dtype, G = case["key"]
         rows = []
 
         def make_call(entry, run=run):
@@ -4826,84 +4947,153 @@ def tune_runs(torch) -> dict:
             call.entry = entry
             return call
 
-        def timer(fn, rows=rows, plain=plain, op=op):
+        def timer(fn, rows=rows, case=case):
             us = autotune._default_timer(fn)
-            out = fn()
-            err = (out - plain).abs().max().item()
-            ok = err <= W4A16_RTOL * plain.abs().max().item() \
-                if op == "w4a16_matmul" else torch.equal(out, plain)
-            rows.append((fn.entry, us, err, ok))
+            err, ok = case["held"](fn())
+            paired = case["pair"] is None or case["pair"](fn.entry)
+            rows.append((fn.entry, us, err, ok, paired))
             return us
 
-        best, best_us = autotune.tune(op, make_call, M, TUNE_K, TUNE_N,
-                                      dtype, group_size=G, timer=timer)
-        rule = autotune.tuning(op).rule(M, TUNE_K, TUNE_N, G, dtype)
-        rule_us = next(us for e, us, _, _ in rows if e == rule)
-        label = f"{op} {dtype} G={G} M={M} K={TUNE_K} N={TUNE_N}"
-        for entry, us, err, ok in rows:
+        best, best_us = autotune.tune(op, make_call, M, K, N, dtype,
+                                      group_size=G, timer=timer)
+        rule = autotune.tuning(op).rule(M, K, N, G, dtype)
+        rule_us = next(r[1] for r in rows if r[0] == rule)
+        for entry, us, err, ok, paired in rows:
             say(f"tune: {label}: {json.dumps(entry, sort_keys=True)} "
                 f"{us:.2f} us, max |diff| to plain {err:.6g}"
-                f"{'' if ok else ' DIFFERS'}")
-        wrong = [entry for entry, _, _, ok in rows if not ok]
+                f"{'' if ok else ' DIFFERS'}"
+                + ("" if case["pair"] is None else
+                   ", decode-only ragged pack == paged decode" if paired
+                   else ", decode-only ragged pack DIFFERS from paged"))
+        wrong = [r[0] for r in rows if not (r[3] and r[4])]
         if wrong:
             fail(f"tune: {label}: {len(wrong)} of {len(rows)} candidates "
-                 f"differ from the plain version: {wrong}")
+                 f"differ from the plain version or, for decode, break the "
+                 f"ragged pack's bit-equality with paged decode: {wrong}")
         got = run(best)
-        err = (got - plain).abs().max().item()
-        limit = W4A16_RTOL * plain.abs().max().item() \
-            if op == "w4a16_matmul" else 0.0
+        err, ok = case["held"](got)
         say(f"tune: {label}: rule {json.dumps(rule, sort_keys=True)} "
             f"{rule_us:.2f} us, winner {json.dumps(best, sort_keys=True)} "
             f"{best_us:.2f} us ({best_us / rule_us:.3f} of the rule's) of "
-            f"{len(rows)} timed; max |diff| to plain {err:.6g} (limit "
-            f"{limit:.6g})")
-        if not (math.isfinite(best_us) and err <= limit
-                and (op == "w4a16_matmul" or torch.equal(got, plain))):
+            f"{len(rows)} timed; max |diff| to plain {err:.6g}")
+        if not (math.isfinite(best_us) and ok):
             fail(f"tune: {label}: the winner {best} differs from the plain "
-                 f"version by {err:.6g} (limit {limit:.6g})")
+                 f"version by {err:.6g}")
         report[label] = {"rule": rule, "rule_us": rule_us, "best": best,
                          "best_us": best_us, "timed": len(rows),
                          "max_abs_err": err,
-                         "candidates_max_abs_err": max(r[2] for r in rows)}
-        held.append((op, dtype, G, M, best, run, got, launch_plan))
+                         "candidates_max_abs_err": max(r[2] for r in rows),
+                         "candidates_us": [(r[0], r[1]) for r in rows]}
+        case.update(best=best, got=got)
     path = autotune.cache_path()
     autotune.reset()
     n = autotune.load_cache()
-    if n != len({(op, dtype, G, M) for op, dtype, G, M in TUNE_CASES}):
-        fail(f"tune: {path} held {n} entries after a reload")
-    for op, dtype, G, M, best, run, got, launch_plan in held:
-        cached = autotune.lookup(op, M, TUNE_K, TUNE_N, dtype, G)
-        want = autotune.tuning(op).check(best, M, TUNE_K, TUNE_N, G, dtype)
-        plan = launch_plan()
+    if n != len(cases):
+        fail(f"tune: {path} held {n} entries after a reload, want "
+             f"{len(cases)}")
+    for case in cases:
+        op, best = case["op"], case["best"]
+        M, K, N, dtype, G = case["key"]
+        cached = autotune.lookup(op, M, K, N, dtype, G)
+        want = autotune.tuning(op).check(best, M, K, N, G, dtype)
+        plan = case["launch_plan"]()
         if cached != best or plan != want:
-            fail(f"tune: after the reload {op} M={M} takes {plan} (cache "
-                 f"{cached}), not the tuned {want}")
-        again = run()
-        if not torch.equal(again, got):
-            fail(f"tune: {op} M={M}: the cached plan's launch differs from "
-                 "the winner's call")
-    hit = _plan_host_us(held)
+            fail(f"tune: after the reload {case['label']} takes {plan} "
+                 f"(cache {cached}), not the tuned {want}")
+        if not torch.equal(case["run"](), case["got"]):
+            fail(f"tune: {case['label']}: the cached plan's launch differs "
+                 "from the winner's call")
+    hit = _plan_host_us(cases)
     autotune.reset()
     os.remove(path)
     autotune.ensure_loaded()                  # the file is gone: empty
-    empty = _plan_host_us(held)
-    real_lookup = autotune.lookup
-    autotune.lookup = lambda *a, **kw: None
+    empty = _plan_host_us(cases)
+    real = autotune.tuned_plan
+    autotune.tuned_plan = lambda *a, **kw: None
     try:
-        rule_only = _plan_host_us(held)
+        rule_only = _plan_host_us(cases)
     finally:
-        autotune.lookup = real_lookup
+        autotune.tuned_plan = real
     autotune.reset()
-    for (op, dtype, G, M, *_), h, e, r in zip(held, hit, empty, rule_only):
-        say(f"tune: host us a wrapper's plan, {op} {dtype} M={M}: cache "
-            f"loaded {h:.3f}, cache empty {e:.3f}, lookup not called "
-            f"{r:.3f}")
-        report[f"host {op} {dtype} M={M}"] = {
+    for case, h, e, r in zip(cases, hit, empty, rule_only):
+        say(f"tune: host us a wrapper's plan, {case['label']}: cache loaded "
+            f"{h:.3f}, cache empty {e:.3f}, cache not read {r:.3f}")
+        report[f"host {case['label']}"] = {
             "plan_us_cache_loaded": h, "plan_us_cache_empty": e,
             "plan_us_no_lookup": r}
+    worst = max(h - e for h, e in zip(hit, empty))
     say(f"tune: {n} entries saved to, reloaded from and removed with "
-        f"{path}; each wrapper took its tuned plan")
+        f"{path}; each wrapper took its tuned plan; a loaded cache costs a "
+        f"wrapper's plan at most {worst:.3f} host us over an empty one")
     return report
+
+
+#: the tuned-cache serve check's depth (full width)
+TUNED_SERVE_LAYERS = 8
+#: the plans its cache file holds for the main path's attention, neither
+#: the rule's: a 4-way split of the 512-token serving table, and a flash
+#: plan of 32 rows a CTA shared by 2 warps a row tile
+TUNED_SERVE_SPLIT = {"split_tok": 128, "nsplit": 4}
+TUNED_SERVE_FLASH = {"rows": 32, "key_split": 2}
+
+
+def tuned_serve_run(torch) -> dict:
+    """The bucketed bf16 W4A4 path (full-width qwen2-0.5b at
+    TUNED_SERVE_LAYERS layers, the Poisson trace, captured steps) served
+    with a cache file that cuts its attention otherwise than the rules
+    (TUNED_SERVE_SPLIT at the serving table, TUNED_SERVE_FLASH at every
+    fresh prompt bucket and batch), and again with no cache file: the
+    engine loads the file when built, its decode launches take the tuned
+    split, and the two runs' greedy tokens are compared request by request.
+    A split or a flash plan changes only the order of the online softmax's
+    sums, so in bf16 the tokens may part as the step modes' do (ROADMAP
+    Queue 3 item 14): the agreement is reported, every request must be
+    ok."""
+    from repro_torch.configs import Runtime, ServingConfig, get_config
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.paged_attention import decode_plan_for
+    from repro_torch.serving.api import poisson_trace
+
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"),
+                              n_layers=TUNED_SERVE_LAYERS)
+    params = _w4a4_params(TUNED_SERVE_LAYERS)
+    trace = poisson_trace(8, 0.5, PROMPT_LENS, GEN_LENS, cfg.vocab,
+                          seed=SEED)
+    rt = Runtime(attn_impl="flash", quant_backend="w4a4_packed")
+    entries = {autotune.cache_key("attn.paged_decode", KV, 512, HD,
+                                  "bfloat16", PAGE_SIZE): TUNED_SERVE_SPLIT}
+    for B in range(1, MAX_BATCH + 1):
+        for Sq in sorted({ServingConfig.prompt_bucket(n)
+                          for n in PROMPT_LENS}):
+            entries[autotune.cache_key("attn.prefill", (B, Sq), Sq, (H, HD),
+                                       "bfloat16", KV)] = TUNED_SERVE_FLASH
+    path = autotune.cache_path()
+    with open(path, "w") as f:
+        json.dump(entries, f)
+    tokens = {}
+    for which in ("tuned", "rules"):
+        autotune.reset()
+        engine, _, _, tokens[which] = serve_engine(
+            torch, cfg, params, rt, _sv(), trace, PROMPT_LENS,
+            f"bucketed at {cfg.n_layers} layers, {which} attention plans")
+        pool = engine.caches["rep"]["u0"]["attn"]["k"][0]
+        split = decode_plan_for(engine._tbl, pool)
+        want = TUNED_SERVE_SPLIT["nsplit"] if which == "tuned" else 8
+        if split.nsplit != want:
+            fail(f"tune serve ({which}): the engine's decode takes {split}, "
+                 f"not {want} splits")
+        del engine
+        if which == "tuned":
+            os.remove(path)
+    autotune.reset()
+    same, first = _agreement(tokens["tuned"], tokens["rules"])
+    say(f"tune serve: with the tuned cache file ({len(entries)} entries: a "
+        f"{TUNED_SERVE_SPLIT['nsplit']}-way decode split, flash "
+        f"{TUNED_SERVE_FLASH}) the greedy tokens equal the rules' for "
+        f"{same} of {len(trace)} requests, first tokens {first} of "
+        f"{len(trace)}")
+    return {"requests": len(trace), "tokens_equal": same,
+            "first_tokens_equal": first}
 
 
 # --------------------------------------------------------------- main ----
@@ -4989,6 +5179,7 @@ def main() -> None:
     t0 = time.perf_counter()
     analysis_run()
     tune_runs(torch)
+    tuned_serve_run(torch)
     say(f"phase 6 (analysis, tuning): {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, res in results.items():

@@ -20,11 +20,14 @@
 //          lp - t >= window
 //   out  = sum_t softmax(s)[t] * v_t; lp < 0 outputs exact zeros.
 //
-// The split (`split_plan`, mirrored by `decode_plan` in
-// kernels/paged_attention.py): the table's width W = pps * ps tokens is cut
-// into nsplit <= 8 ranges of split_tok tokens (a multiple of ps, at least
-// min(64, W)), from the width alone, so a decode-only ragged pack and the
-// paged batch it packs get the same split.  A row's nsplit CTAs (grid z)
+// The split: the table's width W = pps * ps tokens is cut into nsplit <= 8
+// ranges of split_tok tokens (a multiple of ps, at most W, nsplit =
+// ceil(W / split_tok); `plan_ok`, mirrored by `decode_split_ok` in
+// kernels/paged_attention.py).  The wrappers pick it from the table's
+// width, page size, KV heads, head dim and pool dtype alone (the rule,
+// `split_plan`, mirrored by `decode_plan`, at least min(64, W) tokens a
+// split; or the one tuned entry both kernels read), so a decode-only ragged
+// pack and the paged batch it packs get the same split.  A row's nsplit CTAs (grid z)
 // form one thread-block cluster.  Each CTA
 //   1. loads its range's table entries and q (as f32) into shared memory,
 //      their loads issued beside the row's lp,
@@ -91,12 +94,19 @@ __host__ __device__ inline void split_plan(int width, int ps, int* split_tok,
   *nsplit = (width + *split_tok - 1) / *split_tok;
 }
 
-// The split the wrappers chose (`decode_plan`) is the one split_plan gives.
+// A split the kernels take (kernels/paged_attention.py::decode_split_ok):
+// whole pages a split, no wider than the table, nsplit = ceil(width /
+// split_tok) CTAs a row, at most MAX_SPLITS (one portable cluster).  Each
+// CTA's table entries are split_tok / ps ints of dynamic shared memory
+// (`launch_split` raises the limit past 48 KB, the wrappers keep it within
+// the block's), and the merge's slices of the G * HD outputs,
+// ceil(G * HD / nsplit) each, fit Merge::acc at every nsplit from 1.
 inline bool plan_ok(int pps, int ps, int split_tok, int nsplit) {
   if (pps < 1 || ps < 1) return false;
-  int want_tok, want_n;
-  split_plan(pps * ps, ps, &want_tok, &want_n);
-  return split_tok == want_tok && nsplit == want_n;
+  const int width = pps * ps;
+  if (split_tok < ps || split_tok % ps || split_tok > width) return false;
+  return nsplit == (width + split_tok - 1) / split_tok && nsplit >= 1
+      && nsplit <= MAX_SPLITS;
 }
 
 // Launch `kernel` on grid (rows, KV, nsplit), the nsplit CTAs of a

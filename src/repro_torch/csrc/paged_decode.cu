@@ -15,8 +15,9 @@
 // KB and the kernel is bound by latency: the chain of dependent global
 // loads and the FMA chains each CTA walks.  What the design does about it:
 // the grid is (B, KV, nsplit), each row's context split across the nsplit
-// CTAs of one thread-block cluster (`split_plan`: at max_ctx 512, ps 16, 8
-// splits of 64 tokens, 128 CTAs at batch 8 with 2 KV heads), each CTA
+// CTAs of one thread-block cluster (the rule's `split_plan`: at max_ctx
+// 512, ps 16, 8 splits of 64 tokens, 128 CTAs at batch 8 with 2 KV heads;
+// or a tuned split, 1 to 8 CTAs a row), each CTA
 // loading its table entries once and then all its K/V rows at once in
 // 16-byte loads, the G query heads of the group sharing each K/V read, and
 // the splits merged through distributed shared memory in rank order: one
@@ -87,8 +88,8 @@ int launch_hd(int hd, const void* q, const void* kp, const void* vp,
 // Returns a cudaError_t; cudaErrorInvalidValue for a shape the kernel is
 // not built for (decode_common.cuh `shape_ok`: head dim 64 with at most 8
 // query heads per KV head, or head dim 128 with at most 9), a pool kind
-// not of decode_common.cuh's PoolKind, or a split other than the one
-// `split_plan` gives the table (the wrapper's `decode_plan`).
+// not of decode_common.cuh's PoolKind, or a split `plan_ok` refuses (the
+// wrapper's `decode_plan_for`).
 extern "C" int paged_decode_launch(const void* q, const void* kp,
                                    const void* vp, const void* ks,
                                    const void* vs, const void* tbl,

@@ -92,8 +92,8 @@ int launch_hd(int hd, const void* q, const void* kp, const void* vp,
 
 // Returns a cudaError_t; cudaErrorInvalidValue for a shape the kernel is
 // not built for (decode_common.cuh `shape_ok`, as csrc/paged_decode.cu), a
-// pool kind not of decode_common.cuh's PoolKind, or a split other than the
-// one `split_plan` gives the table (the wrapper's `decode_plan`).
+// pool kind not of decode_common.cuh's PoolKind, or a split `plan_ok`
+// refuses (the wrapper's `decode_plan_for`).
 extern "C" int ragged_decode_launch(const void* q, const void* kp,
                                     const void* vp, const void* ks,
                                     const void* vs, const void* tbl,

@@ -568,29 +568,89 @@ def local_rows(w) -> int:
 
 
 # ------------------------------------------------------- sharded training --
-def sync_grads(grads, shardings):
+def zero_dims(param_shardings, moment_shardings) -> list:
+    """For each leaf (``optim.adamw.tree_leaves`` order), the dimension
+    that the moment's sharding splits over ``data`` where its parameter's
+    does not (ZeRO: ``launch.steps.state_specs(zero=True)``), else None;
+    None too while ``data`` has one rank."""
+    from ..optim.adamw import tree_leaves
+
+    out = []
+    for p, mo in zip(tree_leaves(param_shardings),
+                     tree_leaves(moment_shardings)):
+        dim = None
+        if mo.mesh.shape["data"] > 1 and "data" not in _flat_axes(p.spec):
+            dim = next((d for d, e in enumerate(mo.spec)
+                        if e is not None and "data" in _axes(e)), None)
+        out.append(dim)
+    return out
+
+
+def _reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum of `x` over `group`, cut along `dim`: this rank's slice."""
+    n = dist.get_world_size(group)
+    parts = [c.contiguous() for c in x.chunk(n, dim)]
+    out = torch.empty_like(parts[0])
+    record_collective("reduce-scatter", x, group)
+    dist.reduce_scatter(out, parts, group=group)
+    return out
+
+
+def sync_grads(grads, shardings, zero=None):
     """Each gradient summed over the data axes its parameter (`shardings`,
     a `NamedSharding` tree) is not sharded on: a data-sharded expert
     weight's gradient was reduce-scattered over ``data`` in the backward
-    already.  In place; returns `grads`."""
-    from ..optim.adamw import tree_leaves
+    already.  Where `zero` (`zero_dims`) names a dimension, the gradient is
+    reduce-scattered over ``data`` along it onto its moment's shard instead
+    of all-reduced there.  Returns the gradient tree (in place where
+    nothing is scattered)."""
+    from ..optim.adamw import tree_leaves, tree_unflatten
 
     m = current_mesh()
     if m is None:
         return grads
-    for g, sh in zip(tree_leaves(grads), tree_leaves(shardings)):
-        have = _flat_axes(sh.spec)
+    leaves = tree_leaves(grads)
+    dims = zero or [None] * len(leaves)
+    out = []
+    for g, sh, dim in zip(leaves, tree_leaves(shardings), dims):
+        if dim is not None:
+            g = _reduce_scatter(g, dim, m.group("data"))
+        have = _flat_axes(sh.spec) + ([] if dim is None else ["data"])
         for a in dp_axes():
             if a not in have and m.shape[a] > 1:
                 record_collective("all-reduce", g, m.group(a))
                 dist.all_reduce(g, group=m.group(a))
-    return grads
+        out.append(g)
+    return tree_unflatten(grads, iter(out))
+
+
+def zero_slice(params, zero):
+    """Each parameter cut to this data rank's slice along its `zero`
+    dimension (`zero_dims`): the shard its moments hold."""
+    from ..optim.adamw import tree_leaves, tree_unflatten
+
+    m = current_mesh()
+    return tree_unflatten(params, iter(
+        p if dim is None else _chunk(p, dim, m.group("data"))
+        for p, dim in zip(tree_leaves(params), zero)))
+
+
+def zero_gather(params, zero):
+    """The inverse of `zero_slice`: each sliced parameter all-gathered over
+    ``data`` along its `zero` dimension."""
+    from ..optim.adamw import tree_leaves, tree_unflatten
+
+    m = current_mesh()
+    return tree_unflatten(params, iter(
+        p if dim is None else _all_gather(p, dim, m.group("data"))
+        for p, dim in zip(tree_leaves(params), zero)))
 
 
 def sharded_global_norm(grads, shardings) -> torch.Tensor:
     """The global norm of a tree of gradient shards: each leaf's sum of
-    squares summed over the axes its parameter is sharded on, then the
-    leaves summed in ``optim.adamw.global_norm``'s order."""
+    squares summed over the axes its gradient is sharded on (`shardings`:
+    its parameter's, or under ZeRO its moment's), then the leaves summed
+    in ``optim.adamw.global_norm``'s order."""
     from ..optim.adamw import tree_leaves
 
     m = current_mesh()

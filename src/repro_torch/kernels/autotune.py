@@ -1,9 +1,11 @@
-"""Plan autotuner for the GEMM kernels, and the attention ops' default tiles.
+"""Plan autotuner for the GEMM and attention kernels, and the attention
+ops' default tiles.
 
 Ports ``repro/kernels/autotune.py``.  The JAX package tunes Pallas block
 shapes (bm, bn, bk); the port's kernels are cut by plans instead
 (``int4_matmul.w4a4_plan``, ``lut4_matmul.lut4_plan``,
-``w4a16_matmul.splitk_plan`` / ``prefill_plan``), and an entry of the
+``w4a16_matmul.splitk_plan`` / ``prefill_plan``,
+``paged_attention.decode_plan`` / ``flash_plan``), and an entry of the
 cache holds the tunable fields of the op's plan:
 
   * ``"int4_matmul"`` (both W4A4 entries; the key's dtype tells them apart:
@@ -11,18 +13,33 @@ cache holds the tunable fields of the op's plan:
     ``bm``, ``bn``, ``rows``, ``splits``;
   * ``"gemm.lut4"``: ``bm``, ``rows``, ``splits``;
   * ``"w4a16_matmul"``: ``mt``, ``rows`` at M <= 16 (the split-K plan),
-    ``kernel``, ``bm`` above (the prefill plan).
+    ``kernel``, ``bm`` above (the prefill plan);
+  * ``"attn.paged_decode"``: ``split_tok`` (tokens a split of the block
+    table's width; ``nsplit`` beside it), keyed by what the split depends
+    on and not by the rows: M = KV heads, K = the table's width in tokens,
+    N = head dim, the group-size slot the page size, the pool's dtype.
+    ``"attn.ragged"`` names the same entry (``cache_key`` maps it there):
+    the paged and the ragged decode kernels share one split, so a
+    decode-only ragged pack stays bit-equal to the paged batch it packs
+    whatever the cache holds;
+  * ``"attn.prefill"``: ``rows``, ``key_split``, keyed by the whole
+    launch shape: M = (B, Sq), K = Skv, N = (H, hd), the group-size slot
+    the KV heads (a tuple is written ``BxSq`` in the key).
 
 Each kernel module owns what its kernel takes (``TUNING``: an entry's
 check, the candidate set, the rule's entry); this module owns the cache
 and the search:
 
-  * ``lookup(op, M, K, N, dtype, ...)`` — what every CUDA wrapper asks
-    before it cuts a launch: the tuned entry for the shape, else None, and
-    the wrapper takes its rule's plan.  The wrappers ask by shape alone; a
-    site-tagged entry (``tag=``) is read only by a lookup that names the
-    site.  Never searches, and returns at once while the cache is empty.
-    The plain versions never ask.
+  * ``lookup(op, M, K, N, dtype, ...)`` — the tuned entry for the shape,
+    else None.  A site-tagged entry (``tag=``) is read only by a lookup
+    that names the site.  Never searches, and returns at once while the
+    cache is empty.  The plain versions never ask.
+  * ``tuned_plan(op, M, K, N, dtype, G, build, *args)`` — what every CUDA
+    wrapper asks before it cuts a launch: the plan ``build(entry, *args)``
+    makes of the entry for its shape, else None, and the wrapper takes its
+    rule's plan.  The wrappers ask by shape alone.  The plan is built and
+    checked once per shape and kept while the cache holds the same entry,
+    so a loaded cache costs a wrapper a tuple key and two dict reads.
   * ``tune(...)`` — the timed search over an op's candidate plans, run
     explicitly (``chip_smoke.py``'s tune phase on the card); results
     persist to an on-disk JSON cache keyed by (op, shape, dtype, group
@@ -32,13 +49,11 @@ Cache location: ``$REPRO_AUTOTUNE_CACHE`` if set, else
 ``~/.cache/repro_torch/autotune.json``.  With no cache file every launch
 takes its rule's plan.
 
-The attention ops (``attn.paged_decode``, ``attn.ragged``,
-``attn.prefill``) are not tuned: their plans are fixed
-(``paged_attention.decode_plan`` / ``flash_plan``).  Only their default
-tiles are kept here, which the plain versions take their blocking from,
-as the JAX package's XLA twins do on an untuned host: the decode twin's
-pages per block is ``attn_default_blocks(...)["bk"] // page_size`` and
-the flash twin's kv tile is ``attn_default_blocks(...)["bk"]``.
+The plain versions of the attention ops take their blocking from the
+default tiles kept here (`attn_default_blocks`), as the JAX package's XLA
+twins do on an untuned host: the decode twin's pages per block is
+``attn_default_blocks(...)["bk"] // page_size`` and the flash twin's kv
+tile is ``attn_default_blocks(...)["bk"]``.
 """
 
 from __future__ import annotations
@@ -54,8 +69,12 @@ from ..observability.metrics import global_registry
 ENV_CACHE_PATH = "REPRO_AUTOTUNE_CACHE"
 #: the backend field of every key: the JAX package's entries never match
 BACKEND = "cuda"
-#: the ops the tuner searches, each a GEMM kernel's plan
+#: the ops the tuner searches: the GEMM kernels' plans ...
 GEMM_OPS = ("int4_matmul", "gemm.lut4", "w4a16_matmul")
+#: ... and the attention kernels' (``"attn.ragged"`` names the entry of
+#: ``"attn.paged_decode"``: `ALIASES`)
+ATTN_OPS = ("attn.paged_decode", "attn.prefill", "attn.ragged")
+ALIASES = {"attn.ragged": "attn.paged_decode"}
 
 # What a rejected candidate may raise: a plan the kernel cannot take
 # (ValueError from the plan checks, before any launch), or an assert of
@@ -67,13 +86,17 @@ _TILE_REJECT_ERRORS = (ValueError, AssertionError, NotImplementedError)
 # in-memory mirror of the on-disk cache: key -> the plan's fields and "us"
 _CACHE: Dict[str, Dict] = {}
 _LOADED_FROM: Optional[str] = None
+# `tuned_plan`'s plans: (op, shape, dtype, G, build's args) -> (the cache
+# key, the entry the plan was built from, the plan)
+_PLANS: Dict[tuple, tuple] = {}
 
 
 @dataclasses.dataclass(frozen=True)
 class Tuning:
-    """What a GEMM kernel's module tells the tuner.  Every callable takes
-    the key's shape, group size and dtype name: ``check(entry, M, K, N,
-    G, dtype)`` raises ValueError unless the kernel takes the entry there
+    """What a kernel's module tells the tuner.  Every callable takes the
+    key's shape, group size and dtype name (the module docstring says what
+    they are for each op): ``check(entry, M, K, N, G, dtype)`` raises
+    ValueError unless the kernel takes the entry there
     (16-byte aligned operands assumed); ``candidates(M, K, N, G, dtype)``
     is the search space, the rule's entry included; ``rule(M, K, N, G,
     dtype)`` is the rule's plan as an entry."""
@@ -83,16 +106,20 @@ class Tuning:
 
 
 def tuning(op: str) -> Tuning:
-    """The kernel module's `Tuning` for a GEMM op; ValueError for any
-    other op (the attention ops keep their fixed plans)."""
-    from . import int4_matmul, lut4_matmul, w4a16_matmul
+    """The kernel module's `Tuning` for a tuned op; ValueError for any
+    other op."""
+    from . import (int4_matmul, lut4_matmul, paged_attention,
+                   ragged_attention, w4a16_matmul)
 
     table = {"int4_matmul": int4_matmul.TUNING,
              "gemm.lut4": lut4_matmul.TUNING,
-             "w4a16_matmul": w4a16_matmul.TUNING}
+             "w4a16_matmul": w4a16_matmul.TUNING,
+             "attn.paged_decode": paged_attention.DECODE_TUNING,
+             "attn.ragged": ragged_attention.TUNING,
+             "attn.prefill": paged_attention.FLASH_TUNING}
     if op not in table:
         raise ValueError(f"autotune: no plan search for op {op!r}; the "
-                         f"tuned ops are {GEMM_OPS}")
+                         f"tuned ops are {GEMM_OPS + ATTN_OPS}")
     return table[op]
 
 
@@ -114,11 +141,25 @@ def cache_path() -> str:
                         "autotune.json")
 
 
-def cache_key(op: str, M: int, K: int, N: int, dtype: str,
-              group_size: int = 0, backend: str = "", tag: str = "") -> str:
+def _dim(v) -> str:
+    """A key's shape field: an integer, or a tuple of them joined by x."""
+    return "x".join(map(str, v)) if isinstance(v, tuple) else str(v)
+
+
+def cache_key(op: str, M, K, N, dtype: str, group_size: int = 0,
+              backend: str = "", tag: str = "") -> str:
+    """The cache key of a shape (an alias op's key is its entry's)."""
     backend = backend or BACKEND
-    key = f"{op}|m{M}|k{K}|n{N}|{dtype}|g{group_size}|{backend}"
+    key = (f"{ALIASES.get(op, op)}|m{_dim(M)}|k{_dim(K)}|n{_dim(N)}|{dtype}"
+           f"|g{group_size}|{backend}")
     return f"{key}|{tag}" if tag else key
+
+
+def _parse_dim(field: str, letter: str):
+    if field[0] != letter:
+        raise ValueError(field)
+    v = tuple(int(x) for x in field[1:].split("x"))
+    return v[0] if len(v) == 1 else v
 
 
 def _parse_key(key: str):
@@ -129,9 +170,11 @@ def _parse_key(key: str):
         return None
     op, m, k, n, dtype, g = parts[:6]
     try:
-        if (m[0], k[0], n[0], g[0]) != ("m", "k", "n", "g"):
+        G = _parse_dim(g, "g")
+        if isinstance(G, tuple):
             return None
-        return op, int(m[1:]), int(k[1:]), int(n[1:]), dtype, int(g[1:])
+        return (op, _parse_dim(m, "m"), _parse_dim(k, "k"),
+                _parse_dim(n, "n"), dtype, G)
     except (IndexError, ValueError):
         return None
 
@@ -139,8 +182,8 @@ def _parse_key(key: str):
 def _entry_ok(key: str, entry) -> bool:
     """Is ``entry`` a plan the key's kernel takes at the key's shape?"""
     parsed = _parse_key(key)
-    if parsed is None or parsed[0] not in GEMM_OPS \
-            or not isinstance(entry, dict):
+    if parsed is None or parsed[0] not in GEMM_OPS + ATTN_OPS \
+            or parsed[0] in ALIASES or not isinstance(entry, dict):
         return False
     op, M, K, N, dtype, G = parsed
     try:
@@ -154,6 +197,7 @@ def reset() -> None:
     """Drop in-memory state (tests; cache file is untouched)."""
     global _LOADED_FROM
     _CACHE.clear()
+    _PLANS.clear()
     _LOADED_FROM = None
 
 
@@ -195,9 +239,9 @@ def ensure_loaded() -> None:
 
 
 # --------------------------------------------------------------- lookup ----
-def lookup(op: str, M: int, K: int, N: int, dtype: str,
+def lookup(op: str, M, K, N, dtype: str,
            group_size: int = 0, tag: str = "") -> Optional[Dict]:
-    """The tuned plan entry for this GEMM if cached (site-tagged entry
+    """The tuned plan entry for this shape if cached (site-tagged entry
     first, then the shape-generic one), without its time; else None."""
     ensure_loaded()
     if not _CACHE:                     # untuned: no key built, no search
@@ -210,7 +254,30 @@ def lookup(op: str, M: int, K: int, N: int, dtype: str,
     return None
 
 
-def candidate_plans(op: str, M: int, K: int, N: int, dtype: str,
+def tuned_plan(op: str, M, K, N, dtype: str, group_size: int,
+               build: Callable, *args):
+    """The plan a CUDA wrapper takes from the cache for this shape:
+    ``build(entry, *args)`` of the shape's entry (`lookup`), else None.
+    The plan is kept under (op, shape, dtype, group size, args) with the
+    entry it was built from, and taken again while the cache holds that
+    same entry: an entry is checked once, when a wrapper first reads it.
+    An entry `build` refuses raises its ValueError at every call, and is
+    never kept."""
+    ensure_loaded()
+    if not _CACHE:                     # untuned: no key built, no search
+        return None
+    memo_key = (op, M, K, N, dtype, group_size) + args
+    memo = _PLANS.get(memo_key)
+    if memo is not None and _CACHE.get(memo[0]) is memo[1]:
+        return memo[2]
+    key = cache_key(op, M, K, N, dtype, group_size)
+    entry = lookup(op, M, K, N, dtype, group_size)
+    plan = None if entry is None else build(entry, *args)
+    _PLANS[memo_key] = (key, _CACHE.get(key), plan)
+    return plan
+
+
+def candidate_plans(op: str, M, K, N, dtype: str,
                     group_size: int = 0) -> List[Dict]:
     """The op's search space at this shape, the rule's entry included."""
     return tuning(op).candidates(M, K, N, group_size, dtype)
@@ -256,7 +323,7 @@ def _default_timer(fn: Callable[[], object], reps: int = 10,
 
 
 def tune(op: str, make_call: Callable[[Dict], Callable[[], object]],
-         M: int, K: int, N: int, dtype: str, *,
+         M, K, N, dtype: str, *,
          group_size: int = 0, tag: str = "",
          candidates: Optional[Iterable[Dict]] = None,
          timer: Callable[[Callable[[], object]], float] = _default_timer,
@@ -302,10 +369,10 @@ def tune(op: str, make_call: Callable[[Dict], Callable[[], object]],
 
 
 # ------------------------------------------------------ attention tiles ----
-#: attention ops reuse the (bm, bn, bk) entry format: bk = kv tokens per
-#: program (pages_per_program * page_size for the paged ops, with page
-#: size in the group_size slot), bn = KV-head tile, bm = q tile
-ATTN_OPS = ("attn.paged_decode", "attn.prefill", "attn.ragged")
+#: the plain versions' tiles keep the JAX package's (bm, bn, bk) format:
+#: bk = kv tokens per program (pages_per_program * page_size for the paged
+#: ops, with page size in the group_size slot), bn = KV-head tile, bm = q
+#: tile
 _PAGED_ATTN_OPS = ("attn.paged_decode", "attn.ragged")
 
 

@@ -204,9 +204,9 @@ def launch_plan(M: int, K: int, N: int, Kh: int, aligned: bool, dtype: str,
     activation dtype where the cache holds one, else `w4a4_plan`.  An
     entry the kernel cannot take raises ValueError, before any launch."""
     if plan is None:
-        plan = autotune.lookup("int4_matmul", M, K, N, dtype)
-    if plan is None:
-        return w4a4_plan(M, K, N, Kh, aligned)
+        p = autotune.tuned_plan("int4_matmul", M, K, N, dtype, 0,
+                                w4a4_plan_from, M, K, N, Kh, aligned)
+        return w4a4_plan(M, K, N, Kh, aligned) if p is None else p
     return w4a4_plan_from(plan, M, K, N, Kh, aligned)
 
 

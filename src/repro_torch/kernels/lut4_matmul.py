@@ -181,9 +181,9 @@ def launch_plan(M: int, K: int, N: int, Kh: int, aligned: bool,
     `lut4_plan`.  An entry the kernel cannot take raises ValueError,
     before any launch."""
     if plan is None:
-        plan = autotune.lookup("gemm.lut4", M, K, N, "int8")
-    if plan is None:
-        return lut4_plan(M, K, N, Kh, aligned)
+        p = autotune.tuned_plan("gemm.lut4", M, K, N, "int8", 0,
+                                lut4_plan_from, M, K, N, Kh, aligned)
+        return lut4_plan(M, K, N, Kh, aligned) if p is None else p
     return lut4_plan_from(plan, M, K, N, Kh, aligned)
 
 

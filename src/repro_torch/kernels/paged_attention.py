@@ -18,7 +18,7 @@ Ports ``repro/kernels/paged_attention.py``:
     softmax with the probabilities cast to the pool dtype, bf16 for a
     quantized pool, blocked PV with f32 partial sums); the CUDA kernel
     splits each row's context across the CTAs of a thread-block cluster
-    (``decode_plan``), runs an online softmax in each split, merges the
+    (``decode_plan``, or the tuned split of ``"attn.paged_decode"``), runs an online softmax in each split, merges the
     splits in a fixed order, and agrees with the plain version to bf16
     tolerance.  The kernel takes bf16, int8 and int4 pools; the plain
     version f32 pools as well.
@@ -29,7 +29,8 @@ Ports ``repro/kernels/paged_attention.py``:
     plain version copies ``flash_prefill_xla`` with its kv tile.  The
     kernel runs QK and PV on bf16 tensor cores over the (query, head) rows
     of one KV head, several warps a 16-row tile each taking a slice of
-    every K/V tile, cut into CTAs by ``flash_plan``.
+    every K/V tile, cut into CTAs by ``flash_plan`` (or the tuned plan of
+    ``"attn.prefill"``).
 
 With bf16 activations the QK scores are rounded to bf16 before the scale,
 as the dense path's bf16 einsum rounds them.  ``kernels.ops`` picks the
@@ -46,7 +47,7 @@ import math
 import torch
 
 from ..core.quant import unpack_int4
-from . import _build
+from . import _build, autotune
 
 NEG_INF = -1e30
 
@@ -162,13 +163,13 @@ class DecodePlan:
 
 @functools.lru_cache(maxsize=None)
 def decode_plan(width: int, ps: int) -> DecodePlan:
-    """The split of a block table `width` = pps * ps tokens wide (pages of
-    ps tokens), from the width alone, so the paged and ragged kernels cut a
-    table the same way and the wrapper needs nothing from the device: the
-    fewest tokens a split, rounded up to whole pages, with at most
-    DECODE_MAX_SPLITS splits of at least min(DECODE_MIN_SPLIT_TOK, width)
-    tokens.  At max_ctx 512 and ps 16: 8 splits of 64 tokens.  Mirrors
-    ``split_plan`` in csrc/decode_common.cuh, which refuses any other."""
+    """The rule's split of a block table `width` = pps * ps tokens wide
+    (pages of ps tokens), from the width alone, so the paged and ragged
+    kernels cut a table the same way and the wrapper needs nothing from the
+    device: the fewest tokens a split, rounded up to whole pages, with at
+    most DECODE_MAX_SPLITS splits of at least min(DECODE_MIN_SPLIT_TOK,
+    width) tokens.  At max_ctx 512 and ps 16: 8 splits of 64 tokens.
+    Mirrors ``split_plan`` in csrc/decode_common.cuh."""
     if width < 1 or ps < 1 or width % ps:
         raise ValueError(f"decode_plan: width {width}, page size {ps}")
     lo = max(-(-width // DECODE_MAX_SPLITS), min(DECODE_MIN_SPLIT_TOK, width))
@@ -176,11 +177,107 @@ def decode_plan(width: int, ps: int) -> DecodePlan:
     return DecodePlan(split_tok, -(-width // split_tok), split_tok // ps)
 
 
-def decode_plan_for(tbl: torch.Tensor, k_pool: torch.Tensor) -> DecodePlan:
-    """The plan of a launch over block table `tbl` [rows, pps] and pools of
-    page size ``k_pool.shape[1]``: both decode wrappers call it."""
-    ps = k_pool.shape[1]
-    return decode_plan(tbl.shape[1] * ps, ps)
+def decode_static_smem(hd: int) -> int:
+    """A decode CTA's static shared memory at head dim `hd`
+    (csrc/decode_common.cuh ``Smem<HD, MAXG>``: the staged K/V chunk, q,
+    the chunk's scores and the merge's inbox)."""
+    G = DECODE_MAX_GROUP[hd]
+    return 2 * DECODE_CHUNK * (hd + 8) * 2 + 4 * (
+        G * hd + G * DECODE_CHUNK + 2 * DECODE_MAX_SPLITS * G + G * hd
+        + DECODE_MAX_SPLITS)
+
+
+def decode_split_ok(width: int, ps: int, split_tok: int,
+                    nsplit: int) -> bool:
+    """Is (split_tok, nsplit) a split the decode kernels take for a table
+    `width` tokens wide: whole pages a split, no wider than the table,
+    nsplit = ceil(width / split_tok) CTAs a row, at most
+    DECODE_MAX_SPLITS (one portable cluster)?  Mirrors ``plan_ok`` in
+    csrc/decode_common.cuh."""
+    if width < 1 or ps < 1 or width % ps:
+        return False
+    if split_tok < ps or split_tok % ps or split_tok > width:
+        return False
+    return nsplit == -(-width // split_tok) and 1 <= nsplit \
+        <= DECODE_MAX_SPLITS
+
+
+def decode_plan_from(entry: dict, width: int, ps: int,
+                     hd: int) -> DecodePlan:
+    """The split of a tuned entry ({split_tok[, nsplit]}) for a table
+    `width` tokens wide at head dim `hd`; ValueError unless the kernels
+    take it (`decode_split_ok`) with its table entries beside the static
+    shared memory in a CTA's MAX_SMEM_BYTES."""
+    split_tok = autotune.int_field(entry, "split_tok")
+    if hd not in DECODE_MAX_GROUP or split_tok < 1:
+        raise ValueError(f"decode plan: head dim {hd}, split of "
+                         f"{split_tok} tokens")
+    nsplit = autotune.int_field(entry, "nsplit", -(-width // split_tok))
+    if not decode_split_ok(width, ps, split_tok, nsplit):
+        raise ValueError(
+            f"decode plan: {nsplit} splits of {split_tok} tokens over a "
+            f"{width}-token table of {ps}-token pages; the kernels take "
+            f"whole pages a split and at most {DECODE_MAX_SPLITS} splits")
+    if split_tok // ps * 4 + decode_static_smem(hd) > MAX_SMEM_BYTES:
+        raise ValueError(f"decode plan: {split_tok // ps} table entries a "
+                         f"CTA do not fit its shared memory at hd {hd}")
+    return DecodePlan(split_tok, nsplit, split_tok // ps)
+
+
+def decode_entry(p: DecodePlan) -> dict:
+    """A split's tunable fields: what an ``autotune`` cache entry holds."""
+    return {"split_tok": p.split_tok, "nsplit": p.nsplit}
+
+
+def decode_candidates(M, K, N, G=0, dtype="") -> list:
+    """The tuner's search space for a table K tokens wide of G-token pages:
+    the rule's split first, then the fewest whole pages a split for each
+    nsplit of 1 to DECODE_MAX_SPLITS, each distinct nsplit once."""
+    width, ps = K, G
+    out = [decode_entry(decode_plan(width, ps))]
+    for n in range(1, DECODE_MAX_SPLITS + 1):
+        split_tok = -(-(-(-width // n)) // ps) * ps
+        e = {"split_tok": split_tok, "nsplit": -(-width // split_tok)}
+        if e["nsplit"] not in [c["nsplit"] for c in out]:
+            out.append(e)
+    return out
+
+
+#: the pools' dtype names in a decode key
+POOL_NAMES = {torch.bfloat16: "bfloat16", torch.int8: "int8",
+              torch.uint8: "uint8"}
+
+
+def _decode_check(entry, M, K, N, G, dtype) -> DecodePlan:
+    if dtype not in POOL_NAMES.values() or not isinstance(M, int) or M < 1:
+        raise ValueError(f"decode plan: {M} KV heads, {dtype} pool")
+    return decode_plan_from(entry, K, G, N)
+
+
+DECODE_TUNING = autotune.Tuning(
+    check=_decode_check, candidates=decode_candidates,
+    rule=lambda M, K, N, G, dtype: decode_entry(decode_plan(K, G)))
+
+
+def decode_plan_for(tbl: torch.Tensor, k_pool: torch.Tensor,
+                    plan: dict = None) -> DecodePlan:
+    """The split of a launch over block table `tbl` [rows, pps] and pools
+    ``[P, ps, KV, hd]`` (int4: ``hd // 2`` bytes): both decode wrappers
+    call it.  `plan` where the caller gives one (the tuner's candidates),
+    else the tuned ``"attn.paged_decode"`` entry for the table's width,
+    ps, KV, hd and the pool's dtype where the cache holds one (never keyed
+    by the rows, so a decode-only ragged pack and the paged batch it packs
+    split alike), else `decode_plan`.  An entry the kernels cannot take
+    raises ValueError, before any launch."""
+    _, ps, KV, w = k_pool.shape
+    width = tbl.shape[1] * ps
+    hd = 2 * w if k_pool.dtype == torch.uint8 else w
+    if plan is not None:
+        return decode_plan_from(plan, width, ps, hd)
+    p = autotune.tuned_plan("attn.paged_decode", KV, width, hd,
+                            POOL_NAMES.get(k_pool.dtype, ""), ps,
+                            decode_plan_from, width, ps, hd)
+    return decode_plan(width, ps) if p is None else p
 
 
 def _bind_decode(lib: ctypes.CDLL) -> None:
@@ -255,10 +352,12 @@ def check_pools(name: str, q, k_pool, v_pool, k_scale, v_scale) -> int:
 
 
 def paged_decode_attention_cuda(q, k_pool, v_pool, tbl, last_pos,
-                                k_scale=None, v_scale=None,
-                                window: int = 0) -> torch.Tensor:
+                                k_scale=None, v_scale=None, window: int = 0,
+                                *, plan: dict = None) -> torch.Tensor:
     """Launch the paged decode kernel: q [B, H, hd] bf16; pools as
-    `check_pools` takes them; tbl [B, pps] int32; last_pos [B] int32."""
+    `check_pools` takes them; tbl [B, pps] int32; last_pos [B] int32; split
+    by `decode_plan_for` (`plan`: a split entry to take in place of the
+    cache's and the rule's)."""
     name = "paged_decode_attention_cuda"
     kind = check_pools(name, q, k_pool, v_pool, k_scale, v_scale)
     _check_cuda(name, (q, tbl, last_pos),
@@ -273,14 +372,14 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, tbl, last_pos,
     out = torch.empty_like(q)
     if B == 0:
         return out
-    plan = decode_plan_for(tbl, k_pool)
+    split = decode_plan_for(tbl, k_pool, plan)
     lib = _build.load("paged_decode", _bind_decode)
     code = lib.paged_decode_launch(
         _build.ptr(q), _build.ptr(k_pool), _build.ptr(v_pool),
         _build.ptr(k_scale), _build.ptr(v_scale), _build.ptr(tbl),
         _build.ptr(last_pos), _build.ptr(out),
         B, H, KV, hd, P, ps, pps, int(window), kind, 1.0 / math.sqrt(hd),
-        plan.split_tok, plan.nsplit, _build.stream_of(q))
+        split.split_tok, split.nsplit, _build.stream_of(q))
     _build.check(lib, code, "paged_decode_attention")
     paged_decode_attention_cuda.launches += 1
     return out
@@ -449,11 +548,105 @@ def flash_plan(B: int, Sq: int, Skv: int, H: int, KV: int,
         key_split = FLASH_BK // (hd // 4)
         while rows // 16 * key_split > FLASH_MAX_WARPS:
             key_split //= 2
+    return _flash_cut(B, Sq, Skv, H, KV, hd, rows, key_split)
+
+
+def _flash_cut(B, Sq, Skv, H, KV, hd, rows, key_split) -> FlashPlan:
     warps = rows // 16 * key_split
-    grid = (-(-R // rows), KV, B)
+    grid = (-(-(H // KV * Sq) // rows), KV, B)
     return FlashPlan(rows, key_split, FLASH_BK, warps, grid,
                      grid[0] * KV * B, -(-Skv // FLASH_BK),
                      flash_smem(hd, rows, warps))
+
+
+def flash_plan_from(entry: dict, B: int, Sq: int, Skv: int, H: int,
+                    KV: int, hd: int) -> FlashPlan:
+    """The plan of a tuned entry ({rows, key_split}) for the launch's full
+    shape; ValueError unless the kernel takes it there: rows of
+    FLASH_ROWS, a key split of FLASH_KEY_SPLITS (only FLASH_WIDE_KEY_SPLIT
+    past FLASH_Q_REGS_MAX_HD), at most FLASH_MAX_WARPS warps, and its
+    shared memory within MAX_SMEM_BYTES."""
+    rows, key_split = (autotune.int_field(entry, k)
+                       for k in ("rows", "key_split"))
+    if B < 1 or Sq < 1 or KV < 1 or H % KV or hd not in FLASH_HEAD_DIMS:
+        raise ValueError(f"flash plan: B = {B}, Sq = {Sq}, H = {H}, "
+                         f"KV = {KV}, hd = {hd}")
+    if rows not in FLASH_ROWS or key_split not in FLASH_KEY_SPLITS or (
+            hd > FLASH_Q_REGS_MAX_HD and key_split != FLASH_WIDE_KEY_SPLIT):
+        raise ValueError(f"flash plan: {rows} rows, key split {key_split} "
+                         f"at hd {hd}; the kernel takes rows {FLASH_ROWS} "
+                         f"and key splits {FLASH_KEY_SPLITS} (only "
+                         f"{FLASH_WIDE_KEY_SPLIT} past hd "
+                         f"{FLASH_Q_REGS_MAX_HD})")
+    warps = rows // 16 * key_split
+    if warps > FLASH_MAX_WARPS or flash_smem(hd, rows, warps) \
+            > MAX_SMEM_BYTES:
+        raise ValueError(f"flash plan: {warps} warps of {rows} rows at hd "
+                         f"{hd}: at most {FLASH_MAX_WARPS} warps and "
+                         f"{MAX_SMEM_BYTES} bytes of shared memory a CTA")
+    return _flash_cut(B, Sq, Skv, H, KV, hd, rows, key_split)
+
+
+def flash_entry(p: FlashPlan) -> dict:
+    """A plan's tunable fields: what an ``autotune`` cache entry holds."""
+    return {"rows": p.rows, "key_split": p.key_split}
+
+
+def _flash_shape(M, K, N, G):
+    """(B, Sq, Skv, H, KV, hd) of an ``"attn.prefill"`` key's shape."""
+    if not (isinstance(M, tuple) and isinstance(N, tuple) and len(M) == 2
+            and len(N) == 2):
+        raise ValueError(f"flash plan: key shape m{M} n{N}; want (B, Sq) "
+                         "and (H, hd)")
+    return M[0], M[1], K, N[0], G, N[1]
+
+
+def flash_candidates(M, K, N, G=0, dtype="") -> list:
+    """The tuner's search space at this shape: the rule's plan first, then
+    every (rows, key_split) the kernel takes there."""
+    shape = _flash_shape(M, K, N, G)
+    out = [flash_entry(flash_plan(*shape))]
+    splits = (FLASH_WIDE_KEY_SPLIT,) if shape[5] > FLASH_Q_REGS_MAX_HD \
+        else FLASH_KEY_SPLITS
+    for key_split in splits:
+        for rows in FLASH_ROWS:
+            e = {"rows": rows, "key_split": key_split}
+            if e in out:
+                continue
+            try:
+                flash_plan_from(e, *shape)
+            except ValueError:
+                continue
+            out.append(e)
+    return out
+
+
+def _flash_check(entry, M, K, N, G, dtype) -> FlashPlan:
+    if dtype != "bfloat16":
+        raise ValueError(f"flash plan: {dtype} operands; the kernel takes "
+                         "bfloat16")
+    return flash_plan_from(entry, *_flash_shape(M, K, N, G))
+
+
+FLASH_TUNING = autotune.Tuning(
+    check=_flash_check, candidates=flash_candidates,
+    rule=lambda M, K, N, G, dtype: flash_entry(
+        flash_plan(*_flash_shape(M, K, N, G))))
+
+
+def flash_launch_plan(B: int, Sq: int, Skv: int, H: int, KV: int, hd: int,
+                      plan: dict = None) -> FlashPlan:
+    """The plan a flash launch takes: `plan` where the caller gives one
+    (the tuner's candidates), else the tuned ``"attn.prefill"`` entry for
+    the launch's whole shape where the cache holds one, else `flash_plan`.
+    An entry the kernel cannot take raises ValueError, before any
+    launch."""
+    if plan is not None:
+        return flash_plan_from(plan, B, Sq, Skv, H, KV, hd)
+    p = autotune.tuned_plan("attn.prefill", (B, Sq), Skv, (H, hd),
+                            "bfloat16", KV, flash_plan_from, B, Sq, Skv, H,
+                            KV, hd)
+    return flash_plan(B, Sq, Skv, H, KV, hd) if p is None else p
 
 
 def _bind_flash(lib: ctypes.CDLL) -> None:
@@ -463,11 +656,12 @@ def _bind_flash(lib: ctypes.CDLL) -> None:
     lib.flash_prefill_launch.restype = ctypes.c_int
 
 
-def flash_prefill_cuda(q, k, v, q_positions, k_positions,
-                       window: int = 0) -> torch.Tensor:
+def flash_prefill_cuda(q, k, v, q_positions, k_positions, window: int = 0,
+                       *, plan: dict = None) -> torch.Tensor:
     """Launch the flash prefill kernel: q [B, Sq, H, hd] bf16, k/v
     [B, Skv, KV, hd] bf16 (hd 64, 128 or 256, 16-byte aligned), positions
-    [B, S] int32 (-1 = padding); cut by `flash_plan`."""
+    [B, S] int32 (-1 = padding); cut by `flash_launch_plan` (`plan`: a
+    plan entry to take in place of the cache's and the rule's)."""
     bf, i32 = torch.bfloat16, torch.int32
     _check_cuda("flash_prefill_cuda", (q, k, v, q_positions, k_positions),
                 (bf, bf, bf, i32, i32))
@@ -491,12 +685,12 @@ def flash_prefill_cuda(q, k, v, q_positions, k_positions,
     out = torch.empty_like(q)
     if B == 0 or Sq == 0:
         return out
-    plan = flash_plan(B, Sq, Skv, H, KV, hd)
+    cut = flash_launch_plan(B, Sq, Skv, H, KV, hd, plan)
     lib = _build.load("flash_prefill", _bind_flash)
     code = lib.flash_prefill_launch(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(q_positions),
         _build.ptr(k_positions), _build.ptr(out), B, Sq, Skv, H, KV, hd,
-        int(window), 1.0 / math.sqrt(hd), plan.warps, plan.key_split,
+        int(window), 1.0 / math.sqrt(hd), cut.warps, cut.key_split,
         _build.stream_of(q))
     _build.check(lib, code, "flash_prefill")
     flash_prefill_cuda.launches += 1

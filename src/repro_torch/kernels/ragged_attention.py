@@ -21,8 +21,8 @@ The plain version is ``ragged_attention_xla``: gather each row's table row
 version with batch == tokens, so its decode rows are those of the bucketed
 decode path.  The kernel shares the paged decode kernel's body
 (``csrc/decode_common.cuh``) and its split of the table
-(``paged_attention.decode_plan``), and agrees with the plain version to
-bf16 tolerance.  ``kernels.ops`` picks the plain version for CPU tensors and the
+(``paged_attention.decode_plan_for``: the rule's, or the one tuned entry
+both kernels read), and agrees with the plain version to bf16 tolerance.  ``kernels.ops`` picks the plain version for CPU tensors and the
 kernel for CUDA tensors.
 """
 
@@ -34,8 +34,12 @@ import math
 import torch
 
 from . import _build
-from .paged_attention import _check_cuda, check_pools, decode_plan_for, \
-    paged_decode_attention_plain
+from .paged_attention import (DECODE_TUNING, _check_cuda, check_pools,
+                              decode_plan_for, paged_decode_attention_plain)
+
+#: ``"attn.ragged"`` tunes the split of ``"attn.paged_decode"``: the same
+#: check, candidates and rule, one cache entry (``autotune.ALIASES``)
+TUNING = DECODE_TUNING
 
 
 def ragged_decode_attention_plain(q, k_pool, v_pool, tbl, token_slot,
@@ -67,10 +71,13 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 def ragged_decode_attention_cuda(q, k_pool, v_pool, tbl, token_slot,
                                  token_pos, k_scale=None, v_scale=None,
-                                 window: int = 0) -> torch.Tensor:
+                                 window: int = 0, *,
+                                 plan: dict = None) -> torch.Tensor:
     """Launch the ragged decode kernel: q [T, H, hd] bf16; pools as
     ``paged_attention.check_pools`` takes them; tbl [max_batch, pps],
-    token_slot and token_pos [T], all int32."""
+    token_slot and token_pos [T], all int32; split by `decode_plan_for`
+    as the paged decode kernel is (`plan`: a split entry to take in place
+    of the cache's and the rule's)."""
     name = "ragged_decode_attention_cuda"
     kind = check_pools(name, q, k_pool, v_pool, k_scale, v_scale)
     i32 = torch.int32
@@ -88,14 +95,14 @@ def ragged_decode_attention_cuda(q, k_pool, v_pool, tbl, token_slot,
     out = torch.empty_like(q)
     if T == 0:
         return out
-    plan = decode_plan_for(tbl, k_pool)
+    split = decode_plan_for(tbl, k_pool, plan)
     lib = _build.load("ragged_decode", _bind)
     code = lib.ragged_decode_launch(
         _build.ptr(q), _build.ptr(k_pool), _build.ptr(v_pool),
         _build.ptr(k_scale), _build.ptr(v_scale), _build.ptr(tbl),
         _build.ptr(token_slot), _build.ptr(token_pos), _build.ptr(out),
         T, H, KV, hd, P, ps, maxB, pps, int(window), kind,
-        1.0 / math.sqrt(hd), plan.split_tok, plan.nsplit,
+        1.0 / math.sqrt(hd), split.split_tok, split.nsplit,
         _build.stream_of(q))
     _build.check(lib, code, "ragged_decode_attention")
     ragged_decode_attention_cuda.launches += 1

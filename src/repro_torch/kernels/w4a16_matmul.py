@@ -266,12 +266,15 @@ def launch_plan(M: int, K: int, N: int, Kh: int, G: int, x_bf16: bool,
     entry for this shape, x's dtype and G where the cache holds one, else
     the rule's.  An entry the kernel cannot take raises ValueError,
     before any launch."""
-    if plan is None:
-        plan = autotune.lookup("w4a16_matmul", M, K, N,
-                               "bfloat16" if x_bf16 else "float32", G)
     if plan is not None:
         return w4a16_plan_from(plan, M, K, N, Kh, G, x_bf16, x_aligned,
                                w_aligned)
+    p = autotune.tuned_plan("w4a16_matmul", M, K, N,
+                            "bfloat16" if x_bf16 else "float32", G,
+                            w4a16_plan_from, M, K, N, Kh, G, x_bf16,
+                            x_aligned, w_aligned)
+    if p is not None:
+        return p
     if M <= SPLITK_MAX_M:
         return splitk_plan(M, N, Kh, G, w_aligned)
     return prefill_plan(M, K, N, Kh, G, x_bf16, x_aligned, w_aligned)

@@ -50,8 +50,10 @@ What stands in for each XLA artifact of the JAX dry-run:
     (``distributed.sharding.COLLECTIVES``): the operand bytes of every
     collective the port's code calls, by kind, cross-pod where the group
     holds the ``pod`` axis.
-  * the cost probes at 2 and 4 repeats -> a check.  The JAX dry-run
-    extrapolates from them because XLA counts a scanned loop's body once;
+  * the cost probes at 2 and 4 repeats (a train cell's where ZeRO splits
+    the layer dimension at full depth: `train_probes`) -> a check.  The
+    JAX dry-run extrapolates from them because XLA counts a scanned loop's
+    body once;
     the port counts every layer at full depth
     (``cost_scanned_body_once`` holds that full-depth count), so the
     probes' line taken to full depth must equal it, and a cell where it
@@ -61,9 +63,10 @@ What stands in for each XLA artifact of the JAX dry-run:
     the port's probes run the production runtime, as the full-depth count
     does.
 
-The train cell places the AdamW moments as the port's trainer does (at
-their parameters' placement, ``state_specs(zero=False)``); the JAX
-dry-run's ZeRO moments (``zero=True``) have no trainer in the port.
+The train cell places the state as the JAX dry-run does
+(``state_specs(cfg, mesh)``, ZeRO): the AdamW moments are split over
+``data`` as well, and the train step reduce-scatters their gradients and
+all-gathers the updated parameters (``steps.make_train_step``).
 """
 
 from __future__ import annotations
@@ -179,12 +182,12 @@ def build_cell(cfg, shape, rt: Runtime, mesh) -> Cell:
     with mesh_context(mesh):
         specs = input_specs(cfg, shape, mesh, rt)
         if shape.kind == "train":
-            _, shard = state_specs(cfg, mesh, zero=False)
+            _, shard = state_specs(cfg, mesh)
             state = tree_local(
                 init_train_state(torch.Generator().manual_seed(0), cfg),
                 shard)
             batch = materialize(specs["batch"])
-            fn = make_train_step(cfg, rt, shardings=shard["params"])
+            fn = make_train_step(cfg, rt, shardings=shard)
             return Cell(cfg, fn, (state, batch),
                         {"params": _nbytes(state), "derived": 0,
                          "inputs": _nbytes(batch), "caches": 0})
@@ -390,6 +393,22 @@ def cell_terms(c: Dict) -> Dict:
                              int8_fraction=int8_fraction(c))
 
 
+def train_probes(cfg, mesh, probes=(2, 4)) -> tuple:
+    """The repeats a train cell's cost probes run at.  ZeRO splits a
+    layer-stacked moment over ``data`` along its layer dimension where the
+    repeats divide over ``data`` (``make_param_shardings(zero=True)``, the
+    JAX package's rule), else along a depth-independent one, so the probes
+    take repeats that divide over ``data`` as the full depth's do: `probes`
+    where neither divides and the full depth does not, multiples of the
+    axis where it does."""
+    dp = mesh.shape["data"]
+    if dp == 1:
+        return probes
+    if cfg.n_repeats % dp == 0:
+        return (dp, 2 * dp)
+    return probes if all(r % dp for r in probes) else (1, 3)
+
+
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool, mesh=None,
              probes=(2, 4), rt_overrides=None, serve_packed=True,
              skip_probes=False) -> Dict:
@@ -414,6 +433,8 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, mesh=None,
         return report
 
     kw = dict(rt_overrides=rt_overrides, serve_packed=serve_packed)
+    if shape.kind == "train":
+        probes = train_probes(cfg, mesh, probes)
     # ---- 1. the full-depth step: memory and cost, every layer counted --
     cell, full = measure_cell(arch, shape_name, mesh, **kw)
     report["memory"] = memory_fields(cell, full)

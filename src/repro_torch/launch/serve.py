@@ -106,11 +106,6 @@ from ..serving.api import (bursty_trace, mixed_trace, poisson_trace,
                            run_trace, shared_prefix_trace)
 from ..serving.engine import InferenceEngine, build_params
 
-#: the bursty scenario's arrivals per burst and decode steps between bursts
-#: (the reference CLI's defaults)
-BURST, PERIOD = 4, 8
-
-
 #: the five attention paths of ``--layout compare`` (``paged_nocache`` only
 #: with the prefix cache on)
 COMPARE_PATHS = ("paged", "paged_gather", "contiguous", "paged_nocache",
@@ -212,7 +207,8 @@ def serve(arch: str, *, reduced=True, layers=None, layout=None, max_batch=4,
           page_size=16, num_pages=48, max_ctx=128, requests=8, rate=0.5,
           prompt_lens=(8, 16, 32), gen_lens=(8, 16), prefix_cache=True,
           scenario="poisson", sys_len=32, step="bucketed",
-          token_budget=0, cache_dtype="bfloat16", quant="w4a4_packed",
+          token_budget=0, burst=4, period=8, cache_dtype="bfloat16",
+          quant="w4a4_packed",
           quant_plan=None, seed=0, chaos_seed=0, max_queue=0,
           trace_out=None, metrics=True, sweep=False, quantized_ckpt=False,
           ckpt_dir=None, device="cuda"):
@@ -266,7 +262,7 @@ def serve(arch: str, *, reduced=True, layers=None, layout=None, max_batch=4,
         trace = mixed_trace(requests, prompt_lens, gen_lens, cfg.vocab,
                             seed=seed)
     elif scenario == "bursty":
-        trace = bursty_trace(requests, BURST, PERIOD, prompt_lens, gen_lens,
+        trace = bursty_trace(requests, burst, period, prompt_lens, gen_lens,
                              cfg.vocab, seed=seed)
     else:
         trace = poisson_trace(requests, rate, prompt_lens, gen_lens,
@@ -422,7 +418,7 @@ def main(argv=None):
                     help="shared_prefix: one shared system prefix "
                          "(--sys-len) + a user suffix from --prompt-lens; "
                          "mixed: one arrival per step with cycling lengths; "
-                         f"bursty: {BURST} arrivals every {PERIOD} steps; "
+                         "bursty: --burst arrivals every --period steps; "
                          "chaos: the seeded fault-injection harness "
                          "(cancels, deadlines, allocator failures, step "
                          "faults, stop/resume) in both step modes, "
@@ -437,6 +433,10 @@ def main(argv=None):
     ap.add_argument("--token-budget", type=int, default=0,
                     help="ragged step's padded token capacity per step "
                          "(0 = auto from max_batch/page_size)")
+    ap.add_argument("--burst", type=int, default=4,
+                    help="arrivals per burst (bursty scenario)")
+    ap.add_argument("--period", type=int, default=8,
+                    help="steps between bursts (bursty scenario)")
     ap.add_argument("--prefix-cache", default="on", choices=["on", "off"])
     ap.add_argument("--cache-dtype", default="bfloat16",
                     choices=["bfloat16", "int8", "int4"],
@@ -491,7 +491,8 @@ def main(argv=None):
         gen_lens=tuple(int(x) for x in args.gen_lens.split(",")),
         prefix_cache=args.prefix_cache == "on", scenario=args.scenario,
         sys_len=args.sys_len, step=args.step,
-        token_budget=args.token_budget, cache_dtype=args.cache_dtype,
+        token_budget=args.token_budget, burst=args.burst,
+        period=args.period, cache_dtype=args.cache_dtype,
         quant=args.quant, quant_plan=args.quant_plan, seed=args.seed,
         chaos_seed=args.chaos_seed, max_queue=args.max_queue,
         trace_out=args.trace_out, metrics=args.metrics == "on",

@@ -49,14 +49,16 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-from ..distributed.sharding import (dp_axes, make_param_shardings,
-                                    mesh_context, sharded_global_norm,
-                                    specs_to_shardings, sync_grads)
+from ..distributed.sharding import (NamedSharding, dp_axes,
+                                    make_param_shardings, mesh_context,
+                                    sharded_global_norm, specs_to_shardings,
+                                    sync_grads, zero_dims, zero_gather,
+                                    zero_slice)
 from ..kernels import ops
 from ..models.transformer import (_logits, decode_step, forward,
                                   init_caches, init_model, lm_loss, prefill)
 from ..optim import adamw_init, adamw_update, warmup_cosine
-from ..optim.adamw import tree_leaves, tree_map
+from ..optim.adamw import tree_leaves, tree_map, tree_unflatten
 from ..serving.kv_pages import (gather_rows, scatter_rows, with_block_tables,
                                 with_token_slots)
 
@@ -86,10 +88,18 @@ def make_train_step(cfg, rt, *, peak_lr: float = 3e-4, warmup: int = 100,
     [B, S+1]: the loss and its gradient, then one AdamW step at the
     schedule's rate for the state's step.  Under a mesh
     (``distributed.sharding.mesh_context``) the state holds this rank's
-    shards placed by the rules, `shardings` is their ``NamedSharding``
-    tree (``distributed.sharding.place``) and `batch` this data rank's
-    rows of the global batch: the gradients are summed over the data axes
-    and clipped by the global norm over every shard.  `metrics` holds ``loss``,
+    shards placed by the rules, `shardings` is the state's
+    ``NamedSharding`` tree (``{"params", "opt": {"mu", "nu", "step"},
+    "step"}``: `state_specs`, or `train_shardings` of the parameters'
+    ``distributed.sharding.place``) and `batch` this data rank's rows of
+    the global batch: the gradients are summed over the data axes and
+    clipped by the global norm over every shard.  The step takes its
+    layout from `shardings`: where the moments' shardings split a leaf
+    over ``data`` and its parameter's do not (ZeRO, ``state_specs(zero=
+    True)``), the leaf's gradient is reduce-scattered over ``data`` onto
+    the moments' shard (not all-reduced), AdamW updates that shard of the
+    parameter, and the updated shard is all-gathered over ``data``; the
+    norm counts every element once.  `metrics` holds ``loss``,
     ``nll``, ``aux``, ``lr`` and ``grad_norm`` (tensors on the device).
     A parameter the loss does not reach gets a zero gradient, as under
     ``jax.grad``.  Plans whose GEMMs only a kernel computes (lut4, w4a16,
@@ -114,15 +124,20 @@ def make_train_step(cfg, rt, *, peak_lr: float = 3e-4, warmup: int = 100,
                    for p, g in zip(leaves, grads)])
         grads = _like(live, it)
         with torch.no_grad():
-            kw = {}
+            kw, params = {}, state["params"]
             if shardings is not None:
-                grads = sync_grads(grads, shardings)
+                moments = shardings["opt"]["mu"]
+                zero = zero_dims(shardings["params"], moments)
+                grads = sync_grads(grads, shardings["params"], zero)
                 kw["norm"] = functools.partial(sharded_global_norm,
-                                               shardings=shardings)
+                                               shardings=moments)
+                params = zero_slice(params, zero)
             lr = warmup_cosine(state["step"], peak_lr=peak_lr,
                                warmup_steps=warmup, total_steps=total_steps)
-            params, opt, info = adamw_update(state["params"], grads,
-                                             state["opt"], lr, **kw)
+            params, opt, info = adamw_update(params, grads, state["opt"],
+                                             lr, **kw)
+            if shardings is not None:
+                params = zero_gather(params, zero)
         out = {"loss": loss.detach(), "lr": lr,
                **{k: v.detach() for k, v in metrics.items()}, **info}
         return {"params": params, "opt": opt, "step": state["step"] + 1}, out
@@ -130,12 +145,8 @@ def make_train_step(cfg, rt, *, peak_lr: float = 3e-4, warmup: int = 100,
     return train_step
 
 
-def _like(tree, it):
-    """`tree`'s structure with its leaves taken from `it` in sorted-key
-    order (``optim.adamw.tree_leaves``'s)."""
-    if isinstance(tree, dict):
-        return {k: _like(tree[k], it) for k in sorted(tree)}
-    return next(it)
+#: `tree`'s structure with its leaves taken from an iterator
+_like = tree_unflatten
 
 
 def make_prefill_step(cfg, rt):
@@ -393,6 +404,16 @@ def _abstract_state(cfg) -> Dict:
     since an MoE config's full-width draw takes seconds even so)."""
     return _abstract(lambda: init_train_state(
         torch.Generator().manual_seed(0), cfg))
+
+
+def train_shardings(param_shardings, mesh) -> Dict:
+    """The train state's ``NamedSharding`` tree with the AdamW moments
+    placed as their parameters (`param_shardings`; the trainer CLI's
+    layout, ``state_specs(zero=False)``)."""
+    whole = NamedSharding(mesh, ())
+    return {"params": param_shardings, "step": whole,
+            "opt": {"mu": param_shardings, "nu": param_shardings,
+                    "step": whole}}
 
 
 def state_specs(cfg, mesh, *, zero: bool = True):

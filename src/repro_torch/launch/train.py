@@ -45,12 +45,11 @@ from ..checkpoint import CheckpointManager
 from ..configs import Runtime, get_config
 from ..data import SyntheticLMDataset, make_batch_iterator
 from ..distributed.fault_tolerance import StepTimer, Watchdog, run_with_retries
-from ..distributed.sharding import (NamedSharding, dp_rank, dp_size,
-                                    mesh_context, place)
+from ..distributed.sharding import dp_rank, dp_size, mesh_context, place
 from ..optim import adamw_init
 from ..serving.engine import resolve_device
 from .mesh import mesh_from_spec
-from .steps import init_train_state, make_train_step
+from .steps import init_train_state, make_train_step, train_shardings
 
 log = logging.getLogger("repro_torch.train")
 
@@ -92,14 +91,12 @@ def train(arch: str, *, steps: int = 100, batch: int = 8, seq: int = 128,
     with mesh_context(mesh):
         gen = torch.Generator(device=dev).manual_seed(seed)
         state = init_train_state(gen, cfg)
-        psh = shardings = None
+        shardings = None
         if mesh is not None:
             params, psh = place(state["params"], mesh)
-            whole = NamedSharding(mesh, ())
             state = {"params": params, "opt": adamw_init(params),
                      "step": state["step"]}
-            shardings = {"params": psh, "step": whole,
-                         "opt": {"mu": psh, "nu": psh, "step": whole}}
+            shardings = train_shardings(psh, mesh)
             if batch % dp_size():
                 raise ValueError(f"batch {batch} does not divide over "
                                  f"{dp_size()} data ranks")
@@ -110,7 +107,8 @@ def train(arch: str, *, steps: int = 100, batch: int = 8, seq: int = 128,
             log.info("resumed from step %d", start_step)
 
         step_fn = make_train_step(cfg, rt, peak_lr=peak_lr,
-                                  total_steps=max(steps, 1), shardings=psh)
+                                  total_steps=max(steps, 1),
+                                  shardings=shardings)
         it = make_batch_iterator(ds, start_step=start_step)
         timer = StepTimer()
         history = []

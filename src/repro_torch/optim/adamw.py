@@ -27,6 +27,14 @@ def tree_leaves(tree) -> List[torch.Tensor]:
     return [tree]
 
 
+def tree_unflatten(tree, it):
+    """`tree`'s structure with its leaves taken from the iterator `it` in
+    `tree_leaves`' order."""
+    if isinstance(tree, dict):
+        return {k: tree_unflatten(tree[k], it) for k in sorted(tree)}
+    return next(it)
+
+
 def tree_map(fn, tree, *rest):
     """`fn` over the leaves of `tree` and the matching leaves of `rest`."""
     if isinstance(tree, dict):

@@ -336,7 +336,7 @@ def test_tune_propagates_programming_errors(isolated_cache):
                           candidates=[{"bm": 64, "bn": 128, "rows": 448}],
                           timer=lambda fn: (fn(), 10.0)[1])
     with pytest.raises(ValueError, match="no plan search"):
-        autotune.tune("attn.paged_decode", lambda e: (lambda: e), 8, 512,
+        autotune.tune("attn.unknown", lambda e: (lambda: e), 8, 512,
                       896, "bfloat16", timer=lambda fn: 1.0)
     assert autotune._CACHE == {}
 

@@ -1615,3 +1615,100 @@ def test_quantized_checkpoint_restored_and_served_on_the_card(cuda,
     n = ops.launch_counts()
     assert all(n[k] > 0 for k in ("int4_matmul_fused", "flash_prefill",
                                   "paged_decode_attention")), n
+
+
+# ------------------------------------------------ the attention plan search --
+#: the decode splits' shapes: qwen2-0.5b's (G = 7 at hd 64) and
+#: starcoder2-7b's (G = 9 at hd 128); a 512-token table of 16-token pages
+#: (the main path's), rows ending on every split's edges
+SPLIT_SHAPES = [(14, 2, 64), (36, 4, 128)]
+SPLIT_LAST = [511, 63, 64, -1, 300, 175, 0, 200]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache_dtype", ["bfloat16", "int8", "int4"])
+@pytest.mark.parametrize("shape", SPLIT_SHAPES, ids=["hd64", "hd128"])
+def test_every_decode_split_on_both_kernels(cuda, cache_dtype, shape):
+    """Every candidate split of ``"attn.paged_decode"`` (1 to 8 CTAs a
+    row, ``autotune.candidate_plans``) on both decode kernels: within ATOL
+    of the plain version with and without a window, idle rows exactly
+    zero, two calls bit-equal, a decode-only ragged pack bit-equal to the
+    paged decode kernel, and a mixed pack (decode rows, a prefill chunk,
+    padding) within ATOL of the ragged plain version, padding exactly
+    zero."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.paged_attention import POOL_NAMES
+
+    H, KV, hd = shape
+    ps, pps = 16, 32
+    B = len(SPLIT_LAST)
+    P = B * pps + 3
+    k, v, ks, vs = _pools((P, ps, KV, hd), cache_dtype, cuda)
+    tbl = torch.from_numpy(_table(B, pps, P, ps, SPLIT_LAST)).to(cuda)
+    lp = torch.tensor(SPLIT_LAST, dtype=torch.int32, device=cuda)
+    q = _bf(RNG.standard_normal((B, H, hd)).astype(np.float32), cuda)
+    slots = torch.arange(B, dtype=torch.int32, device=cuda)
+    chunk = list(range(100, 124))
+    mslot = torch.tensor(list(range(B)) + [4] * len(chunk) + [-1] * 4,
+                         dtype=torch.int32, device=cuda)
+    mpos = torch.tensor(SPLIT_LAST + chunk + [-1] * 4, dtype=torch.int32,
+                        device=cuda)
+    mq = _bf(RNG.standard_normal((len(mslot), H, hd)).astype(np.float32),
+             cuda)
+    cands = autotune.candidate_plans("attn.paged_decode", KV, pps * ps, hd,
+                                     POOL_NAMES[k.dtype], ps)
+    assert sorted(c["nsplit"] for c in cands) == list(range(1, 9))
+    for entry in cands:
+        for window in (0, 100):
+            got = paged_decode_attention_cuda(q, k, v, tbl, lp, ks, vs,
+                                              window=window, plan=entry)
+            again = paged_decode_attention_cuda(q, k, v, tbl, lp, ks, vs,
+                                                window=window, plan=entry)
+            want = paged_decode_attention_plain(q, k, v, tbl, lp, ks, vs,
+                                                window=window)
+            rag = ragged_decode_attention_cuda(q, k, v, tbl, slots, lp, ks,
+                                               vs, window=window, plan=entry)
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= ATOL, (entry, window, err)
+            assert torch.equal(got, again), entry
+            assert torch.equal(got, rag), entry
+            assert not got[3].float().any()
+            mixed = ragged_decode_attention_cuda(mq, k, v, tbl, mslot, mpos,
+                                                 ks, vs, window=window,
+                                                 plan=entry)
+            mwant = ragged_decode_attention_plain(mq, k, v, tbl, mslot, mpos,
+                                                  ks, vs, window=window)
+            err = (mixed.float() - mwant.float()).abs().max().item()
+            assert err <= ATOL, (entry, window, err)
+            assert not mixed[(mslot < 0) | (mpos < 0)].float().any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["g7_hd128", "g8_window", "sq256",
+                                   "sq256_tail", "g16_hd256_tail_window"])
+def test_every_flash_plan_matches_plain(cuda, shape):
+    """Every candidate plan of ``"attn.prefill"`` (each (rows, key split)
+    the kernel takes at the shape) against the plain version: within
+    ATOL, padding rows exactly zero, two calls bit-equal."""
+    from repro_torch.kernels import autotune
+
+    B, Sq, Skv, H, KV, hd, pads, hit, window = FLASH_SHAPES[shape]
+    q = _bf(RNG.standard_normal((B, Sq, H, hd)).astype(np.float32), cuda)
+    k = _bf(RNG.standard_normal((B, Skv, KV, hd)).astype(np.float32), cuda)
+    v = _bf(RNG.standard_normal((B, Skv, KV, hd)).astype(np.float32), cuda)
+    qpos, kpos = (torch.from_numpy(p).to(cuda)
+                  for p in _flash_positions(B, Sq, Skv, pads, hit))
+    want = flash_prefill_plain(q, k, v, qpos, kpos, window=window)
+    cands = autotune.candidate_plans("attn.prefill", (B, Sq), Skv, (H, hd),
+                                     "bfloat16", KV)
+    assert len(cands) == (2 if hd == 256 else 9)
+    for entry in cands:
+        got = flash_prefill_cuda(q, k, v, qpos, kpos, window=window,
+                                 plan=entry)
+        again = flash_prefill_cuda(q, k, v, qpos, kpos, window=window,
+                                   plan=entry)
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= ATOL, (entry, err)
+        assert torch.equal(got, again), entry
+        for b, pad in enumerate(pads):
+            assert not got[b, :pad].float().any(), entry

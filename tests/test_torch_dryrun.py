@@ -18,10 +18,12 @@ process's default group), all started together:
     the block's forward alone: every recomputed op counted once a run;
   * the per-rank argument bytes of four cells equal the bytes of the JAX
     package's placement trees' shards (built in a JAX subprocess on an
-    Auto-axes mesh): the train state (the moments placed as their
-    parameters, as the port's trainer holds them) and batch, the
-    W4A4-packed parameters (less the port's planar K-major twins), inputs
-    and caches.
+    Auto-axes mesh): the train state (``state_specs(cfg, mesh)``, the JAX
+    dry-run's: ZeRO, the AdamW moments split over ``data`` too) and batch,
+    the W4A4-packed parameters (less the port's planar K-major twins),
+    inputs and caches; the train cell's state falls below the moments at
+    their parameters' placement by the moments' (data - 1) / data share of
+    the leaves ZeRO splits.
 
 A real (non-fake) tensor makes ``count_step`` raise: the dry-run counts,
 it never runs.
@@ -159,7 +161,8 @@ for arch, sname, mname in cells:
                 tuple(mshape))
     rt = Runtime(**(train_rt if shape.kind == "train" else serve_rt))
     if shape.kind == "train":
-        params = state_specs(cfg, mesh, zero=False)[0]
+        params = state_specs(cfg, mesh)[0]
+        placed = state_specs(cfg, mesh, zero=False)[0]
     else:
         sds = jax.eval_shape(lambda: pack_for_serving(
             init_model(jax.random.PRNGKey(0), cfg), cfg, rt))
@@ -177,6 +180,18 @@ for arch, sname, mname in cells:
         "params": nbytes(params),
         "caches": nbytes(inputs.pop("caches", {})),
         "inputs": nbytes(inputs)}
+    if shape.kind == "train":
+        out["/".join((arch, sname, mname))].update(
+            params_placed=nbytes(placed),
+            moments_split=sum(
+                int(np.prod(p.sharding.shard_shape(p.shape)))
+                * np.dtype(l.dtype).itemsize
+                for part in ("mu", "nu")
+                for l, p in zip(jax.tree.leaves(params["opt"][part]),
+                                jax.tree.leaves(params["params"]))
+                if l.sharding.shard_shape(l.shape)
+                != p.sharding.shard_shape(p.shape)),
+            data=mshape["data"])
 print(json.dumps(out))
 """
 
@@ -294,6 +309,46 @@ def test_dryrun_argument_bytes_equal_the_jax_shards(runs):
         assert got["inputs"] == want["inputs"], key
         assert got["caches"] == want["caches"], key
         assert (got["derived"] > 0) == ("train" not in key), key
+
+
+def test_train_cell_places_the_moments_with_zero(runs):
+    """The train cell's state is the ZeRO layout's, not the moments at
+    their parameters' placement: it holds less by (data - 1) / data of
+    what the moment leaves that ZeRO splits held a rank."""
+    for key, want in runs["jax_bytes"].items():
+        if "train" not in key:
+            continue
+        got = runs["bytes"][key]["params"]
+        assert got == want["params"] < want["params_placed"], key
+        n = want["data"]
+        assert want["params_placed"] - got \
+            == want["moments_split"] * (n - 1) // n, key
+
+
+def test_train_probes_split_the_layers_as_the_full_depth_does():
+    """ZeRO splits a stacked moment along its layer dimension exactly when
+    the repeats divide over ``data``: a train cell's probes take repeats
+    that divide as the full depth's do, so their line through full depth
+    counts one layout."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import Mesh
+    from repro_torch.launch.dryrun import train_probes
+
+    for arch, data, want in (("internlm2-20b", 16, (16, 32)),
+                             ("starcoder2-7b", 16, (16, 32)),
+                             ("qwen2-0.5b", 16, (2, 4)),
+                             ("arctic-480b", 16, (2, 4)),
+                             ("arctic-480b", 2, (1, 3)),
+                             ("arctic-480b", 4, (1, 3)),
+                             ("qwen2-0.5b", 2, (2, 4)),
+                             ("qwen2-0.5b", 4, (4, 8)),
+                             ("qwen3-4b", 8, (2, 4)),
+                             ("qwen3-4b", 1, (2, 4))):
+        cfg = get_config(arch)
+        got = train_probes(cfg, Mesh({"data": data, "model": 16}))
+        assert got == want, (arch, data, got)
+        assert {r % data == 0 for r in got} == {cfg.n_repeats % data == 0} \
+            or data == 1
 
 
 def test_a_real_tensor_is_refused():

@@ -43,8 +43,7 @@ def cli_cell(cfg, mesh, rows, seq):
     state = tree_local(init_train_state(torch.Generator().manual_seed(0),
                                         cfg), shard)
     batch = torch.zeros((rows, seq + 1), dtype=torch.int32)
-    return make_train_step(cfg, rt, shardings=shard["params"]), (state,
-                                                                 batch)
+    return make_train_step(cfg, rt, shardings=shard), (state, batch)
 
 
 def counted(fn, args):
@@ -76,10 +75,17 @@ else:
 print(json.dumps(out))
 """
 
-#: the ledger's counts a step (PERF.md §3)
-TRAIN_4K = {"all-reduce": 915, "all-gather": 144}
+#: the ledger's counts a step (PERF.md §3); the train_4k cell's state is
+#: the dry-run's ZeRO layout: of the 17 gradients summed over ``data``, 14
+#: are reduce-scattered onto their moments' shards (and their 14 updated
+#: shards all-gathered), and the norm's squares of those shards take one
+#: all-reduce over ``data``
+ZERO_LEAVES = 14
+TRAIN_4K = {"all-reduce": 902, "all-gather": 144 + ZERO_LEAVES,
+            "reduce-scatter": ZERO_LEAVES}
 CLI = {"all-reduce": 407, "all-gather": 144}
-COMM_OPS = {"all-reduce": "c10d.allreduce_", "all-gather": "c10d.allgather_"}
+COMM_OPS = {"all-reduce": "c10d.allreduce_", "all-gather": "c10d.allgather_",
+            "reduce-scatter": "c10d.reduce_scatter_"}
 
 
 @pytest.fixture(scope="module")
@@ -116,8 +122,10 @@ def test_counts_a_step(runs):
     assert {k: n for k, n in runs["train_4k"]["ledger"].items() if n} \
         == TRAIN_4K
     assert {k: n for k, n in runs["cli"]["ledger"].items() if n} == CLI
-    # the 4096-token loss chunks add 4 model-axis collectives each
-    assert sum(TRAIN_4K.values()) - sum(CLI.values()) == 4 * (128 - 1)
+    # the 4096-token loss chunks add 4 model-axis collectives each; ZeRO an
+    # all-gather a split leaf and the norm's all-reduce
+    assert sum(TRAIN_4K.values()) - sum(CLI.values()) \
+        == 4 * (128 - 1) + ZERO_LEAVES + 1
 
 
 def test_cross_pod_bytes(runs):

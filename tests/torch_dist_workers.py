@@ -190,7 +190,8 @@ def train_worker(rank, jobs, lr):
     from repro_torch.convert import params_from_jax
     from repro_torch.distributed.sharding import (mesh_context, place,
                                                   sync_grads, tree_full)
-    from repro_torch.launch.steps import _like, make_train_step
+    from repro_torch.launch.steps import (_like, make_train_step,
+                                          train_shardings)
     from repro_torch.models import attention
     from repro_torch.models.transformer import lm_loss
     from repro_torch.optim import adamw_init
@@ -223,7 +224,7 @@ def train_worker(rank, jobs, lr):
             state = {"params": params, "opt": adamw_init(params),
                      "step": torch.zeros((), dtype=torch.int32)}
             step = make_train_step(cfg, rt, peak_lr=lr, warmup=1,
-                                   shardings=sh)
+                                   shardings=train_shardings(sh, mesh))
             state, metrics = step(state, _rows(toks_all[-1]))
             res["metrics"] = {k: float(v) for k, v in metrics.items()}
             res["params_after"] = to_numpy(tree_full(state["params"], sh))
@@ -231,6 +232,75 @@ def train_worker(rank, jobs, lr):
         if rank == 0:
             torch.save(res, out)
 
+
+def zero_worker(rank, jobs, lr, device="cpu"):
+    """For each job ``(out, mesh shape, cfg overrides, params npz, tokens
+    npz, Runtime overrides)``: from the JAX parameters (or, with params npz
+    None, the port's init from seed 0 at full width, `cfg overrides`
+    ``n_layers`` only), one train step on each token batch of the npz,
+    twice: with the AdamW moments placed as their parameters
+    (``train_shardings``), then as ``state_specs`` places them (ZeRO).
+    Each run's losses, metrics, the gathered parameters and moments after,
+    and each rank's moment shards' local shapes (rank r writes
+    ``<out>.rank<r>``).  `device` "cuda": rank r on card r, an NCCL
+    mesh."""
+    import dataclasses
+
+    from repro_torch.configs import Runtime, get_config
+    from repro_torch.convert import params_from_jax
+    from repro_torch.distributed.sharding import (mesh_context, place,
+                                                  tree_full, tree_local)
+    from repro_torch.launch.steps import (make_train_step, state_specs,
+                                          train_shardings)
+    from repro_torch.models.transformer import init_model
+    from repro_torch.optim import adamw_init
+
+    dev = torch.device("cuda", rank) if device == "cuda" else \
+        torch.device("cpu")
+    for out, shape, cfg_kw, params_npz, tokens_npz, rt_kw in jobs:
+        rt = Runtime(**rt_kw)
+        cfg_kw = dict(cfg_kw)
+        base = get_config(cfg_kw.pop("arch"))
+        if params_npz is None:
+            cfg = dataclasses.replace(base, **cfg_kw)
+            full = init_model(torch.Generator(device=dev).manual_seed(0),
+                              cfg)
+        else:
+            cfg = base.reduced(**cfg_kw)
+            full = params_from_jax(load_npz(params_npz), dev)
+        with np.load(tokens_npz) as z:
+            toks_all = [torch.from_numpy(z[k]).to(dev)
+                        for k in sorted(z.files, key=int)]
+        res, shapes = {}, {}
+        mesh = make_mesh_cuda(shape) if device == "cuda" else _mesh(shape)
+        with mesh_context(mesh):
+            params, sh = place(full, mesh)
+            layouts = {"params_placed": train_shardings(sh, mesh),
+                       "zero": state_specs(cfg, mesh)[1]}
+            for name, shard in layouts.items():
+                state = {"params": params,
+                         "opt": tree_local(adamw_init(full), shard["opt"]),
+                         "step": torch.zeros((), dtype=torch.int32,
+                                             device=dev)}
+                step = make_train_step(cfg, rt, peak_lr=lr, warmup=1,
+                                       shardings=shard)
+                runs = []
+                for toks in toks_all:
+                    state, metrics = step(state, _rows(toks))
+                    runs.append({k: float(v) for k, v in metrics.items()})
+                res[name] = {
+                    "metrics": runs,
+                    "params_after": to_numpy(tree_full(state["params"], sh)),
+                    "mu_after": to_numpy(tree_full(state["opt"]["mu"],
+                                                   shard["opt"]["mu"])),
+                    "nu_after": to_numpy(tree_full(state["opt"]["nu"],
+                                                   shard["opt"]["nu"]))}
+                shapes[name] = {k: list(v.shape) for k, v in flatten(
+                    {"mu": state["opt"]["mu"],
+                     "nu": state["opt"]["nu"]}).items()}
+        torch.save(shapes, f"{out}.rank{rank}")
+        if rank == 0:
+            torch.save(res, out)
 
 
 W4A4_RT = dict(quant_backend="w4a4_packed", compute_dtype="float32",
